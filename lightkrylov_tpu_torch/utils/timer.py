@@ -1,0 +1,231 @@
+"""Timers, operator call counters and the host-read count.
+
+Counterpart of :mod:`lightkrylov_tpu.utils.timer` (reference:
+src/Utilities/Timer_Utils.f90, Timer.fypp): named timers with
+elapsed/min/max/count, a registry with groups, and a global enable flag that
+makes the instrumentation free when off (Timer.fypp:24,45-47).
+
+PyTorch launches CUDA work asynchronously, so a timer must wait for the
+device before it stops.  Where the JAX package called ``block_until_ready``
+on the routine's outputs, :func:`timed_fn` records a CUDA event on the
+current stream and synchronises on it.  ``torch.profiler`` ranges carry the
+timer names into device traces.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+import weakref
+from collections import defaultdict
+from contextlib import contextmanager
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Timer",
+    "Watch",
+    "global_watch",
+    "time_lightkrylov",
+    "set_timing",
+    "timed",
+    "timed_fn",
+    "operator_label",
+    "count_applications",
+    "host_read",
+    "reset_counters",
+    "get_counter",
+]
+
+_timing_enabled = False
+
+
+def time_lightkrylov() -> bool:
+    """Global instrumentation flag (reference: Timer.fypp:24,45-47)."""
+    return _timing_enabled
+
+
+def set_timing(enabled: bool) -> None:
+    global _timing_enabled
+    _timing_enabled = enabled
+
+
+@dataclass
+class Timer:
+    """Atomic named timer (reference: ``lightkrylov_timer``,
+    Timer_Utils.f90:12-74)."""
+
+    name: str
+    etime: float = 0.0
+    tmin: float = float("inf")
+    tmax: float = 0.0
+    count: int = 0
+    running: bool = False
+    _t0: float = 0.0
+
+    def start(self):
+        if not self.running:
+            self.running = True
+            self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self.running:
+            dt = time.perf_counter() - self._t0
+            self.etime += dt
+            self.tmin = min(self.tmin, dt)
+            self.tmax = max(self.tmax, dt)
+            self.count += 1
+            self.running = False
+
+    @property
+    def avg(self) -> float:
+        return self.etime / self.count if self.count else 0.0
+
+
+class Watch:
+    """Timer registry with groups (reference: ``lightkrylov_watch``,
+    Timer_Utils.f90:89-158)."""
+
+    def __init__(self, name: str = "lightkrylov_watch"):
+        self.name = name
+        self._timers: dict[str, Timer] = {}
+        self._groups: dict[str, list[str]] = defaultdict(list)
+
+    def add_timer(self, name: str, group: str = "user") -> Timer:
+        if name not in self._timers:
+            self._timers[name] = Timer(name)
+            self._groups[group].append(name)
+        return self._timers[name]
+
+    def timer(self, name: str) -> Timer:
+        return self.add_timer(name)
+
+    def summary(self) -> str:
+        """Grouped min/avg/max/count report
+        (reference: ``print_timer_summary``, Timer_Utils.f90:221-419)."""
+        lines = [f"== {self.name} timing summary =="]
+        for group, names in self._groups.items():
+            active = [self._timers[n] for n in names if self._timers[n].count]
+            if not active:
+                continue
+            lines.append(f"-- {group} --")
+            for t in active:
+                lines.append(
+                    f"  {t.name:<40s} n={t.count:<6d} total={t.etime:.4e}s "
+                    f"min={t.tmin:.4e}s avg={t.avg:.4e}s max={t.tmax:.4e}s"
+                )
+        return "\n".join(lines)
+
+
+#: Global watch, mirroring ``global_lightkrylov_timer`` (Timer.fypp:30-41).
+global_watch = Watch()
+
+
+def _wait_for_device() -> None:
+    """Block until the current CUDA stream has run everything enqueued so
+    far; a no-op when CUDA was never used in this process."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+
+
+@contextmanager
+def timed(name: str, group: str = "user"):
+    """Bracket a stage with a named timer and a profiler range (reference:
+    the ``timer%start/stop`` brackets, e.g. arnoldi.fypp:18,75)."""
+    if not _timing_enabled:
+        yield
+        return
+    t = global_watch.add_timer(name, group)
+    with torch.profiler.record_function(name):
+        t.start()
+        try:
+            yield
+        finally:
+            t.stop()
+
+
+def timed_fn(name: str, group: str = "user"):
+    """Decorator timing a library routine, device work included
+    (reference: Timer.fypp:67-113).  Free when timing is disabled."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _timing_enabled:
+                return fn(*args, **kwargs)
+            with timed(name, group):
+                out = fn(*args, **kwargs)
+                _wait_for_device()
+            return out
+        return wrapper
+    return deco
+
+
+# -- call counters -----------------------------------------------------------
+#
+# The reference counts every matvec/rmatvec on the operator instance
+# (AbstractLinops.fypp:34-37,391-424).  Solvers record their executed
+# applications here, keyed per operator instance: the first instance of a
+# class keeps the bare class name, later live ones get a ``#n`` suffix, and
+# an ``A.label`` attribute overrides the generated name.
+
+_counters: dict[str, int] = defaultdict(int)
+_instance_names: dict[int, str] = {}
+_class_counts: dict[str, int] = defaultdict(int)
+
+
+def operator_label(A) -> str:
+    """Stable per-instance counter key for operator ``A``."""
+    lbl = getattr(A, "label", None)
+    if lbl:
+        return str(lbl)
+    if getattr(A, "_aslinop_wrapped", False):
+        # wrappers minted by aslinop() inside each solve aggregate by class
+        return type(A).__name__
+    key = id(A)
+    name = _instance_names.get(key)
+    if name is None:
+        base = type(A).__name__
+        seq = _class_counts[base]
+        _class_counts[base] += 1
+        name = base if seq == 0 else f"{base}#{seq}"
+        _instance_names[key] = name
+
+        def _drop(key=key, name=name):
+            # ids are reused after collection: drop only our own slot
+            if _instance_names.get(key) == name:
+                _instance_names.pop(key, None)
+
+        weakref.finalize(A, _drop)
+    return name
+
+
+def count_applications(A, n: int, kind: str = "matvec") -> None:
+    """Record that operator ``A`` was applied ``n`` times
+    (reference: ``apply_matvec`` counting, AbstractLinops.fypp:390-424)."""
+    if n:
+        _counters[f"{operator_label(A)}.{kind}"] += int(n)
+
+
+def host_read(t: torch.Tensor) -> np.ndarray:
+    """Copy ``t`` to the host as a numpy array.  This waits until the
+    device has computed it; every such wait in the solvers goes through here
+    and is counted under ``"host_reads"``."""
+    _counters["host_reads"] += 1
+    return t.detach().cpu().numpy()
+
+
+def reset_counters() -> None:
+    """Clear all counters and the per-instance naming epoch."""
+    _counters.clear()
+    _instance_names.clear()
+    _class_counts.clear()
+
+
+def get_counter(name: str) -> int:
+    return _counters[name]
+
