@@ -1,11 +1,14 @@
-"""lightkrylov_tpu_torch: the Poisson GMRES/CG path of ``lightkrylov_tpu`` on
-PyTorch and CUDA.
+"""lightkrylov_tpu_torch: the Krylov solvers of ``lightkrylov_tpu`` on PyTorch
+and CUDA.
 
 A port of the JAX package's vector and operator layers, CGS2 and DCGS2
-orthogonalization, ``gmres``/``fgmres``/``cg`` and the 2-D Poisson operator,
-whose matvec on a CUDA tensor is a hand-written CUDA stencil kernel
-(``csrc/stencil.cu``, built for Hopper ``sm_90a`` on first use).  The module
-layout follows the JAX package's, so each counterpart has the same path.
+orthogonalization, ``gmres``/``fgmres``/``cg``, Lanczos and ``eighs`` (host
+projected path, thick restart), the Poisson, convection-diffusion and
+Toeplitz models, and two operators whose matvec on a CUDA tensor is a
+hand-written CUDA kernel, built for Hopper ``sm_90a`` on first use: the 2-D
+Poisson stencil (``csrc/stencil.cu``) and the Block-ELL sparse matrix
+(``csrc/spmv.cu``).  The module layout follows the JAX package's, so each
+counterpart has the same path.
 
 Float32 matrix products run in full float32: importing the package turns
 TF32 off for matmuls and cuDNN.  TF32 keeps about three decimal digits,
@@ -32,6 +35,8 @@ from .vectors import (  # noqa: E402
     add,
     zero_like,
     dtype_of,
+    rand_like,
+    rand_basis,
     innerprod,
     gram,
     linear_combination,
@@ -58,14 +63,35 @@ from .linops import (  # noqa: E402
     aslinop,
 )
 
-from .krylov import double_gram_schmidt_step, orthogonalize_against_basis  # noqa: E402
-from .models import BlockJacobiPoisson, Poisson2D, poisson2d_eigvals  # noqa: E402
-from .ops import CudaPoisson2D, stencil_matvec, stencil_matvec_2d  # noqa: E402
-from .solvers import cg, fgmres, gmres  # noqa: E402
+from .krylov import (  # noqa: E402
+    double_gram_schmidt_step,
+    initialize_lanczos,
+    lanczos,
+    lanczos_step,
+    orthogonalize_against_basis,
+)
+from .models import (  # noqa: E402
+    BlockJacobiPoisson,
+    ConvectionDiffusion2D,
+    Poisson2D,
+    TridiagToeplitz,
+    poisson2d_eigvals,
+    toeplitz_eigvals,
+)
+from .ops import (  # noqa: E402
+    BellMatrix,
+    BellOperator,
+    CudaPoisson2D,
+    bell_from_scipy,
+    bell_spmv,
+    stencil_matvec,
+    stencil_matvec_2d,
+)
+from .solvers import cg, eighs, fgmres, gmres  # noqa: E402
 
 from .utils import linalg, logger, options, timer  # noqa: E402
 from .utils.logger import logger_setup, check_info, LightKrylovError  # noqa: E402
-from .utils.options import CGOptions, GMRESOptions, SolverMetadata  # noqa: E402
+from .utils.options import CGOptions, EigsOptions, GMRESOptions, SolverMetadata  # noqa: E402
 from .utils.timer import global_watch, set_timing, time_lightkrylov, timed  # noqa: E402
 
 

@@ -31,6 +31,7 @@ __all__ = [
     "real_dtype_of",
     "is_complex_dtype",
     "as_torch_dtype",
+    "as_numpy_dtype",
 ]
 
 _TORCH_TO_NUMPY = {
@@ -51,6 +52,13 @@ def as_torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return _NUMPY_TO_TORCH[np.dtype(dtype)]
+
+
+def as_numpy_dtype(dtype) -> np.dtype:
+    """``dtype`` as a ``numpy.dtype`` (torch dtypes accepted)."""
+    if isinstance(dtype, torch.dtype):
+        return _TORCH_TO_NUMPY[dtype]
+    return np.dtype(dtype)
 
 
 def real_dtype_of(dtype) -> torch.dtype:

@@ -19,9 +19,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .linops import DenseOperator, DiagonalOperator, IdentityOperator
+from .models.convdiff import ConvectionDiffusion2D
 from .models.poisson import BlockJacobiPoisson, Poisson2D
+from .models.toeplitz import TridiagToeplitz
+from .ops.spmv import BellMatrix, BellOperator
 from .ops.stencil import CudaPoisson2D
-from .utils.options import CGOptions, GMRESOptions
+from .utils.options import CGOptions, EigsOptions, GMRESOptions
 
 __all__ = ["to_torch", "port_operator", "port_options"]
 
@@ -50,6 +53,23 @@ def _pallas_poisson(static, children, device):
                          device=device)
 
 
+def _bell(static, children, device):
+    bell = BellMatrix(children["data"], children["cols"], static["shape"], static["nnz"])
+    return BellOperator(bell, is_hermitian=static["is_hermitian"],
+                        interpret=static["interpret"], rows_per_step=static["rows_per_step"])
+
+
+def _convdiff(static, children, device):
+    return ConvectionDiffusion2D(static["nx"], static["ny"], eps=static["eps"],
+                                 cx=static["cx"], cy=static["cy"], dtype=static["dtype_"],
+                                 device=device)
+
+
+def _toeplitz(static, children, device):
+    a, b, c = children["a"], children["b"], children["c"]
+    return TridiagToeplitz(static["n"], a, b, c, dtype=a.dtype, device=device)
+
+
 _PORTS = {
     "Poisson2D": _poisson,
     "PallasPoisson2D": _pallas_poisson,
@@ -57,14 +77,18 @@ _PORTS = {
     "DenseOperator": lambda st, ch, dev: DenseOperator(ch["data"], is_hermitian=st["is_hermitian"]),
     "DiagonalOperator": lambda st, ch, dev: DiagonalOperator(ch["d"]),
     "IdentityOperator": lambda st, ch, dev: IdentityOperator(),
+    "BellOperator": _bell,
+    "ConvectionDiffusion2D": _convdiff,
+    "TridiagToeplitz": _toeplitz,
 }
 
 
 def port_operator(op, device=None):
     """The counterpart of the JAX operator ``op``, with its arrays on
     ``device``: ``Poisson2D`` -> ``Poisson2D``, ``PallasPoisson2D`` ->
-    ``CudaPoisson2D``, ``BlockJacobiPoisson`` (same ``Binv``), and the dense,
-    diagonal and identity operators."""
+    ``CudaPoisson2D``, ``BlockJacobiPoisson`` (same ``Binv``),
+    ``BellOperator`` (same blocks), ``ConvectionDiffusion2D``,
+    ``TridiagToeplitz``, and the dense, diagonal and identity operators."""
     name = type(op).__name__
     if name not in _PORTS:
         raise TypeError(f"no counterpart for operator type {name!r}")
@@ -75,5 +99,6 @@ def port_operator(op, device=None):
 
 def port_options(opts):
     """The options record of the same name, field by field."""
-    cls = {"GMRESOptions": GMRESOptions, "CGOptions": CGOptions}[type(opts).__name__]
+    cls = {"GMRESOptions": GMRESOptions, "CGOptions": CGOptions,
+           "EigsOptions": EigsOptions}[type(opts).__name__]
     return cls(**{f.name: getattr(opts, f.name) for f in dataclasses.fields(cls)})

@@ -21,7 +21,7 @@ from pathlib import Path
 __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil.cu",)
+SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu")
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -73,7 +73,7 @@ def build() -> Path:
         raise KernelCompileError(
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA toolkit is needed to build "
-            "the stencil kernel for a CUDA tensor")
+            "the CUDA kernels for a CUDA tensor")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
@@ -98,6 +98,12 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_double, ctypes.c_double,
                            ctypes.c_double, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ("lk_bell_spmv_f32", "lk_bell_spmv_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p

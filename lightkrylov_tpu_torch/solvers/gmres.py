@@ -40,11 +40,6 @@ from ..utils.timer import count_applications, host_read, timed_fn
 __all__ = ["gmres", "fgmres"]
 
 
-def _lead(X, k: int):
-    """View of the first ``k`` columns of a stacked basis."""
-    return pytree.tree_map(lambda l: l[:k], X)
-
-
 def _padded(v, n: int):
     """``v`` (leading axis m <= n) zero-padded to leading axis ``n``."""
     out = v.new_zeros((n,) + tuple(v.shape[1:]))
@@ -101,7 +96,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
         filled columns, and ``||w||^2``.  Row k gives (sigma, tau) because
         slot k holds u_k itself."""
         Y2 = pytree.tree_map(lambda a, b_: torch.stack([a, b_]), u_k, w)
-        PR = _padded(vectors.innerprod_vpu(_lead(V, k + 1), Y2).to(dt), kdim + 1)
+        PR = _padded(vectors.innerprod_vpu(vectors.lead(V, k + 1), Y2).to(dt), kdim + 1)
         wTw = vectors.dot(w, w).real.to(rdt)
         sigma = PR[k, 0].real.to(rdt, copy=True)
         tau = PR[k, 1].clone()
@@ -147,7 +142,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
             # D is a new tensor, computed in full before V[k] (which u_k
             # views) is overwritten
             D = vectors.linear_combination_vpu(
-                _lead(V, k + 1), torch.stack([c_q, c_u], dim=1)[: k + 1])
+                vectors.lead(V, k + 1), torch.stack([c_q, c_u], dim=1)[: k + 1])
             u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
             vectors.set_column(V, k, vectors.get_column(D, 0))
             vectors.set_column(V, k + 1, u_next)
@@ -160,7 +155,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
             return c, s, res, nin, k_exit - 1, k_exit
         # finish the pending column k_exit-1: one reduction, no matvec
         u_last = vectors.get_column(V, k_exit)
-        zf = _padded(vectors.innerprod(_lead(V, k_exit + 1), u_last).to(dt), kdim + 1)
+        zf = _padded(vectors.innerprod(vectors.lead(V, k_exit + 1), u_last).to(dt), kdim + 1)
         sigma = zf[k_exit].real.to(rdt, copy=True)
         zf[k_exit] = 0
         eta, _ = pythag_eta(sigma, zf)
@@ -176,7 +171,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
             z = precond(vectors.get_column(V, k), k, res)
             if flexible:
                 vectors.set_column(Z, k, z)
-            w, proj = double_gram_schmidt_step(matvec(z), _lead(V, k + 1))
+            w, proj = double_gram_schmidt_step(matvec(z), vectors.lead(V, k + 1))
             beta = vectors.norm(w)
             h_col = _padded(proj.to(dt), kdim + 1)
             h_col[k + 1] = beta
@@ -213,7 +208,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
         # back-substitution on the rotated Hessenberg (gmres.fypp:199-202)
         if k > 0:
             y = linalg.solve_triangular(R[:k, :k], e[:k])
-            dx = vectors.linear_combination(_lead(Z if flexible else V, k), y)
+            dx = vectors.linear_combination(vectors.lead(Z if flexible else V, k), y)
             if not flexible:
                 dx = M.matvec(dx)  # right-preconditioned correction (:201-202)
             x = vectors.add(x, dx)

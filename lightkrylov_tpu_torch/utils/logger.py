@@ -94,15 +94,17 @@ def stop_error(msg, module=None, procedure=None):
 
 
 _BENIGN = {
+    "lanczos": "Invariant subspace found after {info} steps.",
     "gram_schmidt": "Zero vector encountered during orthogonalization.",
     "gmres": "Converged after {info} iterations.",
     "fgmres": "Converged after {info} iterations.",
     "cg": "Converged after {info} iterations.",
+    "eighs": "Converged after {info} iterations.",
 }
 
 #: Origins whose negative info means "did not converge within maxiter": a
 #: logged warning, not a fatal error (reference: Logger.f90:653-667).
-_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg"})
+_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg", "eighs"})
 
 
 def check_info(info: int, origin: str, module: str | None = None, procedure: str | None = None) -> None:

@@ -1,9 +1,10 @@
-"""Options and metadata records of the linear solvers.
+"""Options and metadata records of the solvers.
 
 Mirror of :mod:`lightkrylov_tpu.utils.options` for the solvers this package
 ports (reference: ``gmres_*_opts`` kdim=30, maxiter=10,
-IterativeSolvers.fypp:141-151; ``cg_*_opts`` maxiter=100, :468-474; and the
-metadata types, :153-186,476-505).  The fields and defaults are the JAX
+IterativeSolvers.fypp:141-151; ``cg_*_opts`` maxiter=100, :468-474; the
+eigensolver defaults kdim = 4*nev, :1023-1024; and the metadata types,
+:153-186,476-505).  The fields and defaults are the JAX
 package's, so options carry across by field name (:mod:`..convert`).
 """
 
@@ -13,7 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["GMRESOptions", "CGOptions", "SolverMetadata"]
+__all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "SolverMetadata"]
 
 
 @dataclass(frozen=True)
@@ -39,6 +40,32 @@ class CGOptions:
 
     maxiter: int = 100
     if_print_metadata: bool = False
+
+
+@dataclass(frozen=True)
+class EigsOptions:
+    """Options of ``eighs`` (reference: defaults kdim = 4*nev, tol = rtol,
+    IterativeSolvers.fypp:1023-1024); the JAX record's fields and defaults.
+
+    Only what the host projected path reads is implemented; ``eighs``
+    raises :class:`NotImplementedError` on the rest rather than ignore it:
+
+    * ``projected``: ``"auto"`` and ``"host"`` both mean the host path (a
+      dense ``eigh`` of the projected matrix per check); ``"device"``, the
+      fused on-device sweep, waits for ROADMAP M10.
+    * ``checkpoint_every`` other than 0 (and ``eighs(resume_from=...)``):
+      checkpointing is ROADMAP M13.
+    * ``write_intermediate``: read by ``eigs`` (ROADMAP M8); the JAX
+      ``eighs`` does not read it either.
+    """
+
+    kdim: int | None = None       # None -> 4 * nev
+    maxiter: int = 20             # max restart cycles
+    write_intermediate: bool = False
+    outpost: str = "eigs_output.txt"
+    checkpoint_every: int = 0     # every N convergence checks; 0 = off
+    checkpoint_path: str | None = None
+    projected: str = "auto"
 
 
 @dataclass

@@ -16,6 +16,8 @@ Conventions
 * Columns are written in place: ``set_column(X, i, v)`` copies ``v`` into
   ``X[i]`` and returns ``X``, where JAX's ``.at[i].set`` built a new array.
   ``get_column`` returns a view, so read a column before overwriting it.
+* Random vectors come from an explicit ``torch.Generator`` where the JAX
+  package took a PRNG key; the two give different numbers from one seed.
 """
 
 from __future__ import annotations
@@ -35,8 +37,11 @@ __all__ = [
     "add",
     "zero_like",
     "dtype_of",
+    "rand_like",
+    "rand_basis",
     "get_column",
     "set_column",
+    "lead",
     "zeros_basis",
     "basis_size",
     "innerprod",
@@ -115,6 +120,31 @@ def dtype_of(x) -> torch.dtype:
     return _leaves(x)[0].dtype
 
 
+def rand_like(generator, x, ifnorm: bool = False):
+    """Standard-normal random vector with the structure and dtype of ``x``,
+    drawn from ``generator`` (reference: deferred ``rand``, normalised with
+    ``ifnorm``).  As in the JAX package, a complex leaf has standard-normal
+    real and imaginary parts.  The numbers are drawn on the generator's
+    device and moved to each leaf's."""
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=generator.device)
+
+    def leaf_fn(leaf):
+        if leaf.is_complex():
+            rdt = leaf.real.dtype
+            out = torch.complex(draw(leaf.shape, rdt), draw(leaf.shape, rdt))
+        else:
+            out = draw(leaf.shape, leaf.dtype)
+        return out.to(leaf.device)
+
+    out = pytree.tree_map(leaf_fn, x)
+    if ifnorm:
+        out = scal(1.0 / norm(out), out)
+    return out
+
+
 # -- basis (stacked leading axis) algebra ------------------------------------
 
 def basis_size(X) -> int:
@@ -125,6 +155,12 @@ def basis_size(X) -> int:
 def get_column(X, i):
     """Column ``i`` of a stacked basis, as a view."""
     return pytree.tree_map(lambda l: l[i], X)
+
+
+def lead(X, k: int):
+    """View of the first ``k`` columns of a stacked basis (the JAX package
+    sliced under ``jit`` for its TPU runtime; here a view costs nothing)."""
+    return pytree.tree_map(lambda l: l[:k], X)
 
 
 def set_column(X, i, v):
@@ -141,6 +177,13 @@ def zeros_basis(x_template, k: int, device=None):
         lambda l: torch.zeros((k,) + tuple(l.shape), dtype=l.dtype,
                               device=l.device if device is None else device),
         x_template)
+
+
+def rand_basis(generator, X, ifnorm: bool = False):
+    """Random basis with the structure of ``X``, one :func:`rand_like`
+    column after another (reference: ``rand_basis``)."""
+    cols = [rand_like(generator, get_column(X, 0), ifnorm) for _ in range(basis_size(X))]
+    return pytree.tree_map(lambda *leaves: torch.stack(leaves), *cols)
 
 
 def innerprod(X, y):
