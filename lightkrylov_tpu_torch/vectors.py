@@ -22,6 +22,7 @@ Conventions
 
 from __future__ import annotations
 
+import math
 import operator
 from functools import reduce
 
@@ -63,8 +64,8 @@ def _tree_sum(terms):
 
 
 def _as_matrix(leaf):
-    """Flatten a basis leaf (k, *S) to (k, prod(S))."""
-    return leaf.reshape(leaf.shape[0], -1)
+    """Flatten a basis leaf (k, *S) to (k, prod(S)); k may be 0."""
+    return leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:]))
 
 
 def _common(a, b):

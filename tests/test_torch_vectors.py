@@ -125,6 +125,20 @@ def test_complex_coefficients_on_real_basis(shape):
            jv.linear_combination(_j(X), jnp.asarray(v)), np.complex128)
 
 
+def test_reductions_over_no_columns(dtype):
+    """A view of the filled columns may be empty (the first column of a QR
+    or a factorization): the projection is empty and changes nothing."""
+    X, y, Y = _inputs(dtype, seed=6)
+    empty = tv.lead(_t(X), 0)
+    assert tv.innerprod(empty, _t(y)).shape == (0,)
+    assert tv.innerprod(empty, _t(Y)).shape == (0, 2)
+    coeff = torch.zeros(0, dtype=lt.constants.as_torch_dtype(dtype))
+    assert all(not v.any() for v in tv.linear_combination(empty, coeff).values())
+    y_orth, proj = lt.double_gram_schmidt_step(_t(y), empty)
+    assert proj.shape == (0,)
+    _close(_np(y_orth), y, dtype)
+
+
 def test_package_pins_full_float32_matmuls():
     """TF32 would cost f32 Krylov reductions about three digits."""
     assert torch.backends.cuda.matmul.allow_tf32 is False
