@@ -34,7 +34,22 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     a Hermitian Block-ELL Poisson 64^2;
 12. times (CUDA events, median of 25 runs after a warm-up, kernel and plain
     in turn): bell_spmv at full size, the Block-ELL GMRES(30) cycle, and the
-    eighs_3072 sweep; host reads per inner iteration.
+    eighs_3072 sweep; host reads per inner iteration;
+13. gl512, the flagship eigenanalysis at full width: eigs(16, kdim=40) of the
+    RK4 propagator of GinzburgLandauReal(512) f32, 16/16 converged, true
+    residuals through the generator and the kappa-budgeted anchors of
+    gl_direct_spectrum.npy; matvecs, the warm solve time and the share of
+    it spent in the host projected solves (eig, schur_select);
+14. the native complex GinzburgLandau(512) c64 propagator, eigs(8, kdim=16),
+    with the same checks;
+15. eigs_3072: eigs(nev=4, kdim=32, one sweep) on CudaPoisson2D(3072) f32,
+    32 stencil launches, Ritz values against phase 10's, the sweep timed
+    beside the eighs_3072 sweep;
+16. eigs f64 on the non-normal ConvectionDiffusion2D(64) as a BellOperator
+    (nev=6, kdim=30, Krylov-Schur restarts through bell_spmv), by true
+    residual and against the same solve on the CPU stencil operator;
+17. kexpm: a 96x96 dense f32 operator against scipy's expm, then one kexpm
+    through CudaPoisson2D(3072) against the same call on Poisson2D.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -46,8 +61,10 @@ import shutil
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
+import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
@@ -76,6 +93,11 @@ BELL_REL_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 BELL_SHAPES = [(1003, 777, 8, 16), (1003, 1500, 8, 128), (4097, 3001, 8, 128)]
 N_BELL_POISSON = 1024
 N_EIGHS = 3072
+# gl512: the flagship configuration (benchmarks/flagship_tpu.py:100-194) and
+# its anchors, the f64 direct spectrum with each eigenvalue's condition number
+N_GL = 512
+GL_TOL = 5e-6
+GL_ANCHORS = Path(__file__).resolve().parent / "gl_direct_spectrum.npy"
 
 
 def fail(msg):
@@ -351,7 +373,7 @@ def eighs_3072(dev, tag):
     del V
     torch.cuda.empty_cache()
     return dict(launches=launches, host_reads=host_reads, steps=meta.n_iter,
-                lam1_rel_dev=dev1, sweep_ms=sweep)
+                lam1_rel_dev=dev1, sweep_ms=sweep, ritz=w.tolist())
 
 
 def convergence_gates(dev):
@@ -397,6 +419,243 @@ def convergence_gates(dev):
     check(meta.converged and relres <= 1e-9, "Block-ELL CG did not converge")
     out["bell_cg"] = dict(info=info, relres=relres)
     return out
+
+
+def flagship_budget(kappa, max_res):
+    """The flagship's anchor budget, calibrated on the realified kdim=40
+    solve (flagship_tpu.py:84-99)."""
+    return min(0.5, max(2e-3, 5e-5 * kappa))
+
+
+def first_order_budget(kappa, max_res):
+    """The first-order bound kappa * backward error on an anchor's
+    deviation, capped as the flagship caps its budget."""
+    return min(0.5, max(2e-3, kappa * max_res))
+
+
+def gl_checks(gl, V, r, nev, conj_too, budget):
+    """The flagship's checks (flagship_tpu.py:134-191): Rayleigh quotients
+    of the Ritz vectors through the generator ``gl.matvec``, their true
+    residuals, and each anchor's distance to the nearest converged one
+    (or its conjugate, for the realified operator) against
+    ``budget(kappa, max true residual)``."""
+    conv = r < GL_TOL
+    lam, res = [], []
+    for i in range(V.shape[0]):
+        v = V[i]
+        if gl.mu.is_complex():
+            Av = gl.matvec(v)
+        else:
+            Av = torch.complex(gl.matvec(v.real), gl.matvec(v.imag))
+        v, Av = (t.cpu().numpy().astype(np.complex128).ravel() for t in (v, Av))
+        lam.append(np.vdot(v, Av) / np.vdot(v, v))
+        res.append(float(np.linalg.norm(Av - lam[-1] * v) / np.linalg.norm(v)))
+    lam, res = np.array(lam), np.array(res)
+    check(np.all(np.isfinite(lam)) and np.all(np.isfinite(res)), "GL Ritz pairs not finite")
+    n_conv = int(conv.sum())
+    max_res = float(res[conv].max()) if conv.any() else float("inf")
+    devs, budgets, flagship = [], [], []
+    for w_re, w_im, _, kappa in np.load(GL_ANCHORS):
+        w = complex(w_re, w_im)
+        d = np.abs(lam[conv] - w).min() if conv.any() else np.inf
+        if conj_too and conv.any():
+            d = min(d, np.abs(lam[conv] - np.conj(w)).min())
+        devs.append(float(d))
+        budgets.append(budget(kappa, max_res))
+        flagship.append(flagship_budget(kappa, max_res))
+    check(n_conv >= nev, f"only {n_conv}/{nev} GL pairs converged")
+    check(max_res < 5e-3, f"GL true eigen-residual {max_res:.2e} beyond 5e-3")
+    for k, (d, b) in enumerate(zip(devs, budgets)):
+        check(d < b, f"GL anchor {k} deviation {d:.2e} exceeds its kappa budget {b:.2e}")
+    return dict(n_conv=n_conv, max_true_residual=max_res, true_residuals=res.tolist(),
+                anchor_devs=devs, anchor_budgets=budgets, flagship_budgets=flagship,
+                eigvals=[[float(z.real), float(z.imag)] for z in lam])
+
+
+def gl512(dev, tag):
+    """Phase 13: the flagship stage gl512 (flagship_tpu.py:100-194), the
+    realified operator in f32 as on the TPU."""
+    gl = lt.GinzburgLandauReal(N_GL, dtype=torch.float32, device=dev)
+    prop = lt.GLPropagator(gl, tau=0.01, n_steps=10)
+    x0 = seeded((2, N_GL), torch.float32, dev, seed=11)
+    opts = lt.EigsOptions(maxiter=200)
+
+    def solve():
+        out = lt.eigs(prop, 16, x0=x0, kdim=40, tolerance=GL_TOL, options=opts)
+        torch.cuda.synchronize()
+        return out
+
+    watch = lt.timer.global_watch
+    spans = ("eigs.projected_eig", "krylov_schur.schur_select")
+    lt.set_timing(True)
+    t0 = time.perf_counter()
+    solve()
+    t_first = time.perf_counter() - t0
+    before = {n: watch.timer(n).etime for n in spans}
+    lt.timer.reset_counters()
+    t0 = time.perf_counter()
+    w, V, r, info, meta = solve()
+    t_warm = time.perf_counter() - t0
+    lt.set_timing(False)
+    host = {n: watch.timer(n).etime - before[n] for n in spans}
+    host_reads = lt.timer.get_counter("host_reads")
+    host_s = sum(host.values())
+    print(f"gl512: eigs(16, kdim=40, tol={GL_TOL}) of GLPropagator(GinzburgLandauReal({N_GL}) f32, "
+          f"tau=0.01, 10 RK4 steps): info={info}, {meta.n_iter} matvecs, {host_reads} host reads")
+    check(info > 0, f"gl512 eigs reported non-convergence: info={info}")
+    check(V.shape == (16, 2, N_GL), f"gl512 eigvecs shape {tuple(V.shape)}")
+    out = gl_checks(gl, V, r, 16, conj_too=True, budget=flagship_budget)
+    print(f"gl512: {out['n_conv']}/16 converged, max true eigen-residual "
+          f"{out['max_true_residual']:.2e}, anchor devs {['%.1e' % d for d in out['anchor_devs']]} "
+          f"within budgets {['%.1e' % b for b in out['anchor_budgets']]}")
+    print(f"{tag} gl512 solve: warm {t_warm:.3f} s (first {t_first:.3f} s), {meta.n_iter} matvecs, "
+          f"{t_warm / meta.n_iter * 1e3:.2f} ms a matvec step; host projected solves "
+          f"{host_s:.4f} s = {100 * host_s / t_warm:.2f}% of the warm solve "
+          f"(eig {host['eigs.projected_eig']:.4f} s, schur_select "
+          f"{host['krylov_schur.schur_select']:.4f} s); host reads per matvec "
+          f"{host_reads / meta.n_iter:.3f}")
+    out.update(info=info, matvecs=meta.n_iter, warm_s=t_warm, first_s=t_first,
+               host_solve_s=host, host_solve_share=host_s / t_warm, host_reads=host_reads)
+    return out
+
+
+def gl512_complex(dev, tag):
+    """Phase 14: the native complex operator at the reference's main.f90
+    configuration, nev 8 with kdim 16.  The anchors are held to the
+    first-order bound kappa * backward error: at kdim 16 in c64 the leading
+    Ritz vector carries a true residual near 4e-4 although its Ritz
+    residual is near 1e-7, which puts the best-conditioned anchor at
+    1.5-3.2e-3 over start vectors (JAX package and port alike on the CPU),
+    astride the flagship's calibrated 2e-3; that budget is printed beside
+    it."""
+    gl = lt.GinzburgLandau(N_GL, dtype=torch.complex64, device=dev)
+    prop = lt.GLPropagator(gl, tau=0.01, n_steps=10)
+    x0 = torch.complex(seeded((N_GL,), torch.float32, dev, seed=12),
+                       seeded((N_GL,), torch.float32, dev, seed=13))
+    t0 = time.perf_counter()
+    w, V, r, info, meta = lt.eigs(prop, 8, x0=x0, kdim=16, tolerance=GL_TOL,
+                                  options=lt.EigsOptions(maxiter=200))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    check(info > 0, f"complex GL eigs reported non-convergence: info={info}")
+    out = gl_checks(gl, V, r, 8, conj_too=False, budget=first_order_budget)
+    print(f"{tag} complex GL: eigs(8, kdim=16) of GLPropagator(GinzburgLandau({N_GL}) c64): "
+          f"info={info}, {out['n_conv']}/8 converged in {meta.n_iter} matvecs, {t_solve:.3f} s "
+          f"(first call); max true eigen-residual {out['max_true_residual']:.2e}, anchor devs "
+          f"{['%.1e' % d for d in out['anchor_devs']]} within kappa * backward error "
+          f"{['%.1e' % b for b in out['anchor_budgets']]} (flagship budgets "
+          f"{['%.1e' % b for b in out['flagship_budgets']]})")
+    out.update(info=info, matvecs=meta.n_iter, solve_s=t_solve)
+    return out
+
+
+def eigs_3072(dev, tag, eighs_out):
+    """Phase 15: eigs on the eighs_3072 configuration, one Arnoldi sweep of
+    32 steps from the same start vector: the same Krylov space as phase 10."""
+    n = N_EIGHS
+    op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    x0 = seeded((n, n), torch.float32, dev, seed=7)
+    opts = lt.EigsOptions(maxiter=1)
+    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+    lt.timer.reset_counters()
+    w, V, r, info, meta = lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0, options=opts)
+    torch.cuda.synchronize()
+    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    host_reads = lt.timer.get_counter("host_reads")
+    h = 1.0 / (n + 1)
+    lam_max = (2.0 / h**2) * (2.0 - 2.0 * np.cos(np.pi * n * h))
+    d_re = float(np.abs(w.real - np.array(eighs_out["ritz"])).max() / lam_max)
+    d_im = float(np.abs(w.imag).max() / lam_max)
+    print(f"eigs_3072: {launches} stencil launches, {host_reads} host reads for {meta.n_iter} "
+          f"Arnoldi steps, Ritz values {w}; max |Re - eighs| / lambda_max = {d_re:.3e}, "
+          f"max |Im| / lambda_max = {d_im:.3e}")
+    check(launches == meta.n_iter == 32, f"{launches} stencil launches for {meta.n_iter} steps")
+    check(V.shape == (4, n, n) and bool(torch.isfinite(V).all()), "eigs_3072 output not finite")
+    check(d_re <= 1e-5 and d_im <= 1e-5, "eigs_3072 Ritz values differ from eighs_3072")
+    del V
+    sweep = alternating_ms({"eigs": lambda: lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0,
+                                                    options=opts)})["eigs"]
+    print(f"{tag} eigs_3072 sweep (32 Arnoldi steps, CGS2, host eig) f32: {sweep:.2f} ms; "
+          f"eighs_3072 sweep {eighs_out['sweep_ms']:.2f} ms (median of {RUNS} each); host reads "
+          f"per Arnoldi step {host_reads / meta.n_iter:.3f}")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, host_reads=host_reads, steps=meta.n_iter, re_dev=d_re,
+                im_dev=d_im, sweep_ms=sweep)
+
+
+def eigs_nonnormal(dev):
+    """Phase 16: eigs in f64 on the non-normal convection-diffusion operator
+    through bell_spmv, with Krylov-Schur restarts.  Its leading eigenvalues
+    are crowded and ill-conditioned: the solve is scored by true residual,
+    not against a dense eig.  Each restart cycle multiplies a rounding
+    difference about thirtyfold (JAX package against port on the CPU, same
+    inputs: 1.7e-14 after 6 cycles, 2e-3 after 20), so the comparison with
+    the CPU stencil operator is made after 6 cycles, and the converged
+    solves of the two may differ by percents."""
+    cd = lt.ConvectionDiffusion2D(64)
+    A = cd.dense().numpy()
+    op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
+    x0 = seeded((64 * 64,), torch.float64, dev, seed=14)
+    lt.bell_spmv.LAUNCHES = 0
+    w, V, r, info, meta = lt.eigs(op_b, 6, x0=x0, kdim=30, tolerance=1e-10,
+                                  options=lt.EigsOptions(maxiter=100))
+    torch.cuda.synchronize()
+    launches = lt.bell_spmv.LAUNCHES
+    Vh = V.cpu().numpy()
+    res = [float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
+           for i in range(len(w))]
+    print(f"eigs f64 ConvectionDiffusion2D(64) through Block-ELL: info={info}, {meta.n_iter} "
+          f"matvecs ({launches} bell_spmv launches), eigenvalues {np.round(w, 4)}, max true "
+          f"residual / |lambda_1| {max(res) / abs(w[0]):.3e}")
+    check(info == 6, f"non-normal eigs info={info}")
+    check(launches >= meta.n_iter, f"{launches} bell_spmv launches for {meta.n_iter} matvecs")
+    check(max(res) <= 1e-8 * abs(w[0]), "non-normal eigs true residual above 1e-8 |lambda_1|")
+    six = lt.EigsOptions(maxiter=6)
+    w6, _, _, _, m6 = lt.eigs(op_b, 6, x0=x0, kdim=30, tolerance=1e-10, options=six)
+    w6c, _, _, _, m6c = lt.eigs(cd, 6, x0=x0.cpu().reshape(64, 64), kdim=30, tolerance=1e-10,
+                                options=six)
+    d_cpu = float(np.abs(w6 - w6c).max() / abs(w6c[0]))
+    print(f"the same, 6 restart cycles: Block-ELL {m6.n_iter} matvecs, CPU stencil "
+          f"{m6c.n_iter}; max |w - w_cpu| / |lambda_1| = {d_cpu:.3e}")
+    check(m6.n_iter == m6c.n_iter and d_cpu <= 1e-8,
+          f"non-normal Ritz values differ from the CPU solve by {d_cpu:.3e}")
+    return dict(info=info, matvecs=meta.n_iter, launches=launches,
+                max_true_residual=max(res), cpu_rel_diff_6_cycles=d_cpu)
+
+
+def kexpm_phase(dev):
+    """Phase 17: kexpm against scipy's expm (flagship_tpu.py:308-325), then
+    through the stencil kernel at 3072^2 against the plain operator."""
+    rngl = np.random.default_rng(7)
+    Am = (rngl.standard_normal((96, 96)) * 0.25).astype(np.float32)
+    v = rngl.standard_normal(96).astype(np.float32)
+    c, kinfo = lt.kexpm(lt.DenseOperator(torch.from_numpy(Am).to(dev)),
+                        torch.from_numpy(v).to(dev), tau=0.8, tol=1e-6)
+    ref = sla.expm(0.8 * Am.astype(np.float64)) @ v
+    k_err = float(np.linalg.norm(c.cpu().numpy() - ref) / np.linalg.norm(ref))
+    print(f"kexpm 96x96 dense f32, tau=0.8: info={kinfo}, rel err vs scipy expm (f64) {k_err:.3e}")
+    check(k_err < 1e-4, f"kexpm rel err {k_err:.3e}")
+
+    n = N_MAIN
+    h = 1.0 / (n + 1)
+    tau = -h * h / 8  # |tau| lambda_max is about 1
+    b = seeded((n, n), torch.float32, dev, seed=15)
+    b = b / torch.linalg.norm(b)
+    op_k = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    op_p = lt.Poisson2D(n, dtype=torch.float32, device=dev)
+    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+    c_k, info_k = lt.kexpm(op_k, b, tau)
+    torch.cuda.synchronize()
+    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    c_p, info_p = lt.kexpm(op_p, b, tau)
+    rel = rel_err(c_k, c_p)
+    print(f"kexpm CudaPoisson2D({n}) f32, tau=-h^2/8: info={info_k} ({launches} stencil "
+          f"launches), plain Poisson2D info={info_p}, |c_k - c_p| / |c_p| = {rel:.3e}, "
+          f"|c| = {float(torch.linalg.norm(c_k)):.6f}")
+    check(info_k > 0 and launches == info_k, f"kexpm info {info_k} with {launches} launches")
+    check(info_k == info_p and rel <= 1e-5, "kexpm through the kernel differs from the plain call")
+    return dict(dense_rel_err=k_err, dense_info=kinfo, info=info_k, launches=launches,
+                rel_diff_plain=rel)
 
 
 def main():
@@ -553,6 +812,14 @@ def main():
     results["eighs_3072"] = eighs_3072(dev, tag)
     results["convergence"].update(convergence_gates(dev))
 
+    # 13-17. the Arnoldi family: gl512, complex GL, eigs_3072, non-normal
+    # eigs through Block-ELL, kexpm
+    results["gl512"] = gl512(dev, tag)
+    results["gl512_complex"] = gl512_complex(dev, tag)
+    results["eigs_3072"] = eigs_3072(dev, tag, results["eighs_3072"])
+    results["eigs_nonnormal"] = eigs_nonnormal(dev)
+    results["kexpm"] = kexpm_phase(dev)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     kernels = {"kernels": [{
@@ -562,6 +829,10 @@ def main():
         "replaces": "lightkrylov_tpu/ops/pallas/stencil.py:167",
         "also_replaces": "lightkrylov_tpu/ops/pallas/stencil.py:361",
         "launches": main_launches,
+        "path_launches": {"gmres_3072": main_launches,
+                          "eighs_3072": results["eighs_3072"]["launches"],
+                          "eigs_3072": results["eigs_3072"]["launches"],
+                          "kexpm_3072": results["kexpm"]["launches"]},
         "max_abs_err": main_err,
         "ms": stencil_main["kernel_cold_ms"],
         "plain_ms": stencil_main["plain_cold_ms"],
@@ -571,6 +842,8 @@ def main():
         "source": "lightkrylov_tpu_torch/csrc/spmv.cu",
         "replaces": "lightkrylov_tpu/ops/pallas/spmv.py:138",
         "launches": bell_main["launches"],
+        "path_launches": {"bell_gmres": bell_main["launches"],
+                          "eigs_convdiff": results["eigs_nonnormal"]["launches"]},
         "max_abs_err": bell_err,
         "ms": bell_main["spmv_ms"]["kernel"],
         "plain_ms": bell_main["spmv_ms"]["plain"],

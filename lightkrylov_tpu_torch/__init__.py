@@ -2,9 +2,10 @@
 and CUDA.
 
 A port of the JAX package's vector and operator layers, CGS2 and DCGS2
-orthogonalization, ``gmres``/``fgmres``/``cg``, Lanczos and ``eighs`` (host
-projected path, thick restart), the Poisson, convection-diffusion and
-Toeplitz models, and two operators whose matvec on a CUDA tensor is a
+orthogonalization, QR, ``gmres``/``fgmres``/``cg``, Lanczos and ``eighs``
+(host projected path, thick restart), Arnoldi and ``eigs`` (host projected
+path, Krylov-Schur restart), ``kexpm``, the Poisson, convection-diffusion,
+Toeplitz and Ginzburg-Landau models, and two operators whose matvec on a CUDA tensor is a
 hand-written CUDA kernel, built for Hopper ``sm_90a`` on first use: the 2-D
 Poisson stencil (``csrc/stencil.cu``) and the Block-ELL sparse matrix
 (``csrc/spmv.cu``).  The module layout follows the JAX package's, so each
@@ -33,8 +34,11 @@ from .vectors import (  # noqa: E402
     scal,
     axpby,
     add,
+    sub,
+    chsgn,
     zero_like,
     dtype_of,
+    get_size,
     rand_like,
     rand_basis,
     innerprod,
@@ -42,10 +46,14 @@ from .vectors import (  # noqa: E402
     linear_combination,
     innerprod_vpu,
     linear_combination_vpu,
+    axpby_basis,
     zeros_basis,
+    stack,
+    unstack,
     get_column,
     set_column,
     basis_size,
+    verify_vector_axioms,
 )
 
 from .linops import (  # noqa: E402
@@ -64,17 +72,36 @@ from .linops import (  # noqa: E402
 )
 
 from .krylov import (  # noqa: E402
+    arnoldi,
+    arnoldi_block,
+    arnoldi_step,
+    cholesky_qr2,
     double_gram_schmidt_step,
+    initialize_arnoldi,
+    initialize_krylov_subspace,
     initialize_lanczos,
+    initialize_random_orthonormal_basis,
+    invperm,
+    is_orthonormal,
+    krylov_schur,
     lanczos,
     lanczos_step,
+    median_selector,
     orthogonalize_against_basis,
+    orthonormalize_basis,
+    permcols,
+    qr,
+    qr_pivoted,
 )
 from .models import (  # noqa: E402
     BlockJacobiPoisson,
     ConvectionDiffusion2D,
+    GinzburgLandau,
+    GinzburgLandauReal,
+    GLPropagator,
     Poisson2D,
     TridiagToeplitz,
+    gl_analytic_eigvals,
     poisson2d_eigvals,
     toeplitz_eigvals,
 )
@@ -87,11 +114,28 @@ from .ops import (  # noqa: E402
     stencil_matvec,
     stencil_matvec_2d,
 )
-from .solvers import cg, eighs, fgmres, gmres  # noqa: E402
+from .solvers import (  # noqa: E402
+    ExponentialPropagator,
+    cg,
+    eighs,
+    eigs,
+    fgmres,
+    gmres,
+    kexpm,
+    kexpm_mat,
+    krylov_exptA,
+    save_eigenspectrum,
+)
 
 from .utils import linalg, logger, options, timer  # noqa: E402
 from .utils.logger import logger_setup, check_info, LightKrylovError  # noqa: E402
-from .utils.options import CGOptions, EigsOptions, GMRESOptions, SolverMetadata  # noqa: E402
+from .utils.options import (  # noqa: E402
+    CGOptions,
+    EigsOptions,
+    GMRESOptions,
+    KexpmOptions,
+    SolverMetadata,
+)
 from .utils.timer import global_watch, set_timing, time_lightkrylov, timed  # noqa: E402
 
 

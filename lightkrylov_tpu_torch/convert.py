@@ -6,8 +6,10 @@ JAX array) into tensors of the same dtype; ``port_operator`` maps a
 an options record by field name.
 
 Nothing here imports jax or ``lightkrylov_tpu``: an operator is read through
-its class name, its ``_static`` fields and its ``_children`` arrays, which
-the JAX operators declare for pytree registration (``linops.py:56-80``).
+its class name, its ``_static`` fields and its ``_children``, which the JAX
+operators declare for pytree registration (``linops.py:56-80``).  A child
+is an array or, as in ``GLPropagator``, another operator, which is ported in
+turn.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ from torch.utils import _pytree as pytree
 
 from .linops import DenseOperator, DiagonalOperator, IdentityOperator
 from .models.convdiff import ConvectionDiffusion2D
+from .models.ginzburg_landau import GinzburgLandau, GinzburgLandauReal, GLPropagator
 from .models.poisson import BlockJacobiPoisson, Poisson2D
 from .models.toeplitz import TridiagToeplitz
 from .ops.spmv import BellMatrix, BellOperator
 from .ops.stencil import CudaPoisson2D
-from .utils.options import CGOptions, EigsOptions, GMRESOptions
+from .solvers.expm import ExponentialPropagator
+from .utils.options import CGOptions, EigsOptions, GMRESOptions, KexpmOptions
 
 __all__ = ["to_torch", "port_operator", "port_options"]
 
@@ -70,6 +74,12 @@ def _toeplitz(static, children, device):
     return TridiagToeplitz(static["n"], a, b, c, dtype=a.dtype, device=device)
 
 
+def _gl(cls):
+    def port(static, children, device):
+        return cls(static["nx"], static["L"], dtype=static["dtype_"], device=device)
+    return port
+
+
 _PORTS = {
     "Poisson2D": _poisson,
     "PallasPoisson2D": _pallas_poisson,
@@ -80,7 +90,18 @@ _PORTS = {
     "BellOperator": _bell,
     "ConvectionDiffusion2D": _convdiff,
     "TridiagToeplitz": _toeplitz,
+    "GinzburgLandau": _gl(GinzburgLandau),
+    "GinzburgLandauReal": _gl(GinzburgLandauReal),
+    "GLPropagator": lambda st, ch, dev: GLPropagator(ch["A"], tau=st["tau"],
+                                                     n_steps=st["n_steps"]),
+    "ExponentialPropagator": lambda st, ch, dev: ExponentialPropagator(
+        ch["A"], ch["tau"], kdim=st["kdim"], tol=st["tol"]),
 }
+
+
+def _is_operator(child):
+    """A JAX operator: it declares its pytree fields on its class."""
+    return hasattr(type(child), "_children") and hasattr(type(child), "_static")
 
 
 def port_operator(op, device=None):
@@ -88,17 +109,22 @@ def port_operator(op, device=None):
     ``device``: ``Poisson2D`` -> ``Poisson2D``, ``PallasPoisson2D`` ->
     ``CudaPoisson2D``, ``BlockJacobiPoisson`` (same ``Binv``),
     ``BellOperator`` (same blocks), ``ConvectionDiffusion2D``,
-    ``TridiagToeplitz``, and the dense, diagonal and identity operators."""
+    ``TridiagToeplitz``, ``GinzburgLandau``, ``GinzburgLandauReal``,
+    ``GLPropagator`` and ``ExponentialPropagator`` (their operator children
+    ported in turn), and the dense, diagonal and identity operators."""
     name = type(op).__name__
     if name not in _PORTS:
         raise TypeError(f"no counterpart for operator type {name!r}")
     static = {n: getattr(op, n) for n in type(op)._static}
-    children = {n: to_torch(getattr(op, n), device) for n in type(op)._children}
+    children = {}
+    for n in type(op)._children:
+        child = getattr(op, n)
+        children[n] = port_operator(child, device) if _is_operator(child) else to_torch(child, device)
     return _PORTS[name](static, children, device)
 
 
 def port_options(opts):
     """The options record of the same name, field by field."""
     cls = {"GMRESOptions": GMRESOptions, "CGOptions": CGOptions,
-           "EigsOptions": EigsOptions}[type(opts).__name__]
+           "EigsOptions": EigsOptions, "KexpmOptions": KexpmOptions}[type(opts).__name__]
     return cls(**{f.name: getattr(opts, f.name) for f in dataclasses.fields(cls)})

@@ -1,7 +1,19 @@
-"""Krylov building blocks: CGS2 and the Lanczos factorization."""
+"""Krylov processes: CGS2, QR, the Arnoldi and Lanczos factorizations and
+the Krylov-Schur restart."""
 
+from .arnoldi import (arnoldi, arnoldi_block, arnoldi_block_step, arnoldi_step,
+                      initialize_arnoldi, initialize_arnoldi_block)
 from .gram_schmidt import double_gram_schmidt_step, orthogonalize_against_basis
+from .krylov_schur import krylov_schur, median_selector
 from .lanczos import initialize_lanczos, lanczos, lanczos_step
+from .qr import cholesky_qr2, qr, qr_pivoted
+from .utilities import (initialize_krylov_subspace, initialize_random_orthonormal_basis,
+                        invperm, is_orthonormal, orthonormalize_basis, permcols)
 
-__all__ = ["double_gram_schmidt_step", "initialize_lanczos", "lanczos",
-           "lanczos_step", "orthogonalize_against_basis"]
+__all__ = ["arnoldi", "arnoldi_block", "arnoldi_block_step", "arnoldi_step",
+           "cholesky_qr2", "double_gram_schmidt_step", "initialize_arnoldi",
+           "initialize_arnoldi_block", "initialize_krylov_subspace",
+           "initialize_lanczos", "initialize_random_orthonormal_basis", "invperm",
+           "is_orthonormal", "krylov_schur", "lanczos", "lanczos_step",
+           "median_selector", "orthogonalize_against_basis", "orthonormalize_basis",
+           "permcols", "qr", "qr_pivoted"]

@@ -63,6 +63,17 @@ class LinearOperator:
     def __call__(self, x):
         return self.matvec(x)
 
+    def matvec_basis(self, X):
+        """Apply the operator to every column of a stacked basis, one
+        :meth:`matvec` per column, for the block Krylov methods (the JAX
+        package batches them with ``jax.vmap``; a hand-written kernel has
+        no batched form to map onto)."""
+        return vectors.stack([self.matvec(x) for x in vectors.unstack(X)])
+
+    def rmatvec_basis(self, Y):
+        """Batched adjoint application (see :meth:`matvec_basis`)."""
+        return vectors.stack([self.rmatvec(y) for y in vectors.unstack(Y)])
+
     # -- operator algebra (reference: AbstractLinops.fypp:89-197) ------------
 
     @property

@@ -30,7 +30,7 @@ from .. import constants, vectors
 from ..krylov.lanczos import initialize_lanczos, lanczos
 from ..linops import aslinop
 from ..utils.logger import check_info, log_information, log_warning
-from ..utils.options import EigsOptions, SolverMetadata
+from ..utils.options import EigsOptions, SolverMetadata, check_host_projected
 from ..utils.timer import count_applications, host_read, timed_fn
 
 __all__ = ["eighs"]
@@ -38,19 +38,10 @@ __all__ = ["eighs"]
 
 def _check_options(opts: EigsOptions, resume_from) -> None:
     """Raise on every option the host path does not implement."""
-    if opts.projected == "device":
-        raise NotImplementedError(
-            "eighs: projected='device' (the fused on-device sweep) is not ported; "
-            "ROADMAP M10 decides it by measurement. Use 'host' or 'auto'.")
-    if opts.projected not in ("auto", "host"):
-        raise ValueError(f"eighs: unknown projected={opts.projected!r}")
-    if opts.checkpoint_every or resume_from is not None:
-        raise NotImplementedError(
-            "eighs: checkpoint_every and resume_from (checkpointing) are not "
-            "ported; see ROADMAP M13.")
+    check_host_projected("eighs", opts, resume_from)
     if opts.write_intermediate:
         raise NotImplementedError(
-            "eighs: write_intermediate is read by eigs (ROADMAP M8), not by eighs.")
+            "eighs: write_intermediate is read by eigs, not by eighs (as in the JAX package).")
 
 
 def _thick_restart(X, evals, evecs, beta, n: int):

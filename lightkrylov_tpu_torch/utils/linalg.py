@@ -1,16 +1,167 @@
-"""Small dense linear algebra of the GMRES least-squares problem.
+"""Dense linear algebra of the small projected problems.
 
-Counterpart of ``givens_rotation``, ``apply_givens_rotation`` and
-``solve_triangular`` in :mod:`lightkrylov_tpu.utils.linalg` (reference:
-Utils.fypp:128-268; gmres.fypp:177-182,200).  Everything stays on the
-tensors' device; nothing here reads a value back to the host.
+Counterpart of :mod:`lightkrylov_tpu.utils.linalg` (reference:
+src/Utilities/Utils.fypp, submodule_utility_functions.fypp).
+
+The projected problems are k x k with k of order 100.  The general
+eigendecomposition (GEEV), the Schur form and its reordering (TRSEN) run on
+the host in numpy/scipy, as in the JAX package; a tensor argument is read to
+the host through :func:`..utils.timer.host_read`, which counts the read.
+``eigh``, ``svd``, ``sqrtm``, ``expm``, the Givens rotations of the GMRES
+least-squares problem and the triangular solve stay on the tensors' device.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import scipy.linalg as _sla
 import torch
 
-__all__ = ["givens_rotation", "apply_givens_rotation", "solve_triangular"]
+from .. import constants
+from .timer import host_read
+
+__all__ = [
+    "eig",
+    "eigh",
+    "svd",
+    "schur",
+    "ordschur",
+    "schur_select",
+    "sqrtm",
+    "expm",
+    "givens_rotation",
+    "apply_givens_rotation",
+    "solve_triangular",
+    "assert_shape",
+    "log2",
+]
+
+
+def _host(a):
+    """``a`` as a numpy array; a tensor is read through ``host_read``."""
+    return host_read(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _complex_of(dtype):
+    dtype = np.dtype(dtype)
+    if np.issubdtype(dtype, np.complexfloating):
+        return dtype
+    return np.dtype(np.complex64) if dtype == np.float32 else np.dtype(np.complex128)
+
+
+def eig(A):
+    """Eigendecomposition of a small dense matrix, LAPACK GEEV convention
+    (reference: Utils.fypp ``eig``; used on the projected Hessenberg,
+    IterativeSolvers.fypp:1065).  Host LAPACK; returns numpy ``(w, V)``,
+    complex whatever the input dtype."""
+    a = _host(A)
+    cdt = _complex_of(a.dtype)
+    w, v = np.linalg.eig(a)
+    return w.astype(cdt), v.astype(cdt)
+
+
+def eigh(A):
+    """Hermitian eigendecomposition, on the tensor's device."""
+    return torch.linalg.eigh(A)
+
+
+def svd(A, full_matrices: bool = False):
+    """Singular value decomposition ``(U, S, Vh)``, on the tensor's device."""
+    return torch.linalg.svd(A, full_matrices=full_matrices)
+
+
+def schur(A, output: str | None = None):
+    """Schur decomposition ``A = Z T Z^H`` on the host (reference: stdlib
+    ``schur`` used by ``krylov_schur``, BaseKrylov.fypp:807).
+
+    ``output``: ``'real'`` (default for a real ``A``: 2x2 blocks for
+    conjugate pairs and a real ``Z``, so that a real Krylov basis stays real
+    after compression) or ``'complex'``.  Returns numpy ``(T, Z)``."""
+    a = _host(A)
+    if output is None:
+        output = "complex" if np.issubdtype(a.dtype, np.complexfloating) else "real"
+    T, Z = _sla.schur(a, output=output)
+    return T.astype(a.dtype), Z.astype(a.dtype)
+
+
+def ordschur(T, Z, select_mask):
+    """Reorder a Schur factorization so that the eigenvalues flagged in
+    ``select_mask`` lead: LAPACK TRSEN (reference: ``ordschur``,
+    Utils.fypp:128-268; used by ``krylov_schur``, BaseKrylov.fypp:813).
+    For a real Schur form LAPACK moves whole 2x2 blocks."""
+    T, Z = _host(T), _host(Z)
+    mask = np.asarray(select_mask).astype(np.int32)
+    if np.issubdtype(T.dtype, np.complexfloating):
+        trsen = _sla.lapack.ctrsen if T.dtype == np.complex64 else _sla.lapack.ztrsen
+    else:
+        trsen = _sla.lapack.strsen if T.dtype == np.float32 else _sla.lapack.dtrsen
+    res = trsen(mask, T, Z, job="N")
+    return res[0].astype(T.dtype), res[1].astype(Z.dtype)
+
+
+def schur_select(A, select):
+    """Sorted Schur form in one call: decompose ``A``, apply the *global*
+    selector ``select(eigvals) -> bool mask`` and reorder.
+
+    The selector sees the whole spectrum at once (the median selector of
+    eigs, IterativeSolvers.fypp:1137-1142), which scipy's per-eigenvalue
+    ``sort`` cannot express.  For a real ``A`` the mask is made consistent
+    over each 2x2 block first: a conjugate pair moves whole or not at all.
+    Returns numpy ``(T, Z, n_selected)``."""
+    a = _host(A)
+    is_cplx = np.issubdtype(a.dtype, np.complexfloating)
+    T, Z = _sla.schur(a, output="complex" if is_cplx else "real")
+    w = np.diag(T) if is_cplx else _sla.eigvals(T)
+    mask = np.asarray(select(w), dtype=bool)
+    if not is_cplx:
+        i, n = 0, T.shape[0]
+        mask = mask.copy()
+        while i < n - 1:
+            if abs(T[i + 1, i]) > 0:
+                both = mask[i] or mask[i + 1]
+                mask[i] = mask[i + 1] = both
+                i += 2
+            else:
+                i += 1
+    Ts, Zs = ordschur(T, Z, mask)
+    return Ts, Zs, int(mask.sum())
+
+
+def sqrtm(A, hermitian: bool = True):
+    """Square root of a positive (semi)definite matrix through ``eigh``, on
+    the tensor's device -> ``(sqrtA, info)`` (reference: ``sqrtm``,
+    submodule_utility_functions.fypp:123-163).
+
+    ``info`` is 0 for a positive definite input and 1 when eigenvalues at
+    or below ``10*atol`` were clipped to zero.  The reference's symmetry
+    check runs first: ``0.5*max|A - A^H| > rtol`` is fatal
+    (``stop_error``), ``> 10*atol`` logs a warning (:133-144).  The
+    symmetry error and ``info`` are read to the host, one read each."""
+    A = torch.as_tensor(A)
+    rdt = constants.real_dtype_of(A.dtype)
+    tol = 10.0 * constants.atol(rdt)
+    err = float(host_read(0.5 * torch.max(torch.abs(A - A.mH))))
+    if err > constants.rtol(rdt):
+        from .logger import stop_error
+
+        stop_error(f"Input matrix is not Hermitian. 0.5*max|A - A^H| = {err:.2e}",
+                   "utils", "sqrtm")
+    elif err > tol:
+        from .logger import log_warning
+
+        log_warning(f"Input matrix is not exactly Hermitian. 0.5*max|A - A^H| = {err:.2e}",
+                    "utils", "sqrtm")
+    w, V = torch.linalg.eigh(A)
+    clipped = w <= tol
+    w = torch.where(clipped, torch.zeros_like(w), w)
+    sqrtA = (V * torch.sqrt(w).to(V.dtype)) @ V.mH
+    return sqrtA, int(host_read(clipped.any()))
+
+
+def expm(A):
+    """Dense matrix exponential on the tensor's device (used for the
+    projected exponential, reference: ExpmLib.fypp:207)."""
+    return torch.linalg.matrix_exp(A)
 
 
 def givens_rotation(a, b):
@@ -63,3 +214,17 @@ def solve_triangular(R, b, lower: bool = False):
     if b.ndim == 1:
         return torch.linalg.solve_triangular(R, b[:, None], upper=not lower)[:, 0]
     return torch.linalg.solve_triangular(R, b, upper=not lower)
+
+
+def assert_shape(A, shape, name: str = "array") -> None:
+    """Shape guard (reference: ``assert_shape``, Utils.fypp:85-116)."""
+    if tuple(A.shape) != tuple(shape):
+        from .logger import stop_error
+
+        stop_error(f"{name} has shape {tuple(A.shape)}, expected {tuple(shape)}",
+                   "utils", "assert_shape")
+
+
+def log2(x):
+    """Base-2 logarithm (reference: ``log2``, Utils.fypp:37-60)."""
+    return torch.log2(torch.as_tensor(x))

@@ -94,17 +94,21 @@ def stop_error(msg, module=None, procedure=None):
 
 
 _BENIGN = {
+    "qr": "Colinear columns detected and replaced by random vectors.",
+    "arnoldi": "Invariant subspace found after {info} steps.",
     "lanczos": "Invariant subspace found after {info} steps.",
     "gram_schmidt": "Zero vector encountered during orthogonalization.",
     "gmres": "Converged after {info} iterations.",
     "fgmres": "Converged after {info} iterations.",
     "cg": "Converged after {info} iterations.",
+    "eigs": "Converged after {info} iterations.",
     "eighs": "Converged after {info} iterations.",
+    "kexpm": "Converged after {info} iterations (info=-2: invariant subspace, exact result).",
 }
 
 #: Origins whose negative info means "did not converge within maxiter": a
 #: logged warning, not a fatal error (reference: Logger.f90:653-667).
-_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg", "eighs"})
+_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg", "eigs", "eighs", "kexpm"})
 
 
 def check_info(info: int, origin: str, module: str | None = None, procedure: str | None = None) -> None:
@@ -113,7 +117,7 @@ def check_info(info: int, origin: str, module: str | None = None, procedure: str
     if info == 0:
         return
     origin_key = origin.lower()
-    if info > 0:
+    if info > 0 or (origin_key == "kexpm" and info == -2):
         msg = _BENIGN.get(origin_key, "info = {info}").format(info=info)
         log_information(f"{origin}: {msg}", module, procedure)
         return

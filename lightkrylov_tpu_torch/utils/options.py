@@ -14,7 +14,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "SolverMetadata"]
+__all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "KexpmOptions", "SolverMetadata",
+           "check_host_projected"]
 
 
 @dataclass(frozen=True)
@@ -44,19 +45,21 @@ class CGOptions:
 
 @dataclass(frozen=True)
 class EigsOptions:
-    """Options of ``eighs`` (reference: defaults kdim = 4*nev, tol = rtol,
-    IterativeSolvers.fypp:1023-1024); the JAX record's fields and defaults.
+    """Options of ``eigs`` and ``eighs`` (reference: defaults kdim = 4*nev,
+    tol = rtol, IterativeSolvers.fypp:1023-1024); the JAX record's fields
+    and defaults.
 
-    Only what the host projected path reads is implemented; ``eighs``
-    raises :class:`NotImplementedError` on the rest rather than ignore it:
+    Only what the host projected path reads is implemented; the solvers
+    raise :class:`NotImplementedError` on the rest rather than ignore it:
 
     * ``projected``: ``"auto"`` and ``"host"`` both mean the host path (a
-      dense ``eigh`` of the projected matrix per check); ``"device"``, the
-      fused on-device sweep, waits for ROADMAP M10.
-    * ``checkpoint_every`` other than 0 (and ``eighs(resume_from=...)``):
+      dense ``eig``/``eigh`` of the projected matrix per check);
+      ``"device"``, the fused on-device sweep, waits for ROADMAP M10.
+    * ``checkpoint_every`` other than 0 (and ``resume_from=...``):
       checkpointing is ROADMAP M13.
-    * ``write_intermediate``: read by ``eigs`` (ROADMAP M8); the JAX
-      ``eighs`` does not read it either.
+    * ``write_intermediate``/``outpost``: ``eigs`` writes the Ritz values
+      and residuals of each check to ``outpost``; the JAX ``eighs`` does not
+      read them, and the port's ``eighs`` raises on ``write_intermediate``.
     """
 
     kdim: int | None = None       # None -> 4 * nev
@@ -66,6 +69,28 @@ class EigsOptions:
     checkpoint_every: int = 0     # every N convergence checks; 0 = off
     checkpoint_path: str | None = None
     projected: str = "auto"
+
+
+def check_host_projected(name: str, opts: EigsOptions, resume_from=None) -> None:
+    """Raise on every option of ``opts`` that the host projected path of
+    ``eigs`` and ``eighs`` does not implement."""
+    if opts.projected == "device":
+        raise NotImplementedError(
+            f"{name}: projected='device' (the fused on-device sweep) is not ported; "
+            "ROADMAP M10 decides it by measurement. Use 'host' or 'auto'.")
+    if opts.projected not in ("auto", "host"):
+        raise ValueError(f"{name}: unknown projected={opts.projected!r}")
+    if opts.checkpoint_every or resume_from is not None:
+        raise NotImplementedError(
+            f"{name}: checkpoint_every and resume_from (checkpointing) are not "
+            "ported; see ROADMAP M13.")
+
+
+@dataclass(frozen=True)
+class KexpmOptions:
+    """(reference: kdim=30 default wrapper, kmax=100; ExpmLib.fypp:149,365-392)."""
+
+    kdim: int = 30
 
 
 @dataclass

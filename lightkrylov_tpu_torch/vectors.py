@@ -36,20 +36,31 @@ __all__ = [
     "scal",
     "axpby",
     "add",
+    "sub",
+    "chsgn",
     "zero_like",
     "dtype_of",
+    "get_size",
     "rand_like",
     "rand_basis",
     "get_column",
     "set_column",
+    "set_columns_block",
     "lead",
+    "copy",
+    "stack",
+    "unstack",
     "zeros_basis",
+    "zero_basis_like",
     "basis_size",
+    "axpby_basis",
+    "scal_basis",
     "innerprod",
     "gram",
     "linear_combination",
     "innerprod_vpu",
     "linear_combination_vpu",
+    "verify_vector_axioms",
 ]
 
 
@@ -112,8 +123,21 @@ def add(x, y):
     return pytree.tree_map(torch.add, x, y)
 
 
+def sub(x, y):
+    return pytree.tree_map(torch.sub, x, y)
+
+
+def chsgn(x):
+    return pytree.tree_map(torch.neg, x)
+
+
 def zero_like(x):
     return pytree.tree_map(torch.zeros_like, x)
+
+
+def get_size(x) -> int:
+    """Total number of scalar entries (reference: deferred ``get_size``)."""
+    return sum(leaf.numel() for leaf in _leaves(x))
 
 
 def dtype_of(x) -> torch.dtype:
@@ -170,6 +194,30 @@ def set_column(X, i, v):
     return X
 
 
+def set_columns_block(X, i, B):
+    """Copy the stacked block ``B`` (leading axis p) into columns
+    ``i .. i+p-1`` of ``X`` in place; returns ``X``."""
+    pytree.tree_map(lambda Xl, Bl: Xl[i:i + Bl.shape[0]].copy_(Bl), X, B)
+    return X
+
+
+def copy(X):
+    """A copy that owns its storage.  The JAX package's ``copy`` is the
+    identity, since its arrays are immutable; here columns are written in
+    place, so the copy is a clone."""
+    return pytree.tree_map(torch.clone, X)
+
+
+def stack(vectors):
+    """Stack a list of vectors into a basis with leading axis k."""
+    return pytree.tree_map(lambda *leaves: torch.stack(leaves), *vectors)
+
+
+def unstack(X):
+    """Inverse of :func:`stack`: the list of column views."""
+    return [get_column(X, i) for i in range(basis_size(X))]
+
+
 def zeros_basis(x_template, k: int, device=None):
     """A k-column zero basis shaped like ``x_template``, on ``device``
     (default: the template's device)
@@ -180,11 +228,33 @@ def zeros_basis(x_template, k: int, device=None):
         x_template)
 
 
+def zero_basis_like(X):
+    return pytree.tree_map(torch.zeros_like, X)
+
+
 def rand_basis(generator, X, ifnorm: bool = False):
     """Random basis with the structure of ``X``, one :func:`rand_like`
     column after another (reference: ``rand_basis``)."""
-    cols = [rand_like(generator, get_column(X, 0), ifnorm) for _ in range(basis_size(X))]
-    return pytree.tree_map(lambda *leaves: torch.stack(leaves), *cols)
+    return stack([rand_like(generator, get_column(X, 0), ifnorm) for _ in range(basis_size(X))])
+
+
+def axpby_basis(alpha, X, beta, Y):
+    """Column by column ``alpha*X + beta*Y``
+    (reference: ``axpby_basis``, AbstractVectors.fypp:709-720)."""
+    return axpby(alpha, X, beta, Y)
+
+
+def scal_basis(alpha, X):
+    """Scale each column; ``alpha`` is a scalar or has shape (k,)."""
+    alpha = _scalar(alpha)
+
+    def leaf_fn(Xl):
+        if not isinstance(alpha, (torch.Tensor, np.ndarray)):
+            return alpha * Xl
+        a = torch.as_tensor(alpha, device=Xl.device).to(Xl.dtype)
+        return a.reshape(a.shape + (1,) * (Xl.ndim - a.ndim)) * Xl
+
+    return pytree.tree_map(leaf_fn, X)
 
 
 def innerprod(X, y):
@@ -250,3 +320,41 @@ def innerprod_vpu(X, Y):
     As with :func:`linear_combination_vpu`, the fused broadcast form of the
     JAX package (``vectors.py:448-463``) becomes one matrix product here."""
     return innerprod(X, Y)
+
+
+# -- property-based axiom checking -------------------------------------------
+
+def verify_vector_axioms(generator, x_template, n_trials: int = 100, rtol=None):
+    """Check the 8 vector-space axioms on random data drawn from
+    ``generator`` (reference: ``verify_vector_axioms``,
+    AbstractVectors.fypp:733-927): commutativity and associativity of
+    addition, additive identity and inverse, both distributivities,
+    associativity of scalar multiplication and its identity.  Raises
+    ``AssertionError`` on a violation."""
+    from . import constants
+
+    dt = dtype_of(x_template)
+    tol = rtol if rtol is not None else constants.rtol(dt)
+
+    def rand_scalar():
+        r = torch.randn(2, generator=generator, dtype=torch.float64)
+        return complex(r[0], r[1]) if dt.is_complex else float(r[0])
+
+    for _ in range(n_trials):
+        x, y, z = (rand_like(generator, x_template) for _ in range(3))
+        a, b = rand_scalar(), rand_scalar()
+        scale = float(norm(x)) + 1.0
+
+        def check(u, v, label):
+            err = float(norm(sub(u, v))) / scale
+            if not err < tol:
+                raise AssertionError(f"vector axiom '{label}' violated: err={err:.3e}")
+
+        check(add(x, y), add(y, x), "commutativity")
+        check(add(add(x, y), z), add(x, add(y, z)), "associativity")
+        check(add(x, zero_like(x)), x, "additive identity")
+        check(add(x, chsgn(x)), zero_like(x), "additive inverse")
+        check(scal(a, add(x, y)), add(scal(a, x), scal(a, y)), "distributivity over vectors")
+        check(scal(a + b, x), add(scal(a, x), scal(b, x)), "distributivity over scalars")
+        check(scal(a * b, x), scal(a, scal(b, x)), "scalar associativity")
+        check(scal(1, x), x, "multiplicative identity")

@@ -139,6 +139,43 @@ def test_reductions_over_no_columns(dtype):
     _close(_np(y_orth), y, dtype)
 
 
+def test_more_vector_helpers(dtype):
+    """sub, chsgn, get_size, stack/unstack, copy, set_columns_block,
+    axpby_basis, scal_basis and zero_basis_like against JAX."""
+    X, y, Y = _inputs(dtype, seed=7)
+    x = {k: v[0] for k, v in X.items()}
+    a, b = dtype(0.3), dtype(-2.0)
+    _close(_np(tv.sub(_t(x), _t(y))), jv.sub(_j(x), _j(y)), dtype)
+    _close(_np(tv.chsgn(_t(x))), jv.chsgn(_j(x)), dtype)
+    assert tv.get_size(_t(x)) == jv.get_size(_j(x)) == 6 * 7 + 9
+    cols = tv.unstack(_t(X))
+    assert len(cols) == K
+    _close(_np(tv.stack(cols)), jv.stack(jv.unstack(_j(X))), dtype)
+    Xt = _t(X)
+    Xc = tv.copy(Xt)
+    tv.set_column(Xc, 0, _t(y))
+    _close(_np(Xt), X, dtype)  # the copy owns its storage
+    out = tv.set_columns_block(Xt, 1, _t(Y))
+    assert out is Xt
+    _close(_np(Xt), jv.set_columns_block(_j(X), 1, _j(Y)), dtype)
+    _close(_np(tv.axpby_basis(a, _t(X), b, _t(X))), jv.axpby_basis(a, _j(X), b, _j(X)), dtype)
+    alpha = _rand(np.random.default_rng(8), (K,), dtype)
+    _close(_np(tv.scal_basis(alpha, _t(X))), jv.scal_basis(jnp.asarray(alpha), _j(X)), dtype)
+    _close(_np(tv.scal_basis(torch.from_numpy(alpha), _t(X))),
+           jv.scal_basis(jnp.asarray(alpha), _j(X)), dtype)
+    _close(_np(tv.scal_basis(a, _t(X))), jv.scal_basis(a, _j(X)), dtype)
+    Z = tv.zero_basis_like(_t(X))
+    assert all(not v.any() and v.shape == X[k].shape for k, v in Z.items())
+
+
+def test_verify_vector_axioms(dtype):
+    template = {"u": torch.zeros(SHAPE, dtype=lt.constants.as_torch_dtype(dtype)),
+                "w": [torch.zeros(9, dtype=lt.constants.as_torch_dtype(dtype))]}
+    tv.verify_vector_axioms(torch.Generator().manual_seed(0), template, n_trials=5)
+    with pytest.raises(AssertionError, match="axiom"):
+        tv.verify_vector_axioms(torch.Generator().manual_seed(0), template, n_trials=1, rtol=0.0)
+
+
 def test_package_pins_full_float32_matmuls():
     """TF32 would cost f32 Krylov reductions about three digits."""
     assert torch.backends.cuda.matmul.allow_tf32 is False
