@@ -49,7 +49,30 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     (nev=6, kdim=30, Krylov-Schur restarts through bell_spmv), by true
     residual and against the same solve on the CPU stencil operator;
 17. kexpm: a 96x96 dense f32 operator against scipy's expm, then one kexpm
-    through CudaPoisson2D(3072) against the same call on Poisson2D.
+    through CudaPoisson2D(3072) against the same call on Poisson2D;
+18. library yardsticks: the five-point stencil as one cuDNN convolution
+    (F.conv2d, padding 1) at 3072^2 and 8192^2 cold, and the full-size
+    Block-ELL matrix as one cuSPARSE CSR product, each checked against the
+    plain version and then timed beside its kernel, with each kernel's share
+    of its bound (bytes over 3.35 TB/s);
+19. svds_3072: one Golub-Kahan sweep (nsv=4, kdim=32) on CudaPoisson2D(3072)
+    f32, 64 stencil launches (32 matvecs, 32 rmatvecs), against the same
+    sweep on Poisson2D, sigma_1 below the closed-form lambda_max, timed;
+20. svds_bell: the same sweep on the full-size Block-ELL matrix, 32
+    bell_spmv launches, against the sweep through the plain version, and the
+    share of the sweep in the plain rmatvec scatter;
+21. svds_kexpm, the flagship stage: svds(ConvectionDiffusion2D(48) f32, 4,
+    kdim=30, tol=5e-3) converged and against the dense SVD, then the same
+    solve through bell_spmv;
+22. roessler_upo: Newton-Krylov shooting for the Roessler UPO in f32, the
+    period against 5.88108845, with the RK4 steps per period cut from the
+    flagship's 3000 (printed);
+23. roessler_otd: OTD modes at the Roessler fixed point in f32 over T = 50,
+    the instantaneous eigenvalues against 0.097000856, with the step count
+    cut from the flagship's 20000 (printed);
+24. checkpoint/resume: an svds and an eigs on CudaPoisson2D f32 are
+    interrupted in their second cycle, resumed from the checkpoint written
+    at their first restart, and held to the uninterrupted runs.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -60,6 +83,7 @@ import json
 import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +122,14 @@ N_EIGHS = 3072
 N_GL = 512
 GL_TOL = 5e-6
 GL_ANCHORS = Path(__file__).resolve().parent / "gl_direct_spectrum.npy"
+# the H100 SXM datasheet rate of device memory, the denominator of every bound
+HBM_BYTES_PER_S = 3.35e12
+# the flagship stages roessler_upo and roessler_otd (flagship_tpu.py:197-215,
+# 362-381), cut in RK4 steps: eager torch pays one launch per operation on a
+# 3-vector, and a forward-mode jvp costs about 20 flows (CPU rehearsal), so
+# the flagship's 3000 steps per period and 20000 OTD steps would take minutes
+UPO_STEPS, UPO_STEPS_FLAGSHIP = 300, 3000
+OTD_STEPS, OTD_STEPS_FLAGSHIP = 2000, 20000
 
 
 def fail(msg):
@@ -658,6 +690,356 @@ def kexpm_phase(dev):
                 rel_diff_plain=rel)
 
 
+def bound_ms(nbytes):
+    """The least time the card could take to move ``nbytes``, in ms."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def stencil_conv2d(u, ihx2, ihy2):
+    """The five-point -Delta of ``u`` as one cuDNN convolution: the 3x3
+    weights of the stencil, zero padding for the Dirichlet boundary."""
+    w = torch.tensor([[0.0, -ihy2, 0.0], [-ihx2, 2.0 * (ihx2 + ihy2), -ihx2], [0.0, -ihy2, 0.0]],
+                     dtype=u.dtype, device=u.device)
+    return torch.nn.functional.conv2d(u[None, None], w[None, None], padding=1)[0, 0]
+
+
+def bell_csr(bell):
+    """The Block-ELL matrix as a CSR tensor on the same device, with the same
+    stored values: each block-row's blocks sorted by block-column, so each
+    row's column indices ascend (a repeated block-column repeats them)."""
+    nbr, K, bm, bn = bell.data.shape
+    order = torch.argsort(bell.cols, dim=1, stable=True)
+    cols = torch.gather(bell.cols, 1, order)
+    data = torch.gather(bell.data, 1, order[:, :, None, None].expand(-1, -1, bm, bn))
+    values = data.permute(0, 2, 1, 3).reshape(-1)
+    col = cols[:, None, :, None] * bn + torch.arange(bn, device=cols.device, dtype=cols.dtype)
+    col = col.expand(nbr, bm, K, bn).reshape(-1)
+    crow = torch.arange(0, nbr * bm + 1, device=cols.device, dtype=torch.int32) * (K * bn)
+    n_cols = -(-bell.shape[1] // bn) * bn
+    return torch.sparse_csr_tensor(crow, col, values, size=(nbr * bm, n_cols),
+                                   check_invariants=False)
+
+
+def yardsticks(dev, tag):
+    """Phase 18: one library call for each kernel, checked against the
+    plain version, then timed as phases 6 and 12 time the kernels."""
+    out = {}
+    for n in TIME_SIZES:
+        nbytes = n * n * 4
+        nbuf = max(1, -(-4 * L2_BYTES // nbytes))
+        fields = [seeded((n, n), torch.float32, dev, seed=s) for s in range(nbuf)]
+        args = stencil_args(fields[0])
+        want = stencil_matvec_reference(fields[0], **args)
+        rel = rel_err(stencil_conv2d(fields[0], **args), want)
+        check(rel <= REL_TOL[torch.float32], f"conv2d stencil {n}^2 rel err {rel:.3e}")
+        row = {"conv2d_rel_err": rel}
+        for name, fn in (("kernel", lt.stencil_matvec), ("conv2d", stencil_conv2d)):
+            row[f"{name}_cold_ms"] = median_ms(lambda i: fn(fields[i % nbuf], **args),
+                                               per_run=nbuf * 2)
+        row["bound_ms"] = bound_ms(2 * nbytes)
+        out[f"stencil_{n}"] = row
+        print(f"{tag} stencil {n}x{n} f32 cold: kernel {row['kernel_cold_ms'] * 1e3:.1f} us, "
+              f"cuDNN conv2d {row['conv2d_cold_ms'] * 1e3:.1f} us (rel err vs plain {rel:.2e}), "
+              f"bound {row['bound_ms'] * 1e3:.1f} us (8 B/point at 3.35 TB/s): kernel at "
+              f"{100 * row['bound_ms'] / row['kernel_cold_ms']:.0f}% of its bound")
+        del fields
+    bell = bell_main_matrix(dev)
+    csr = bell_csr(bell)
+    n = bell.shape[0]
+    x = seeded((n,), torch.float32, dev, seed=1)
+    want = bell_spmv_reference(bell.data, bell.cols, x)
+    rel = rel_err(torch.mv(csr, x), want)
+    check(rel <= BELL_REL_TOL[torch.float32], f"CSR SpMV rel err {rel:.3e}")
+    ms = alternating_ms({"kernel": lambda: lt.bell_spmv(bell.data, bell.cols, x),
+                         "csr": lambda: torch.mv(csr, x)}, per_run=10)
+    nbytes = (bell.data.numel() + bell.cols.numel() + 2 * n) * 4
+    csr_bytes = (csr.values().numel() + csr.col_indices().numel()
+                 + csr.crow_indices().numel() + 2 * n) * 4
+    row = {"kernel_ms": ms["kernel"], "csr_ms": ms["csr"], "csr_rel_err": rel,
+           "bound_ms": bound_ms(nbytes), "csr_bytes": csr_bytes}
+    out["bell_spmv"] = row
+    print(f"{tag} bell_spmv full size f32: kernel {ms['kernel'] * 1e3:.1f} us, cuSPARSE CSR "
+          f"SpMV {ms['csr'] * 1e3:.1f} us (rel err vs plain {rel:.2e}; it reads "
+          f"{row['csr_bytes'] / 1e6:.0f} MB against Block-ELL's {nbytes / 1e6:.0f} MB), bound "
+          f"{row['bound_ms'] * 1e3:.1f} us: kernel at {100 * row['bound_ms'] / ms['kernel']:.0f}% "
+          "of its bound (10 calls a sample, in turn)")
+    del bell, csr
+    torch.cuda.empty_cache()
+    return out
+
+
+def closed_form_lam_max(n):
+    """The largest eigenvalue of Poisson2D(n), as flagship_tpu.py:346-348
+    writes it."""
+    h = 1.0 / (n + 1)
+    return (2.0 / h**2) * (2.0 - np.cos(np.pi * n * h) - np.cos(np.pi * n * h))
+
+
+def svds_3072(dev, tag, eighs_out):
+    """Phase 19: one Golub-Kahan sweep on CudaPoisson2D(3072), against the
+    same sweep on the plain Poisson2D."""
+    n = N_EIGHS
+    op_k = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    op_p = lt.Poisson2D(n, dtype=torch.float32, device=dev)
+    u0 = seeded((n, n), torch.float32, dev, seed=16)
+    opts = lt.SVDSOptions(maxiter=1)
+
+    def sweep(op):
+        return lt.svds(op, 4, u0=u0, kdim=32, tolerance=0.0, options=opts)
+
+    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+    lt.timer.reset_counters()
+    U, S, V, res, info, meta = sweep(op_k)
+    torch.cuda.synchronize()
+    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    host_reads = lt.timer.get_counter("host_reads")
+    check(U.shape == V.shape == (4, n, n) and bool(torch.isfinite(U).all())
+          and bool(torch.isfinite(V).all()) and np.all(np.isfinite(S)),
+          "svds_3072 output not finite")
+    del U, V
+    S_p = sweep(op_p)[1]
+    lam_max = closed_form_lam_max(n)
+    d_plain = float(np.abs(S - S_p).max() / S_p[0])
+    d1 = float((lam_max - S[0]) / lam_max)
+    print(f"svds_3072: {launches} stencil launches (32 matvecs + 32 rmatvecs), {host_reads} "
+          f"host reads for {meta.n_iter} Golub-Kahan steps, singular values {S}; against the "
+          f"plain sweep max |ds| / s_1 = {d_plain:.3e}; sigma_1 rel dev vs closed-form lambda_max "
+          f"{d1:.3e} (eighs_3072 lambda_1: {eighs_out['lam1_rel_dev']:.3e})")
+    check(launches == 64 and meta.n_iter == 32,
+          f"{launches} stencil launches for {meta.n_iter} steps")
+    check(d_plain <= 1e-5, f"svds_3072 differs from the plain sweep by {d_plain:.3e}")
+    check(S[0] <= lam_max * (1 + 1e-6), f"sigma_1 {S[0]} above lambda_max {lam_max}")
+    sweep_ms = alternating_ms({"svds": lambda: sweep(op_k)}, runs=10)["svds"]
+    print(f"{tag} svds_3072 sweep (32 Golub-Kahan steps, two CGS2 a step, host SVD) f32: "
+          f"{sweep_ms:.2f} ms (median of 10); eighs_3072 sweep {eighs_out['sweep_ms']:.2f} ms")
+    prof = profile_row(tag, "svds_3072 sweep", lambda: sweep(op_k))
+    torch.cuda.empty_cache()
+    return dict(launches=launches, host_reads=host_reads, steps=meta.n_iter, sigma=S.tolist(),
+                plain_rel_diff=d_plain, sigma1_rel_dev=d1, sweep_ms=sweep_ms, profile=prof)
+
+
+def svds_bell(dev, tag):
+    """Phase 20: the same sweep on the full-size Block-ELL matrix: matvecs
+    through bell_spmv, rmatvecs through the plain einsum and scatter."""
+    bell = bell_main_matrix(dev)
+    op_k = lt.BellOperator(bell)
+    op_p = lt.MatvecOperator(lambda v: bell_spmv_reference(bell.data, bell.cols, v),
+                             rmatvec=op_k.rmatvec)
+    n = bell.shape[0]
+    u0 = seeded((n,), torch.float32, dev, seed=17)
+    opts = lt.SVDSOptions(maxiter=1)
+
+    def sweep(op):
+        return lt.svds(op, 4, u0=u0, kdim=32, tolerance=0.0, options=opts)
+
+    lt.bell_spmv.LAUNCHES = 0
+    U, S, V, res, info, meta = sweep(op_k)
+    torch.cuda.synchronize()
+    launches = lt.bell_spmv.LAUNCHES
+    S_p = sweep(op_p)[1]
+    d_plain = float(np.abs(S - S_p).max() / S_p[0])
+    print(f"svds_bell: {launches} bell_spmv launches for {meta.n_iter} Golub-Kahan steps, "
+          f"singular values {S}; against the plain sweep max |ds| / s_1 = {d_plain:.3e}")
+    check(launches == 32 and meta.n_iter == 32, f"{launches} bell_spmv launches")
+    check(np.all(np.isfinite(S)) and bool(torch.isfinite(U).all()), "svds_bell output not finite")
+    check(d_plain <= 1e-5, f"svds_bell differs from the plain sweep by {d_plain:.3e}")
+    y = seeded((n,), torch.float32, dev, seed=18)
+    ms = alternating_ms({"sweep": lambda: sweep(op_k)}, runs=10)
+    ms.update(alternating_ms({"rmatvec": lambda: op_k.rmatvec(y)}, per_run=10))
+    share = 32 * ms["rmatvec"] / ms["sweep"]
+    print(f"{tag} svds_bell sweep f32: {ms['sweep']:.2f} ms (median of 10); the plain rmatvec "
+          f"(einsum + index_add_) {ms['rmatvec'] * 1e3:.1f} us a call, 32 of them "
+          f"{100 * share:.1f}% of the sweep")
+    prof = profile_row(tag, "svds_bell sweep", lambda: sweep(op_k))
+    del bell, op_k, op_p
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=meta.n_iter, sigma=S.tolist(), plain_rel_diff=d_plain,
+                sweep_ms=ms["sweep"], rmatvec_ms=ms["rmatvec"], rmatvec_share=share, profile=prof)
+
+
+def svds_kexpm(dev, tag):
+    """Phase 21: the svds half of the flagship stage svds_kexpm
+    (flagship_tpu.py:278-325), on the plain operator and through bell_spmv."""
+    m = 48
+    cd = lt.ConvectionDiffusion2D(m, dtype=torch.float32, device=dev)
+    A = cd.dense().numpy()
+    s_ref = np.linalg.svd(A, compute_uv=False)[:4]
+    opts = lt.SVDSOptions(maxiter=40)
+    out = {}
+    t0 = time.perf_counter()
+    U, S, V, res, info, meta = lt.svds(cd, 4, u0=torch.ones((m, m), device=dev), kdim=30,
+                                       tolerance=5e-3, options=opts)
+    t_solve = time.perf_counter() - t0
+    err = float(np.abs(S - s_ref).max() / np.abs(s_ref).max())
+    print(f"{tag} svds_kexpm: svds(ConvectionDiffusion2D({m}) f32, 4, kdim=30, tol=5e-3): "
+          f"info={info}, {meta.n_iter} steps, {t_solve:.3f} s; sigma {S} against the dense "
+          f"SVD rel err {err:.2e}")
+    check(info > 0, f"svds_kexpm reported non-convergence: info={info}")
+    check(err < 1e-3, f"svds_kexpm sigma rel err {err:.2e}")
+    out["plain"] = dict(info=info, steps=meta.n_iter, sigma_rel_err=err, solve_s=t_solve)
+    op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float32, device=dev))
+    lt.bell_spmv.LAUNCHES = 0
+    t0 = time.perf_counter()
+    U, S, V, res, info, meta = lt.svds(op_b, 4, u0=torch.ones(m * m, device=dev), kdim=30,
+                                       tolerance=5e-3, options=opts)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = lt.bell_spmv.LAUNCHES
+    err = float(np.abs(S - s_ref).max() / np.abs(s_ref).max())
+    print(f"{tag} svds_convdiff through bell_spmv: info={info}, {meta.n_iter} steps, "
+          f"{launches} bell_spmv launches, {t_solve:.3f} s; sigma rel err {err:.2e}")
+    check(info > 0 and err < 1e-3, f"svds through Block-ELL: info={info}, rel err {err:.2e}")
+    check(launches == meta.n_iter, f"{launches} bell_spmv launches for {meta.n_iter} steps")
+    out["bell"] = dict(info=info, steps=meta.n_iter, launches=launches, sigma_rel_err=err,
+                       solve_s=t_solve)
+    return out
+
+
+def cuda_kernels(fn):
+    """The CUDA kernel events of one call of ``fn``, by torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_row(tag, label, fn):
+    """One call of ``fn`` timed with CUDA events after a warm-up, then one
+    profiled call: its kernels, their device time and its share of the wall
+    time, and the three kernel names that take the most device time."""
+    wall = median_ms(lambda i: fn(), runs=1)
+    kernels = cuda_kernels(fn)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"{tag} profile {label}: wall {wall:.2f} ms, {len(kernels)} kernels, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.0f}%); top: "
+          + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top))
+    return dict(wall_ms=wall, kernels=len(kernels), busy_ms=busy,
+                top=[[name, ms] for name, ms in top])
+
+
+def roessler_upo(dev, tag):
+    """Phase 22: the flagship stage roessler_upo (flagship_tpu.py:197-215)
+    in f32 on the card, at UPO_STEPS RK4 steps a period."""
+    n = UPO_STEPS
+    sys_ = lt.upo_system(n_steps=n)
+    X0 = {"pos": torch.tensor([0.0, 6.1, 1.3], device=dev), "T": torch.tensor(6.0, device=dev)}
+    lt.timer.reset_counters()
+    t0 = time.perf_counter()
+    X, info, meta = lt.newton(sys_, X0, rtol=0.0, atol=3e-5,
+                              options=lt.NewtonOptions(maxiter=60),
+                              linear_solver_options=lt.GMRESOptions(kdim=4, maxiter=10))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    jac_mv = sum(lt.timer.get_counter(f"UPOJacobian{s}.matvec")
+                 for s in [""] + [f"#{i}" for i in range(1, 4 * meta.n_iter + 4)])
+    T = float(X["T"])
+    closure = float(torch.linalg.norm(lt.flow(X["pos"], X["T"], n) - X["pos"]))
+    print(f"{tag} roessler_upo f32, {n} RK4 steps a period (cut from the flagship's "
+          f"{UPO_STEPS_FLAGSHIP}): info={info}, T={T:.6f} (ref 5.88108845, |dT| "
+          f"{abs(T - 5.88108845):.2e}), closure {closure:.2e}, {meta.n_iter} Newton iterations, "
+          f"{meta.n_evals} evaluations, {jac_mv} Jacobian matvecs (jvp through the flow); "
+          f"{t_solve:.3f} s")
+    flow_prof = profile_row(tag, f"one UPO flow ({n} RK4 steps, f32)",
+                            lambda: lt.flow(X["pos"], X["T"], n))
+    # a Jacobian matvec is n steps of the tangent: count its kernels over 10
+    J = lt.UPOJacobian(X, 10)
+    per_jvp = len(cuda_kernels(lambda: J.matvec(X))) / 10 * n
+    print(f"roessler_upo: {flow_prof['kernels']} kernels a flow, {per_jvp:.0f} a Jacobian "
+          "matvec (counted over 10 steps)")
+    per_flow = flow_prof["kernels"]
+    check(meta.converged and info > 0, f"UPO Newton did not converge: info={info}")
+    check(abs(T - 5.88108845) < 5e-3, f"UPO period {T} off the anchor")
+    return dict(info=info, T=T, T_err=abs(T - 5.88108845), closure=closure, n_iter=meta.n_iter,
+                n_evals=meta.n_evals, jacobian_matvecs=jac_mv, kernels_per_flow=per_flow,
+                kernels_per_jacobian_matvec=per_jvp, solve_s=t_solve, rk4_steps=n,
+                flow_profile=flow_prof)
+
+
+def roessler_otd(dev, tag):
+    """Phase 23: the flagship stage roessler_otd (flagship_tpu.py:362-381)
+    in f32 on the card, OTD_STEPS RK4 steps over T = 50."""
+    fp_minus, _ = lt.roessler_fixed_points()
+    U0 = np.linalg.qr(np.random.default_rng(19).standard_normal((3, 2)))[0]
+    t0 = time.perf_counter()
+    x, U, Lr, lyap = lt.otd_evolve(lt.roessler_rhs,
+                                   torch.tensor(fp_minus, dtype=torch.float32, device=dev),
+                                   torch.tensor(U0, dtype=torch.float32, device=dev), 50.0,
+                                   OTD_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    w = np.sort(np.linalg.eigvals(Lr.cpu().numpy()).real)
+    dev_ = float(np.abs(w - 0.097000856).max())
+    print(f"{tag} roessler_otd f32, T=50 in {OTD_STEPS} RK4 steps (cut from the flagship's "
+          f"{OTD_STEPS_FLAGSHIP}): eigenvalue real parts {w} (anchor 0.097000856, dev "
+          f"{dev_:.2e}); {t_run:.3f} s, {t_run / OTD_STEPS * 1e3:.2f} ms a step")
+    check(np.all(np.isfinite(w)) and dev_ < 1e-5, f"OTD eigenvalues off the anchor by {dev_:.2e}")
+    return dict(eig_real=w.tolist(), anchor_dev=dev_, run_s=t_run, steps=OTD_STEPS)
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def interrupting(op, calls):
+    """``op`` whose ``calls + 1``-th application (matvec or rmatvec)
+    raises, as an interrupted run would stop."""
+    count = [0]
+
+    def tick():
+        count[0] += 1
+        if count[0] > calls:
+            raise _Interrupted()
+
+    def matvec(x):
+        tick()
+        return op.matvec(x)
+
+    def rmatvec(y):
+        tick()
+        return op.rmatvec(y)
+
+    return lt.MatvecOperator(matvec, rmatvec, is_hermitian=op.is_hermitian)
+
+
+def checkpoint_resume(dev, tag):
+    """Phase 24: an svds and an eigs on CudaPoisson2D f32 stopped in their
+    second cycle and resumed from the checkpoint of their first restart."""
+    n, kdim, cycles = 256, 20, 4
+    op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    x0 = seeded((n, n), torch.float32, dev, seed=20)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, solve, opts_cls, per_step in (
+                ("svds", lambda A, o, **kw: lt.svds(A, 4, u0=x0, kdim=kdim, tolerance=1e-30,
+                                                     options=o, **kw), lt.SVDSOptions, 2),
+                ("eigs", lambda A, o, **kw: lt.eigs(A, 4, x0=x0, kdim=kdim, tolerance=1e-30,
+                                                     options=o, **kw), lt.EigsOptions, 1)):
+            path = str(Path(tmp) / f"{name}.npz")
+            full = solve(op, opts_cls(maxiter=cycles))
+            try:
+                solve(interrupting(op, per_step * (kdim + 3)),
+                      opts_cls(maxiter=cycles, checkpoint_every=1, checkpoint_path=path))
+                fail(f"{name} was not interrupted")
+            except _Interrupted:
+                pass
+            resumed = solve(op, opts_cls(maxiter=cycles), resume_from=path)
+            vals = 1 if name == "svds" else 0
+            meta = 5 if name == "svds" else 4
+            d = float(np.abs(resumed[vals] - full[vals]).max() / np.abs(full[vals]).max())
+            print(f"{tag} checkpoint/resume {name}: CudaPoisson2D({n}) f32, kdim={kdim}, "
+                  f"{cycles} cycles, interrupted in cycle 2; resumed {resumed[meta].n_iter} steps "
+                  f"vs {full[meta].n_iter} uninterrupted, max rel diff {d:.2e}")
+            check(resumed[meta].n_iter == full[meta].n_iter and d <= 1e-6,
+                  f"resumed {name} differs from the uninterrupted run by {d:.2e}")
+            out[name] = dict(steps=full[meta].n_iter, rel_diff=d)
+    return out
+
+
 def main():
     results = {}
 
@@ -820,8 +1202,19 @@ def main():
     results["eigs_nonnormal"] = eigs_nonnormal(dev)
     results["kexpm"] = kexpm_phase(dev)
 
+    # 18-24. library yardsticks, svds through both kernels, the Roessler
+    # stages, checkpoint/resume
+    results["yardsticks"] = yardsticks(dev, tag)
+    results["svds_3072"] = svds_3072(dev, tag, results["eighs_3072"])
+    results["svds_bell"] = svds_bell(dev, tag)
+    results["svds_kexpm"] = svds_kexpm(dev, tag)
+    results["roessler_upo"] = roessler_upo(dev, tag)
+    results["roessler_otd"] = roessler_otd(dev, tag)
+    results["checkpoint"] = checkpoint_resume(dev, tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
+    yard = results["yardsticks"]
     kernels = {"kernels": [{
         "name": "stencil",
         "route": "cuda",
@@ -832,10 +1225,14 @@ def main():
         "path_launches": {"gmres_3072": main_launches,
                           "eighs_3072": results["eighs_3072"]["launches"],
                           "eigs_3072": results["eigs_3072"]["launches"],
-                          "kexpm_3072": results["kexpm"]["launches"]},
+                          "kexpm_3072": results["kexpm"]["launches"],
+                          "svds_3072": results["svds_3072"]["launches"]},
         "max_abs_err": main_err,
         "ms": stencil_main["kernel_cold_ms"],
         "plain_ms": stencil_main["plain_cold_ms"],
+        "bound_ms": yard[f"stencil_{N_MAIN}"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": yard[f"stencil_{N_MAIN}"]["conv2d_cold_ms"],
     }, {
         "name": "bell_spmv",
         "route": "cuda",
@@ -843,10 +1240,15 @@ def main():
         "replaces": "lightkrylov_tpu/ops/pallas/spmv.py:138",
         "launches": bell_main["launches"],
         "path_launches": {"bell_gmres": bell_main["launches"],
-                          "eigs_convdiff": results["eigs_nonnormal"]["launches"]},
+                          "eigs_convdiff": results["eigs_nonnormal"]["launches"],
+                          "svds_bell": results["svds_bell"]["launches"],
+                          "svds_convdiff": results["svds_kexpm"]["bell"]["launches"]},
         "max_abs_err": bell_err,
         "ms": bell_main["spmv_ms"]["kernel"],
         "plain_ms": bell_main["spmv_ms"]["plain"],
+        "bound_ms": yard["bell_spmv"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": yard["bell_spmv"]["csr_ms"],
     }]}
     print(json.dumps(kernels))
     print(gpu)

@@ -4,12 +4,18 @@ and CUDA.
 A port of the JAX package's vector and operator layers, CGS2 and DCGS2
 orthogonalization, QR, ``gmres``/``fgmres``/``cg``, Lanczos and ``eighs``
 (host projected path, thick restart), Arnoldi and ``eigs`` (host projected
-path, Krylov-Schur restart), ``kexpm``, the Poisson, convection-diffusion,
-Toeplitz and Ginzburg-Landau models, and two operators whose matvec on a CUDA tensor is a
-hand-written CUDA kernel, built for Hopper ``sm_90a`` on first use: the 2-D
-Poisson stencil (``csrc/stencil.cu``) and the Block-ELL sparse matrix
-(``csrc/spmv.cu``).  The module layout follows the JAX package's, so each
-counterpart has the same path.
+path, Krylov-Schur restart), Golub-Kahan and ``svds`` (host projected path,
+thick restart), checkpoints of the three eigensolvers, ``kexpm``, nonlinear systems and
+Newton-Krylov, the Poisson, convection-diffusion, Toeplitz, Ginzburg-Landau
+and Roessler models with OTD modes, and two operators whose matvec on a
+CUDA tensor is a hand-written CUDA kernel, built for Hopper ``sm_90a`` on
+first use: the 2-D Poisson stencil (``csrc/stencil.cu``) and the Block-ELL
+sparse matrix (``csrc/spmv.cu``).  The module layout follows the JAX
+package's, so each counterpart has the same path.
+
+Models, operators and converted arrays land on the card unless the caller
+asks for the CPU: ``constants.set_default_device("cpu")`` or
+``device="cpu"`` (:func:`.constants.default_device`).
 
 Float32 matrix products run in full float32: importing the package turns
 TF32 off for matmuls and cuDNN.  TF32 keeps about three decimal digits,
@@ -26,7 +32,8 @@ torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 from . import constants  # noqa: E402
-from .constants import atol, rtol, get_rank, get_comm_size, io_rank  # noqa: E402
+from .constants import (atol, rtol, get_rank, get_comm_size, io_rank,  # noqa: E402
+                        default_device, set_default_device)
 
 from .vectors import (  # noqa: E402
     dot,
@@ -70,14 +77,17 @@ from .linops import (  # noqa: E402
     adjoint,
     aslinop,
 )
+from .systems import System, JacobianOperator  # noqa: E402
 
 from .krylov import (  # noqa: E402
     arnoldi,
     arnoldi_block,
     arnoldi_step,
+    bidiagonalization,
     cholesky_qr2,
     double_gram_schmidt_step,
     initialize_arnoldi,
+    initialize_bidiag,
     initialize_krylov_subspace,
     initialize_lanczos,
     initialize_random_orthonormal_basis,
@@ -101,9 +111,20 @@ from .models import (  # noqa: E402
     GLPropagator,
     Poisson2D,
     TridiagToeplitz,
+    UPOJacobian,
+    fixed_point_system,
+    floquet_exponents,
+    flow,
     gl_analytic_eigvals,
+    lyapunov_exponents,
+    monodromy,
+    otd_evolve,
+    otd_rhs,
     poisson2d_eigvals,
+    roessler_fixed_points,
+    roessler_rhs,
     toeplitz_eigvals,
+    upo_system,
 )
 from .ops import (  # noqa: E402
     BellMatrix,
@@ -117,6 +138,8 @@ from .ops import (  # noqa: E402
 from .solvers import (  # noqa: E402
     ExponentialPropagator,
     cg,
+    constant_tol,
+    dynamic_tol,
     eighs,
     eigs,
     fgmres,
@@ -124,16 +147,22 @@ from .solvers import (  # noqa: E402
     kexpm,
     kexpm_mat,
     krylov_exptA,
+    newton,
     save_eigenspectrum,
+    svds,
 )
 
-from .utils import linalg, logger, options, timer  # noqa: E402
+from .utils import checkpoint, linalg, logger, options, timer  # noqa: E402
+from .utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from .utils.logger import logger_setup, check_info, LightKrylovError  # noqa: E402
 from .utils.options import (  # noqa: E402
     CGOptions,
     EigsOptions,
     GMRESOptions,
     KexpmOptions,
+    NewtonMetadata,
+    NewtonOptions,
+    SVDSOptions,
     SolverMetadata,
 )
 from .utils.timer import global_watch, set_timing, time_lightkrylov, timed  # noqa: E402

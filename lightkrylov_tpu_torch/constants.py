@@ -11,6 +11,12 @@ and the rank used to gate logging and IO.  The rank is the
 
 Every dtype argument may be a ``torch.dtype`` or anything ``numpy.dtype``
 accepts.
+
+The package's default device, where a model, operator or converted array
+lands when the caller names none, is ``cuda``: the port runs on the card
+unless the caller asks for the CPU, with ``set_default_device("cpu")`` or
+``device="cpu"``.  It does not fall back to the CPU when no card is found;
+allocating there is then torch's error.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ __all__ = [
     "is_complex_dtype",
     "as_torch_dtype",
     "as_numpy_dtype",
+    "default_device",
+    "set_default_device",
+    "resolve_device",
 ]
 
 _TORCH_TO_NUMPY = {
@@ -85,6 +94,29 @@ def rtol(dtype) -> float:
 def eps(dtype) -> float:
     """Machine epsilon of the real dtype underlying ``dtype``."""
     return float(torch.finfo(real_dtype_of(dtype)).eps)
+
+
+# -- Default device ----------------------------------------------------------
+
+_default_device = torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """The device a constructor uses when it is given ``device=None``:
+    ``cuda`` unless :func:`set_default_device` chose another."""
+    return _default_device
+
+
+def set_default_device(device) -> None:
+    """Make ``device`` (a ``torch.device`` or a name such as ``"cpu"``) the
+    package's default device."""
+    global _default_device
+    _default_device = torch.device(device)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
 
 
 # -- Process context ---------------------------------------------------------

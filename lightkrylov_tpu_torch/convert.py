@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from .constants import resolve_device
 from .linops import DenseOperator, DiagonalOperator, IdentityOperator
 from .models.convdiff import ConvectionDiffusion2D
 from .models.ginzburg_landau import GinzburgLandau, GinzburgLandauReal, GLPropagator
@@ -28,20 +29,23 @@ from .models.toeplitz import TridiagToeplitz
 from .ops.spmv import BellMatrix, BellOperator
 from .ops.stencil import CudaPoisson2D
 from .solvers.expm import ExponentialPropagator
-from .utils.options import CGOptions, EigsOptions, GMRESOptions, KexpmOptions
+from .utils.options import (CGOptions, EigsOptions, GMRESOptions, KexpmOptions,
+                            NewtonOptions, SVDSOptions)
 
 __all__ = ["to_torch", "port_operator", "port_options"]
 
 
 def to_torch(tree, device=None):
-    """Every array leaf of ``tree`` as a tensor on ``device``, dtype kept.
-    Leaves without ``__array__`` (Python scalars, tensors) pass through."""
+    """Every array leaf of ``tree`` as a tensor on ``device`` (default: the
+    package's default device, :func:`..constants.default_device`), dtype
+    kept.  Leaves without ``__array__`` (Python scalars, tensors) pass
+    through."""
+    device = resolve_device(device)
 
     def leaf(a):
         if isinstance(a, torch.Tensor) or not hasattr(a, "__array__"):
             return a
-        t = torch.from_numpy(np.array(a))
-        return t if device is None else t.to(device)
+        return torch.from_numpy(np.array(a)).to(device)
 
     return pytree.tree_map(leaf, tree)
 
@@ -84,7 +88,8 @@ _PORTS = {
     "Poisson2D": _poisson,
     "PallasPoisson2D": _pallas_poisson,
     "BlockJacobiPoisson": lambda st, ch, dev: BlockJacobiPoisson.from_block_inverse(ch["Binv"]),
-    "DenseOperator": lambda st, ch, dev: DenseOperator(ch["data"], is_hermitian=st["is_hermitian"]),
+    "DenseOperator": lambda st, ch, dev: DenseOperator(ch["data"], is_hermitian=st["is_hermitian"],
+                                                       device=dev),
     "DiagonalOperator": lambda st, ch, dev: DiagonalOperator(ch["d"]),
     "IdentityOperator": lambda st, ch, dev: IdentityOperator(),
     "BellOperator": _bell,
@@ -106,7 +111,8 @@ def _is_operator(child):
 
 def port_operator(op, device=None):
     """The counterpart of the JAX operator ``op``, with its arrays on
-    ``device``: ``Poisson2D`` -> ``Poisson2D``, ``PallasPoisson2D`` ->
+    ``device`` (default: the package's default device):
+    ``Poisson2D`` -> ``Poisson2D``, ``PallasPoisson2D`` ->
     ``CudaPoisson2D``, ``BlockJacobiPoisson`` (same ``Binv``),
     ``BellOperator`` (same blocks), ``ConvectionDiffusion2D``,
     ``TridiagToeplitz``, ``GinzburgLandau``, ``GinzburgLandauReal``,
@@ -115,6 +121,7 @@ def port_operator(op, device=None):
     name = type(op).__name__
     if name not in _PORTS:
         raise TypeError(f"no counterpart for operator type {name!r}")
+    device = resolve_device(device)
     static = {n: getattr(op, n) for n in type(op)._static}
     children = {}
     for n in type(op)._children:
@@ -125,6 +132,6 @@ def port_operator(op, device=None):
 
 def port_options(opts):
     """The options record of the same name, field by field."""
-    cls = {"GMRESOptions": GMRESOptions, "CGOptions": CGOptions,
-           "EigsOptions": EigsOptions, "KexpmOptions": KexpmOptions}[type(opts).__name__]
+    cls = {c.__name__: c for c in (GMRESOptions, CGOptions, EigsOptions, SVDSOptions,
+                                   KexpmOptions, NewtonOptions)}[type(opts).__name__]
     return cls(**{f.name: getattr(opts, f.name) for f in dataclasses.fields(cls)})

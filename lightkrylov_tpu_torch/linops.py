@@ -18,6 +18,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import vectors
+from .constants import resolve_device
 
 __all__ = [
     "LinearOperator",
@@ -163,10 +164,11 @@ class MatvecOperator(LinearOperator):
 class DenseOperator(LinearOperator):
     """Dense matrix operator on 1-D vectors
     (reference: ``dense_linop``, AbstractLinops.fypp:264-271,607-660).
-    ``data`` is converted with ``torch.as_tensor`` onto ``device``."""
+    ``data`` is converted with ``torch.as_tensor`` onto ``device`` (default:
+    :func:`.constants.default_device`, the card)."""
 
     def __init__(self, data, is_hermitian=False, device=None):
-        self.data = torch.as_tensor(data, device=device)
+        self.data = torch.as_tensor(data, device=resolve_device(device))
         self.is_hermitian = is_hermitian
 
     def matvec(self, x):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import as_torch_dtype
+from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 
 __all__ = ["ConvectionDiffusion2D"]
@@ -30,7 +30,7 @@ class ConvectionDiffusion2D(LinearOperator):
         self.cx = float(cx)
         self.cy = float(cy)
         self.dtype_ = as_torch_dtype(dtype)
-        self.device = device
+        self.device = resolve_device(device)
 
     @property
     def hx(self):

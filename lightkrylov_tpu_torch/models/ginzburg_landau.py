@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import as_torch_dtype
+from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 
 __all__ = ["GinzburgLandau", "GinzburgLandauReal", "GLPropagator",
@@ -67,7 +67,8 @@ class GinzburgLandau(LinearOperator):
         self.nx = nx
         self.L = float(L)
         self.dtype_ = as_torch_dtype(dtype)
-        self.mu = torch.as_tensor(_mu(nx, self.L), dtype=self.dtype_, device=device)
+        self.mu = torch.as_tensor(_mu(nx, self.L), dtype=self.dtype_,
+                                  device=resolve_device(device))
 
     @property
     def dx(self):
@@ -121,7 +122,8 @@ class GinzburgLandauReal(LinearOperator):
         self.nx = nx
         self.L = float(L)
         self.dtype_ = as_torch_dtype(dtype)
-        self.mu = torch.as_tensor(_mu(nx, self.L), dtype=self.dtype_, device=device)
+        self.mu = torch.as_tensor(_mu(nx, self.L), dtype=self.dtype_,
+                                  device=resolve_device(device))
 
     @property
     def dx(self):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import as_torch_dtype
+from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 from ..ops.stencil import stencil_matvec_reference
 
@@ -22,8 +22,9 @@ __all__ = ["Poisson2D", "poisson2d_eigvals", "BlockJacobiPoisson"]
 class Poisson2D(LinearOperator):
     """Negative 5-point Laplacian ``-Delta`` with homogeneous Dirichlet BCs
     on the unit square; SPD.  Interior grid ``(ny, nx)``, spacing
-    ``hx = 1/(nx+1)``, ``hy = 1/(ny+1)``.  ``device`` is where
-    :meth:`template` allocates."""
+    ``hx = 1/(nx+1)``, ``hy = 1/(ny+1)``.  ``device`` (default:
+    :func:`..constants.default_device`, the card) is where :meth:`template`
+    allocates."""
 
     is_hermitian = True
 
@@ -32,7 +33,7 @@ class Poisson2D(LinearOperator):
         self.nx = nx
         self.ny = ny if ny is not None else nx
         self.dtype_ = as_torch_dtype(dtype)
-        self.device = device
+        self.device = resolve_device(device)
 
     @property
     def hx(self):

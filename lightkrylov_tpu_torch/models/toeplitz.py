@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import as_torch_dtype
+from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 
 __all__ = ["TridiagToeplitz", "toeplitz_eigvals"]
@@ -36,7 +36,7 @@ class TridiagToeplitz(LinearOperator):
     def __init__(self, n: int, a, b, c=None, dtype=torch.float64, device=None):
         if c is None:
             c = b
-        dtype = as_torch_dtype(dtype)
+        dtype, device = as_torch_dtype(dtype), resolve_device(device)
         self.n = n
         self.a, self.b, self.c = (torch.as_tensor(v, dtype=dtype, device=device)
                                   for v in (a, b, c))

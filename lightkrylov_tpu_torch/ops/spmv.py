@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import as_numpy_dtype
+from ..constants import as_numpy_dtype, resolve_device
 from ..linops import LinearOperator
 from ..utils.timer import host_read
 from . import _build
@@ -57,7 +57,8 @@ class BellMatrix:
 
 def bell_from_scipy(A, bm: int = 8, bn: int = 128, dtype=np.float32,
                     device=None) -> BellMatrix:
-    """Convert a scipy sparse (or dense) matrix to Block-ELL on ``device``.
+    """Convert a scipy sparse (or dense) matrix to Block-ELL on ``device``
+    (default: :func:`..constants.default_device`, the card).
 
     Real float32/float64 go through the native assembler when it is
     available (:mod:`..native`), anything else through numpy; both give the
@@ -89,6 +90,7 @@ def bell_from_scipy(A, bm: int = 8, bn: int = 128, dtype=np.float32,
         cols = np.zeros((nbr, K), np.int32)
         cols[ubr, slot_of_uniq] = (uniq % nbc).astype(np.int32)
         data[br, slot_of_uniq[inv], coo.row % bm, coo.col % bn] = coo.data.astype(dtype)
+    device = resolve_device(device)
     mat = BellMatrix(torch.from_numpy(data).to(device), torch.from_numpy(cols).to(device),
                      (m, n), A.nnz)
     mat.fill_ratio = A.nnz / data.size if data.size else 1.0

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import as_torch_dtype
+from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 from . import _build
 
@@ -98,8 +98,9 @@ class CudaPoisson2D(LinearOperator):
     """The Poisson operator of :class:`~lightkrylov_tpu_torch.models.Poisson2D`
     (same grid, spacing and SPD matrix) applied by the CUDA kernel;
     counterpart of ``PallasPoisson2D``.  With ``tile_x`` set it goes through
-    :func:`stencil_matvec_2d`, as the JAX operator does.  ``device`` is
-    where :meth:`template` allocates."""
+    :func:`stencil_matvec_2d`, as the JAX operator does.  ``device`` (default:
+    :func:`..constants.default_device`, the card) is where :meth:`template`
+    allocates."""
 
     is_hermitian = True
 
@@ -110,7 +111,7 @@ class CudaPoisson2D(LinearOperator):
         self.dtype_ = as_torch_dtype(dtype)
         self.tile = tile
         self.tile_x = tile_x
-        self.device = device
+        self.device = resolve_device(device)
 
     @property
     def hx(self):

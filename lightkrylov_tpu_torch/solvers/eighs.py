@@ -17,7 +17,8 @@ Only the JAX package's host projected path is ported (its
 reads ``T`` to the host for a numpy ``eigh``.  Checks come every
 ``check_every`` steps, or once per sweep of ``kdim`` steps by default.  The
 fused on-device sweep and restart (``projected="device"``) wait for ROADMAP
-M10; checkpointing waits for M13.
+M10.  Checkpoints write and restore ``(X, T, kstart, cycle, niter)`` at
+sweep and restart boundaries (see :mod:`.eigs`).
 """
 
 from __future__ import annotations
@@ -32,13 +33,14 @@ from ..linops import aslinop
 from ..utils.logger import check_info, log_information, log_warning
 from ..utils.options import EigsOptions, SolverMetadata, check_host_projected
 from ..utils.timer import count_applications, host_read, timed_fn
+from .eigs import _DriverCheckpointer, _solver_state, _resume_driver_state
 
 __all__ = ["eighs"]
 
 
-def _check_options(opts: EigsOptions, resume_from) -> None:
+def _check_options(opts: EigsOptions) -> None:
     """Raise on every option the host path does not implement."""
-    check_host_projected("eighs", opts, resume_from)
+    check_host_projected("eighs", opts)
     if opts.write_intermediate:
         raise NotImplementedError(
             "eighs: write_intermediate is read by eigs, not by eighs (as in the JAX package).")
@@ -81,10 +83,14 @@ def eighs(A, nev: int, x0=None, kdim: int | None = None,
     default ``rtol`` of the dtype) or the Krylov space became invariant,
     else ``-n_conv``.  ``x0`` is required, as in the JAX package; a zero
     ``x0`` is replaced by a random vector from ``generator`` (default: a
-    new generator seeded with 0 on ``x0``'s device)."""
+    new generator seeded with 0 on ``x0``'s device).
+
+    ``options.checkpoint_every``/``checkpoint_path`` and ``resume_from``
+    write and restore ``(X, T, kstart, cycle, niter)`` at sweep and restart
+    boundaries, as in :func:`.eigs.eigs`."""
     A = aslinop(A)
     opts = options or EigsOptions()
-    _check_options(opts, resume_from)
+    _check_options(opts)
     if kdim is None:
         kdim = opts.kdim or 4 * nev
     if x0 is None:
@@ -104,10 +110,19 @@ def eighs(A, nev: int, x0=None, kdim: int | None = None,
 
     niter = 0
     kstart = 1
+    cycle0 = 0
+    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path)
+    if resume_from is not None:
+        # the JAX package stores T under the key "H"
+        st = _resume_driver_state(_solver_state({"X": X, "H": T}, 0, 0, 0), resume_from)
+        X, T = st["X"], st["H"]
+        kstart, cycle0, niter = st["kstart"], st["cycle"], st["niter"]
+        log_information(f"eighs: resumed from {resume_from} (cycle {cycle0}, kstart {kstart}, "
+                        f"{niter} matvecs done)", "solvers", "eighs")
     res_history = []
     invariant = False
     n_conv = 0
-    for cycle in range(opts.maxiter):
+    for cycle in range(cycle0, opts.maxiter):
         k = kstart
         while k <= kdim:
             kend = min(kdim, k + stride - 1)
@@ -132,8 +147,11 @@ def eighs(A, nev: int, x0=None, kdim: int | None = None,
             n_conv = int(np.sum(r[:nev] < tol))
             res_history.append(r[: min(nev, len(r))].copy())
             evals, evecs, res, k_final = w, V, r, k_eff
+            ckpt.check()
             if n_conv >= nev or invariant:
                 break
+            if kend < kdim:
+                ckpt.save(_solver_state({"X": X, "H": T}, kend + 1, cycle, niter))
             k = kend + 1
         if n_conv >= nev or invariant:
             break
@@ -142,6 +160,7 @@ def eighs(A, nev: int, x0=None, kdim: int | None = None,
             n = min(max(nev + (kdim - nev) // 2, nev + 1), kdim - 1)
             X, T = _thick_restart(X, evals, evecs, Th[kdim, kdim - 1], n)
             kstart = n + 1
+            ckpt.save(_solver_state({"X": X, "H": T}, kstart, cycle + 1, niter))
             log_information(f"eighs: thick restart cycle {cycle + 1}, kept n={n}, "
                             f"{n_conv}/{nev} converged", "solvers", "eighs")
 

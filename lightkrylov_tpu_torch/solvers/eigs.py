@@ -18,8 +18,12 @@ solves are timed as ``eigs.projected_eig`` and, in restarts,
 ``krylov_schur.schur_select``.  Checks come every
 ``check_every`` steps, or once per sweep of ``kdim`` steps by default.  The
 fused on-device sweep and restarts (``projected="device"``) wait for
-ROADMAP M10; the block driver (``blksize > 1``) and checkpoints wait for
-M13.
+ROADMAP M10; block mode (``blksize > 1``) waits for M13.
+
+Checkpoints (``options.checkpoint_every``/``checkpoint_path`` and
+``resume_from=``) write and restore ``(X, H, kstart, cycle, niter)`` at
+sweep and restart boundaries, as the JAX solvers do; the checkpointer here
+serves ``eighs`` and ``svds`` too.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from .. import constants, vectors
 from ..krylov.arnoldi import arnoldi, initialize_arnoldi
 from ..krylov.krylov_schur import krylov_schur, median_selector
 from ..linops import aslinop
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import check_info, log_information, log_warning
 from ..utils.options import EigsOptions, SolverMetadata, check_host_projected
 from ..utils.timer import count_applications, host_read, timed, timed_fn
@@ -39,13 +44,56 @@ from ..utils.timer import count_applications, host_read, timed, timed_fn
 __all__ = ["eigs", "save_eigenspectrum"]
 
 
-def _check_options(opts: EigsOptions, resume_from, blksize: int) -> None:
+def _check_options(opts: EigsOptions, blksize: int) -> None:
     """Raise on every option the host path does not implement."""
     if blksize > 1:
         raise NotImplementedError(
-            "eigs: blksize > 1 (the block driver) is not ported; see ROADMAP M13 "
+            "eigs: blksize > 1 (block mode) is not ported; see ROADMAP M13 "
             "(it rests on the device restarts of M10).")
-    check_host_projected("eigs", opts, resume_from)
+    check_host_projected("eigs", opts)
+
+
+class _DriverCheckpointer:
+    """Checkpoint cadence and writing, shared by ``eigs``, ``eighs`` and
+    ``svds`` (the JAX package's ``eigs.py:337-372``).
+
+    ``every`` counts convergence checks; the state is written at the next
+    safe boundary, one where entering the solver's loop again with the stored
+    ``(kstart, cycle)`` repeats the uninterrupted run.  Only the IO rank
+    writes."""
+
+    def __init__(self, every: int, path):
+        self.every = int(every or 0)
+        self.path = path
+        self._since = 0
+
+    def check(self) -> None:
+        self._since += 1
+
+    @property
+    def due(self) -> bool:
+        return self.every > 0 and self.path is not None and self._since >= self.every
+
+    def save(self, state: dict) -> None:
+        if not self.due:
+            return
+        if constants.io_rank():
+            save_checkpoint(state, self.path)
+        self._since = 0
+
+
+def _resume_driver_state(template: dict, path: str) -> dict:
+    """The solver state stored at ``path``, shaped like ``template``, with
+    ``kstart``, ``cycle`` and ``niter`` as Python ints."""
+    st = load_checkpoint(template, path)
+    for k in ("kstart", "cycle", "niter"):
+        st[k] = int(st[k])
+    return st
+
+
+def _solver_state(bases: dict, kstart: int, cycle: int, niter: int) -> dict:
+    """The state a solver checkpoints: its buffers and three counters."""
+    return dict(bases, kstart=np.int64(kstart), cycle=np.int64(cycle), niter=np.int64(niter))
 
 
 def _ritz_residuals(H, evecs, k):
@@ -82,10 +130,15 @@ def eigs(A, nev: int, x0=None, kdim: int | None = None, tolerance: float | None 
     zero ``x0`` is replaced by a random vector from ``generator`` (default:
     a new generator seeded with 0 on ``x0``'s device).  With
     ``options.write_intermediate`` each check writes its Ritz values and
-    residuals to ``options.outpost``."""
+    residuals to ``options.outpost``.
+
+    ``options.checkpoint_every``/``checkpoint_path`` write the factorization
+    state ``(X, H, kstart, cycle, niter)`` at sweep and restart boundaries;
+    ``resume_from=`` restores it and continues the run (``x0`` then only
+    gives the buffers' shape, dtype and device)."""
     A = aslinop(A)
     opts = options or EigsOptions()
-    _check_options(opts, resume_from, blksize)
+    _check_options(opts, blksize)
     if kdim is None:
         kdim = opts.kdim or 4 * nev  # (reference: :1023)
     if x0 is None:
@@ -107,11 +160,19 @@ def eigs(A, nev: int, x0=None, kdim: int | None = None, tolerance: float | None 
     X, H = initialize_arnoldi(seed, kdim)
 
     kstart = 1
+    cycle0 = 0
     n_conv = 0
     niter = 0
+    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path)
+    if resume_from is not None:
+        st = _resume_driver_state(_solver_state({"X": X, "H": H}, 0, 0, 0), resume_from)
+        X, H = st["X"], st["H"]
+        kstart, cycle0, niter = st["kstart"], st["cycle"], st["niter"]
+        log_information(f"eigs: resumed from {resume_from} (cycle {cycle0}, kstart {kstart}, "
+                        f"{niter} matvecs done)", "solvers", "eigs")
     res_history = []
     invariant = False
-    for cycle in range(opts.maxiter):
+    for cycle in range(cycle0, opts.maxiter):
         k = kstart
         while k <= kdim:
             kend = min(kdim, k + stride - 1)
@@ -136,14 +197,21 @@ def eigs(A, nev: int, x0=None, kdim: int | None = None, tolerance: float | None 
             if opts.write_intermediate and constants.io_rank():
                 _write_intermediate(opts.outpost, w, r)
             evals, evecs, res, k_final = w, V, r, k_eff
+            ckpt.check()
             if n_conv >= nev or invariant:
                 break
+            if kend < kdim:
+                # a sweep boundary inside the cycle: resuming enters this
+                # cycle again at k = kend + 1
+                ckpt.save(_solver_state({"X": X, "H": H}, kend + 1, cycle, niter))
             k = kend + 1
         if n_conv >= nev or invariant:
             break
         if cycle < opts.maxiter - 1:
             X, H, n = krylov_schur(X, H, select)  # (:1099-1100)
             kstart = n + 1
+            # a restart boundary: resuming starts the next cycle at n + 1
+            ckpt.save(_solver_state({"X": X, "H": H}, kstart, cycle + 1, niter))
             log_information(f"eigs: restart cycle {cycle + 1}, compressed to n={n}, "
                             f"{n_conv}/{nev} converged", "solvers", "eigs")
 

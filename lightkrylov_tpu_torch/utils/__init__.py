@@ -1,5 +1,5 @@
-"""Options, logging, timers and small dense linear algebra."""
+"""Options, logging, timers, checkpoints and small dense linear algebra."""
 
-from . import linalg, logger, options, timer
+from . import checkpoint, linalg, logger, options, timer
 
-__all__ = ["linalg", "logger", "options", "timer"]
+__all__ = ["checkpoint", "linalg", "logger", "options", "timer"]

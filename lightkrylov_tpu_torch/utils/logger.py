@@ -97,18 +97,22 @@ _BENIGN = {
     "qr": "Colinear columns detected and replaced by random vectors.",
     "arnoldi": "Invariant subspace found after {info} steps.",
     "lanczos": "Invariant subspace found after {info} steps.",
+    "bidiagonalization": "Invariant subspace found after {info} steps.",
     "gram_schmidt": "Zero vector encountered during orthogonalization.",
     "gmres": "Converged after {info} iterations.",
     "fgmres": "Converged after {info} iterations.",
     "cg": "Converged after {info} iterations.",
     "eigs": "Converged after {info} iterations.",
     "eighs": "Converged after {info} iterations.",
+    "svds": "Converged after {info} iterations.",
+    "newton": "Converged after {info} iterations.",
     "kexpm": "Converged after {info} iterations (info=-2: invariant subspace, exact result).",
 }
 
 #: Origins whose negative info means "did not converge within maxiter": a
 #: logged warning, not a fatal error (reference: Logger.f90:653-667).
-_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg", "eigs", "eighs", "kexpm"})
+_SOLVER_ORIGINS = frozenset({"gmres", "fgmres", "cg", "eigs", "eighs", "svds", "newton",
+                             "kexpm"})
 
 
 def check_info(info: int, origin: str, module: str | None = None, procedure: str | None = None) -> None:

@@ -3,9 +3,11 @@
 Mirror of :mod:`lightkrylov_tpu.utils.options` for the solvers this package
 ports (reference: ``gmres_*_opts`` kdim=30, maxiter=10,
 IterativeSolvers.fypp:141-151; ``cg_*_opts`` maxiter=100, :468-474; the
-eigensolver defaults kdim = 4*nev, :1023-1024; and the metadata types,
-:153-186,476-505).  The fields and defaults are the JAX
-package's, so options carry across by field name (:mod:`..convert`).
+eigensolver defaults kdim = 4*nev, :1023-1024; ``newton_*_opts``
+maxiter=100, ifbisect, maxstep_bisection=5, NewtonKrylov.fypp:28-39; and the
+metadata types, IterativeSolvers.fypp:153-186,476-505, NewtonKrylov.fypp:44-65).
+The fields and defaults are the JAX package's, so options carry across by
+field name (:mod:`..convert`).
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "KexpmOptions", "SolverMetadata",
-           "check_host_projected"]
+__all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "SVDSOptions", "KexpmOptions",
+           "NewtonOptions", "SolverMetadata", "NewtonMetadata", "check_host_projected"]
 
 
 @dataclass(frozen=True)
@@ -49,14 +51,17 @@ class EigsOptions:
     tol = rtol, IterativeSolvers.fypp:1023-1024); the JAX record's fields
     and defaults.
 
+    ``checkpoint_every``/``checkpoint_path``: write the factorization state
+    (basis, projected matrix, restart index, counters) to one ``.npz`` every
+    N convergence checks, at the next sweep or restart boundary; the
+    solver's ``resume_from=`` argument restores it (:mod:`.checkpoint`).
+
     Only what the host projected path reads is implemented; the solvers
     raise :class:`NotImplementedError` on the rest rather than ignore it:
 
     * ``projected``: ``"auto"`` and ``"host"`` both mean the host path (a
       dense ``eig``/``eigh`` of the projected matrix per check);
       ``"device"``, the fused on-device sweep, waits for ROADMAP M10.
-    * ``checkpoint_every`` other than 0 (and ``resume_from=...``):
-      checkpointing is ROADMAP M13.
     * ``write_intermediate``/``outpost``: ``eigs`` writes the Ritz values
       and residuals of each check to ``outpost``; the JAX ``eighs`` does not
       read them, and the port's ``eighs`` raises on ``write_intermediate``.
@@ -71,19 +76,28 @@ class EigsOptions:
     projected: str = "auto"
 
 
-def check_host_projected(name: str, opts: EigsOptions, resume_from=None) -> None:
-    """Raise on every option of ``opts`` that the host projected path of
-    ``eigs`` and ``eighs`` does not implement."""
+@dataclass(frozen=True)
+class SVDSOptions:
+    """Options of ``svds`` (the JAX record's fields and defaults; see
+    :class:`EigsOptions` for ``checkpoint_every`` and ``projected``)."""
+
+    kdim: int | None = None       # None -> 4 * nsv
+    maxiter: int = 20             # max restart cycles
+    checkpoint_every: int = 0     # every N convergence checks; 0 = off
+    checkpoint_path: str | None = None
+    projected: str = "auto"
+
+
+def check_host_projected(name: str, opts) -> None:
+    """Raise on a ``projected`` choice of ``opts`` (:class:`EigsOptions` or
+    :class:`SVDSOptions`) that the host projected path of ``eigs``,
+    ``eighs`` and ``svds`` does not implement."""
     if opts.projected == "device":
         raise NotImplementedError(
             f"{name}: projected='device' (the fused on-device sweep) is not ported; "
             "ROADMAP M10 decides it by measurement. Use 'host' or 'auto'.")
     if opts.projected not in ("auto", "host"):
         raise ValueError(f"{name}: unknown projected={opts.projected!r}")
-    if opts.checkpoint_every or resume_from is not None:
-        raise NotImplementedError(
-            f"{name}: checkpoint_every and resume_from (checkpointing) are not "
-            "ported; see ROADMAP M13.")
 
 
 @dataclass(frozen=True)
@@ -91,6 +105,16 @@ class KexpmOptions:
     """(reference: kdim=30 default wrapper, kmax=100; ExpmLib.fypp:149,365-392)."""
 
     kdim: int = 30
+
+
+@dataclass(frozen=True)
+class NewtonOptions:
+    """(reference: ``newton_{sp,dp}_opts``, NewtonKrylov.fypp:28-39)."""
+
+    maxiter: int = 100
+    ifbisect: bool = False
+    maxstep_bisection: int = 5
+    if_print_metadata: bool = False
 
 
 @dataclass
@@ -116,3 +140,26 @@ class SolverMetadata:
             f"{self.history[-1] if len(self.history) else float('nan'):.3e}"
         )
 
+
+
+@dataclass
+class NewtonMetadata:
+    """(reference: ``newton_*_metadata``, one (residual, tolerance) record
+    per evaluation, NewtonKrylov.fypp:44-65,221-242).
+
+    ``residuals`` and ``tolerances`` hold one entry per ``system.eval``: the
+    initial evaluation, every bisection probe, each post-update residual and
+    each target-tolerance recheck, so ``n_evals == len(residuals)``."""
+
+    converged: bool = False
+    n_iter: int = 0
+    n_evals: int = 0
+    info: int = 0
+    residuals: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    tolerances: np.ndarray = field(default_factory=lambda: np.zeros(0))
+
+    def print(self, log_fn=print) -> None:
+        log_fn(
+            f"newton: converged={self.converged} n_iter={self.n_iter} "
+            f"residuals={np.array2string(self.residuals, precision=3)}"
+        )

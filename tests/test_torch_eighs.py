@@ -31,6 +31,15 @@ from lightkrylov_tpu_torch.utils.logger import LightKrylovError
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
 RTOL = lk.constants.rtol(np.float64)
 
 
@@ -250,16 +259,20 @@ def test_eighs_reads_the_host_once_per_step():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(options=lt.EigsOptions(projected="device")), NotImplementedError),
-    (dict(options=lt.EigsOptions(checkpoint_every=2, checkpoint_path="x")), NotImplementedError),
-    (dict(resume_from="state.npz"), NotImplementedError),
-    (dict(options=lt.EigsOptions(write_intermediate=True)), NotImplementedError),
-    (dict(options=lt.EigsOptions(projected="gpu")), ValueError),
+    (lambda tmp: dict(options=lt.EigsOptions(projected="device")), NotImplementedError),
+    # checkpoints are ported: what is refused is a path that cannot be
+    # written, and a resume file that is not there
+    (lambda tmp: dict(options=lt.EigsOptions(checkpoint_every=1, maxiter=2,
+                                             checkpoint_path=str(tmp / "no-dir" / "x.npz")),
+                      tolerance=1e-30), FileNotFoundError),
+    (lambda tmp: dict(resume_from=str(tmp / "state.npz")), FileNotFoundError),
+    (lambda tmp: dict(options=lt.EigsOptions(write_intermediate=True)), NotImplementedError),
+    (lambda tmp: dict(options=lt.EigsOptions(projected="gpu")), ValueError),
 ], ids=["device", "checkpoint", "resume", "write-intermediate", "unknown"])
-def test_eighs_refuses_what_is_not_ported(kwargs, err):
+def test_eighs_refuses_what_is_not_ported(kwargs, err, tmp_path):
     op = lt.TridiagToeplitz(20, 2.0, -1.0)
-    with pytest.raises(err, match="M10|M13|read by eigs|unknown"):
-        lt.eighs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs)
+    with pytest.raises(err, match="M10|M13|read by eigs|unknown|No such file"):
+        lt.eighs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs(tmp_path))
 
 
 def test_eighs_requires_x0_and_ports_options():

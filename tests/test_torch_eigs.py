@@ -30,6 +30,15 @@ from lightkrylov_tpu_torch.utils.logger import LightKrylovError
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
 N = 128
 RTOL = lk.constants.rtol(np.float64)
 
@@ -247,16 +256,20 @@ def test_eigs_times_its_host_solves():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(blksize=2), NotImplementedError),
-    (dict(options=lt.EigsOptions(projected="device")), NotImplementedError),
-    (dict(options=lt.EigsOptions(checkpoint_every=2, checkpoint_path="x")), NotImplementedError),
-    (dict(resume_from="state.npz"), NotImplementedError),
-    (dict(options=lt.EigsOptions(projected="gpu")), ValueError),
+    (lambda tmp: dict(blksize=2), NotImplementedError),
+    (lambda tmp: dict(options=lt.EigsOptions(projected="device")), NotImplementedError),
+    # checkpoints are ported: what is refused is a path that cannot be
+    # written, and a resume file that is not there
+    (lambda tmp: dict(options=lt.EigsOptions(checkpoint_every=1, maxiter=2,
+                                             checkpoint_path=str(tmp / "no-dir" / "x.npz")),
+                      tolerance=1e-30), FileNotFoundError),
+    (lambda tmp: dict(resume_from=str(tmp / "state.npz")), FileNotFoundError),
+    (lambda tmp: dict(options=lt.EigsOptions(projected="gpu")), ValueError),
 ], ids=["block", "device", "checkpoint", "resume", "unknown"])
-def test_eigs_refuses_what_is_not_ported(kwargs, err):
+def test_eigs_refuses_what_is_not_ported(kwargs, err, tmp_path):
     op = lt.TridiagToeplitz(20, 2.0, -1.0, 1.0)
-    with pytest.raises(err, match="M10|M13|unknown"):
-        lt.eigs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs)
+    with pytest.raises(err, match="M10|M13|unknown|No such file"):
+        lt.eigs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs(tmp_path))
 
 
 def test_eigs_requires_x0():

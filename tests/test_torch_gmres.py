@@ -23,6 +23,15 @@ from lightkrylov_tpu_torch.convert import port_operator, port_options, to_torch
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
 RTOL = lk.constants.rtol(np.float64)
 
 

@@ -11,10 +11,20 @@ import torch
 import lightkrylov_tpu as lk
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu.models import poisson2d_eigvals as j_eigvals
+from lightkrylov_tpu.ops.pallas import PallasPoisson2D
 from lightkrylov_tpu.utils import linalg as jlinalg
 from lightkrylov_tpu_torch.convert import port_operator, port_options
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
 
 
 def _rand(rng, shape, dtype):
@@ -121,3 +131,61 @@ def test_check_info_and_counters():
         assert lt.global_watch.timer("cg").count == 1
     finally:
         lt.timer.set_timing(False)
+
+
+# -- the package's default device -------------------------------------------------
+
+def test_the_default_device_is_the_card():
+    """A process that sets nothing gets ``cuda``; the fixture above asks for
+    the CPU in this module."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run(
+        [sys.executable, "-c", "import lightkrylov_tpu_torch as lt; print(lt.default_device())"],
+        capture_output=True, text=True, check=True, timeout=300,
+        cwd=Path(__file__).resolve().parent.parent)
+    assert out.stdout.strip() == "cuda"
+    assert lt.default_device() == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: lt.Poisson2D(8),
+    lambda: lt.CudaPoisson2D(8),
+    lambda: lt.ConvectionDiffusion2D(8),
+    lambda: port_operator(lk.models.Poisson2D(8)),
+    lambda: port_operator(PallasPoisson2D(8, interpret=True)),
+], ids=["Poisson2D", "CudaPoisson2D", "ConvectionDiffusion2D", "port-Poisson2D",
+        "port-PallasPoisson2D"])
+def test_constructors_resolve_the_default_device(make):
+    """With the package's default, a model names the card, and nothing is
+    allocated until a template is asked for."""
+    lt.set_default_device("cuda")  # the fixture restores the CPU
+    assert make().device == torch.device("cuda")
+    assert lt.Poisson2D(8, device="cpu").template().device == torch.device("cpu")
+
+
+def test_no_fallback_to_the_cpu_without_a_card():
+    """An allocation on the default device goes to the card or fails there:
+    templates, operator data, converted arrays and Block-ELL matrices."""
+    import scipy.sparse as sp
+
+    from lightkrylov_tpu_torch.convert import to_torch
+
+    lt.set_default_device("cuda")  # the fixture restores the CPU
+    makers = {
+        "template": lambda: lt.Poisson2D(8).template(),
+        "Toeplitz": lambda: lt.TridiagToeplitz(8, 2.0, -1.0).a,
+        "GinzburgLandau": lambda: lt.GinzburgLandau(16).mu,
+        "DenseOperator": lambda: lt.DenseOperator(np.eye(3)).data,
+        "to_torch": lambda: to_torch({"a": np.ones(3)})["a"],
+        "port_operator": lambda: port_operator(lk.DenseOperator(jnp.eye(3))).data,
+        "bell_from_scipy": lambda: lt.bell_from_scipy(sp.eye(16, format="csr")).data,
+    }
+    for name, make in makers.items():
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda", name
+        else:
+            with pytest.raises(AssertionError, match="CUDA"):
+                make()

@@ -20,6 +20,15 @@ from lightkrylov_tpu_torch.convert import port_operator
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
+
 def _close(got, ref):
     ref = np.asarray(ref)
     assert got.shape == ref.shape and got.dtype == ref.dtype

@@ -20,6 +20,15 @@ from lightkrylov_tpu_torch import vectors as tv
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
 K, SHAPE = 5, (6, 7)
 
 
