@@ -72,7 +72,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     cut from the flagship's 20000 (printed);
 24. checkpoint/resume: an svds and an eigs on CudaPoisson2D f32 are
     interrupted in their second cycle, resumed from the checkpoint written
-    at their first restart, and held to the uninterrupted runs.
+    at their first restart, and held to the uninterrupted runs;
+25. the partitioned path at world size 1 over NCCL, in a spawned rank:
+    ShardedPoisson2D(3162) f32 (10.0M DoF, BASELINE's 10M-DoF configuration),
+    one GMRES(30) cycle and one 32-step eighs sweep through the stencil
+    kernel on the rank's shard, each against the same run on
+    CudaPoisson2D(3162) with the reduction group unset, with its launches,
+    all-reduces and halo exchanges counted; ShardedBellOperator over the
+    full-size Block-ELL matrix, matvec and rmatvec against BellOperator and
+    one GMRES(30) cycle through bell_spmv; the cycles and sweeps timed;
+26. two ranks on the one card over gloo (both on cuda:0; the transport is
+    printed, and no time here is a scaling number): ShardedPoisson2D at
+    5120 x 2048 f32 (10.5M DoF) against CudaPoisson2D on the whole grid,
+    ShardedBellOperator matvec and rmatvec against the unsharded operator,
+    one GMRES(30) cycle and one eighs sweep against the serial runs, the
+    all-reduces of a CGS pass, and each rank's stencil and Block-ELL
+    launches;
+27. small gates on the same two ranks: eigs with a Krylov-Schur restart on
+    ShardedGinzburgLandau(128) c128, svds and Newton-Krylov on a sharded
+    Poisson 16 x 32 f64, and a sharded eighs resumed from its checkpoint
+    to the uninterrupted run, bit for bit.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -80,11 +99,13 @@ without the package beside it, the script fails before it prints any result.
 """
 
 import json
+import queue
 import shutil
 import statistics
 import subprocess
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +151,12 @@ HBM_BYTES_PER_S = 3.35e12
 # the flagship's 3000 steps per period and 20000 OTD steps would take minutes
 UPO_STEPS, UPO_STEPS_FLAGSHIP = 300, 3000
 OTD_STEPS, OTD_STEPS_FLAGSHIP = 2000, 20000
+# the partitioned phases: BASELINE's 10M-DoF Poisson (examples/poisson_sharded.py
+# --n 3162) at world size 1, and benchmarks/WEAK_SCALING.md round 5's
+# 5120 x 2048 grid on two ranks; each rank process has this long to report
+N_SHARDED = 3162
+WEAK_NY, WEAK_NX = 5120, 2048
+RANK_TIMEOUT_S = 300
 
 
 def fail(msg):
@@ -1040,6 +1067,345 @@ def checkpoint_resume(dev, tag):
     return out
 
 
+# -- 25-27: the partitioned path, in spawned rank processes -------------------
+
+def unsharded(fn):
+    """``fn()`` with the vector layer's reduction group unset, as a serial
+    run computes: the reference for a rank's partitioned run."""
+    prev = lt.vectors.set_reduction_group(None)
+    try:
+        return fn()
+    finally:
+        lt.vectors.set_reduction_group(prev)
+
+
+def counted(fn):
+    """``fn()`` after every count is set to 0, then synchronised; returns
+    ``(out, counts)``: stencil and Block-ELL launches, the vector layer's
+    all-reduces and the operators' collectives."""
+    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = lt.bell_spmv.LAUNCHES = 0
+    lt.timer.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(stencil=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES,
+                     bell_spmv=lt.bell_spmv.LAUNCHES,
+                     all_reduces=lt.timer.get_counter("all_reduces"),
+                     operator_collectives=lt.timer.get_counter("operator_collectives"))
+
+
+def global_rel(got, want):
+    """``|got - want| / |want|`` over the whole partitioned vector."""
+    return float(lt.norm(got - want) / lt.norm(want))
+
+
+def sharded_cycle_vs_serial(op_s, op_u, b_loc, b, rows, log):
+    """One GMRES(30) cycle on the partitioned operator, counted, and the
+    same cycle on the unsharded one with the group unset."""
+    opts = lt.GMRESOptions(kdim=30, maxiter=1)
+    (x_s, info_s, meta_s), counts = counted(
+        lambda: lt.gmres(op_s, b_loc, rtol=0.0, atol=0.0, options=opts))
+    x_u, info_u, meta_u = unsharded(lambda: lt.gmres(op_u, b, rtol=0.0, atol=0.0, options=opts))
+    h_s, h_u = meta_s.residuals, meta_u.residuals
+    dres = abs(h_s[-1] - h_u[-1]) / h_u[-1]
+    dx = global_rel(x_s, x_u[rows])
+    log(f"  GMRES(30) cycle: info={info_s}, counts {counts} for {meta_s.n_inner} inner "
+        f"iterations; final residual {h_s[-1]:.6e} vs unsharded {h_u[-1]:.6e} (rel {dres:.3e}), "
+        f"|x_s - x_u| / |x_u| = {dx:.3e}")
+    check(len(h_s) == 30 and np.all(np.isfinite(h_s)), f"sharded residual history {h_s}")
+    check(dres <= 1e-3 and dx <= 1e-3, "the sharded cycle differs from the unsharded one")
+    check(info_s == info_u == -30, f"info {info_s} vs {info_u}")
+    return dict(counts, n_inner=meta_s.n_inner, final_residual=float(h_s[-1]),
+                final_residual_unsharded=float(h_u[-1]), residual_rel_diff=dres, x_rel_diff=dx)
+
+
+def sharded_sweep_vs_serial(op_s, op_u, x_loc, x, lam_max, log):
+    """One 32-step eighs sweep on the partitioned operator, counted, and on
+    the unsharded one with the group unset."""
+    opts = lt.EigsOptions(maxiter=1)
+    (w_s, *_), counts = counted(
+        lambda: lt.eighs(op_s, 4, x0=x_loc, kdim=32, tolerance=0.0, options=opts))
+    w_u = unsharded(lambda: lt.eighs(op_u, 4, x0=x, kdim=32, tolerance=0.0, options=opts)[0])
+    dw = float(np.abs(w_s - w_u).max() / lam_max)
+    log(f"  eighs sweep (32 steps): counts {counts}; Ritz values {w_s} vs unsharded {w_u}, "
+        f"max |dw| / lambda_max = {dw:.3e}")
+    check(dw <= 1e-5, f"sharded Ritz values differ by {dw:.3e} of lambda_max")
+    check(counts["stencil"] == 32, f"{counts['stencil']} stencil launches in the sweep")
+    return dict(counts, ritz=w_s.tolist(), ritz_rel_diff=dw)
+
+
+def bell_sharded_vs_serial(mesh, bell, log):
+    """ShardedBellOperator over ``bell`` against BellOperator: matvec and
+    rmatvec, this rank's rows."""
+    dev = mesh.device
+    n = bell.shape[0]
+    rows = lt.shard_rows(mesh, n)
+    op_s, op_u = lt.ShardedBellOperator(bell, mesh=mesh), lt.BellOperator(bell)
+    x, y = seeded((n,), torch.float32, dev, seed=23), seeded((n,), torch.float32, dev, seed=24)
+    y_s, counts = counted(lambda: op_s.matvec(x[rows].contiguous()))
+    d_mv = global_rel(y_s, op_u.matvec(x)[rows])
+    d_rmv = global_rel(op_s.rmatvec(y[rows].contiguous()), op_u.rmatvec(y)[rows])
+    log(f"  ShardedBellOperator {n}^2: matvec counts {counts}, rel diff vs BellOperator "
+        f"matvec {d_mv:.3e}, rmatvec {d_rmv:.3e}")
+    check(counts["bell_spmv"] == 1 and counts["operator_collectives"] == (mesh.group is not None),
+          f"sharded Block-ELL matvec counts {counts}")
+    check(d_mv <= BELL_REL_TOL[torch.float32] and d_rmv <= BELL_REL_TOL[torch.float32],
+          "ShardedBellOperator differs from BellOperator")
+    return op_s, op_u, dict(matvec_counts=counts, matvec_rel_diff=d_mv, rmatvec_rel_diff=d_rmv)
+
+
+def collective_us(mesh, n):
+    """Host time in us of one all-reduce of 64 values, one halo exchange of
+    a row of ``n`` and, as the floor, one tiny kernel: median of 50 calls,
+    each followed by a synchronise (latency), and per call over 50 calls
+    in a row with one synchronise at the end (throughput)."""
+    from lightkrylov_tpu_torch.parallel.stencil import halo_rows
+
+    t = torch.ones(64, device=mesh.device)
+    block = torch.ones((2, n), device=mesh.device)
+    fns = {"all_reduce": lambda: torch.distributed.all_reduce(t),
+           "halo": lambda: halo_rows(block, mesh), "kernel": lambda: t.mul_(1.0)}
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = dict(latency_us=statistics.median(lat) * 1e6,
+                         throughput_us=(time.perf_counter() - t0) / 50 * 1e6)
+    return out
+
+
+def phase25(mesh, log, tag):
+    """World size 1 over NCCL: the 10M-DoF partitioned Poisson and the
+    full-size Block-ELL matrix."""
+    dev, n = mesh.device, N_SHARDED
+    out = {"backend": torch.distributed.get_backend(), "world": mesh.size}
+    log(f"phase 25: world size {mesh.size} over {out['backend']} on {dev}; "
+        f"ShardedPoisson2D({n}) f32, {n * n / 1e6:.2f}M DoF")
+    op_s = lt.ShardedPoisson2D(n, mesh=mesh, dtype=torch.float32)
+    op_u = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    rows = lt.shard_rows(mesh, n)
+    b = seeded((n, n), torch.float32, dev, seed=21)
+    b_loc = lt.distribute(b, mesh)
+    out["gmres"] = sharded_cycle_vs_serial(op_s, op_u, b_loc, b, rows, log)
+    check(out["gmres"]["stencil"] == 32, f"{out['gmres']['stencil']} stencil launches in the cycle")
+    out["eighs"] = sharded_sweep_vs_serial(op_s, op_u, b_loc, b, closed_form_lam_max(n), log)
+    opts, eopts = lt.GMRESOptions(kdim=30, maxiter=1), lt.EigsOptions(maxiter=1)
+    out["ms"] = alternating_ms({
+        "sharded_cycle": lambda: lt.gmres(op_s, b_loc, rtol=0.0, atol=0.0, options=opts),
+        "unsharded_cycle": lambda: unsharded(
+            lambda: lt.gmres(op_u, b, rtol=0.0, atol=0.0, options=opts)),
+        "sharded_sweep": lambda: lt.eighs(op_s, 4, x0=b_loc, kdim=32, tolerance=0.0,
+                                          options=eopts),
+        "unsharded_sweep": lambda: unsharded(
+            lambda: lt.eighs(op_u, 4, x0=b, kdim=32, tolerance=0.0, options=eopts))}, runs=10)
+    ms = out["ms"]
+    log(f"{tag} phase 25 ShardedPoisson2D({n}) f32, world {mesh.size} over {out['backend']}: "
+        f"GMRES(30) cycle {ms['sharded_cycle']:.2f} ms (unsharded {ms['unsharded_cycle']:.2f} ms), "
+        f"eighs sweep "
+        f"{ms['sharded_sweep']:.2f} ms (unsharded {ms['unsharded_sweep']:.2f} ms), median of 10 "
+        f"in turn; all-reduces per inner iteration "
+        f"{out['gmres']['all_reduces'] / out['gmres']['n_inner']:.3f}, per Lanczos step "
+        f"{out['eighs']['all_reduces'] / 32:.3f}")
+    out["profile_sharded"] = profile_row(
+        tag, "phase 25 sharded GMRES(30) cycle",
+        lambda: lt.gmres(op_s, b_loc, rtol=0.0, atol=0.0, options=opts))
+    out["profile_unsharded"] = profile_row(
+        tag, "phase 25 unsharded GMRES(30) cycle",
+        lambda: unsharded(lambda: lt.gmres(op_u, b, rtol=0.0, atol=0.0, options=opts)))
+    out["collective_us"] = collective_us(mesh, n)
+    log(f"{tag} phase 25 one collective, host us (latency with a synchronise / throughput): "
+        + "; ".join(f"{k} {v['latency_us']:.1f} / {v['throughput_us']:.1f}"
+                    for k, v in out["collective_us"].items()))
+    del b, b_loc, op_u
+    torch.cuda.empty_cache()
+
+    bell = bell_main_matrix(dev)
+    op_bs, op_bu, out["bell"] = bell_sharded_vs_serial(mesh, bell, log)
+    nb = bell.shape[0]
+    bb = torch.randn(nb, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    out["bell_gmres"] = sharded_cycle_vs_serial(op_bs, op_bu, bb, bb, slice(None), log)
+    check(out["bell_gmres"]["bell_spmv"] == 32,
+          f"{out['bell_gmres']['bell_spmv']} bell_spmv launches in the cycle")
+    out["bell_ms"] = alternating_ms({
+        "sharded_cycle": lambda: lt.gmres(op_bs, bb, rtol=0.0, atol=0.0, options=opts),
+        "unsharded_cycle": lambda: unsharded(
+            lambda: lt.gmres(op_bu, bb, rtol=0.0, atol=0.0, options=opts))}, runs=10)
+    log(f"{tag} phase 25 ShardedBellOperator {nb}^2 f32, world {mesh.size} over "
+        f"{out['backend']}: GMRES(30) cycle {out['bell_ms']['sharded_cycle']:.2f} ms (unsharded "
+        f"{out['bell_ms']['unsharded_cycle']:.2f} ms), median of 10 in turn")
+    return out
+
+
+def phase26(mesh, log, tag):
+    """Two ranks on one card over gloo: the 10.5M-DoF grid and the full-size
+    Block-ELL matrix, each rank's rows against the unsharded operators."""
+    dev = mesh.device
+    ny, nx = WEAK_NY, WEAK_NX
+    out = {"backend": torch.distributed.get_backend(), "world": mesh.size}
+    log(f"phase 26: rank {mesh.rank} of {mesh.size} over {out['backend']} on {dev}: gloo "
+        "through the host on one device, a check of the collectives, not a scaling number")
+    rows = lt.shard_rows(mesh, ny)
+    op_s = lt.ShardedPoisson2D(nx, ny, mesh=mesh, dtype=torch.float32)
+    op_u = lt.CudaPoisson2D(nx, ny, dtype=torch.float32, device=dev)
+    u = seeded((ny, nx), torch.float32, dev, seed=22)
+    u_loc = lt.distribute(u, mesh)
+    y, counts = counted(lambda: op_s.matvec(u_loc))
+    d = global_rel(y, op_u.matvec(u)[rows])
+    log(f"  ShardedPoisson2D {ny}x{nx} f32 matvec: counts {counts}, rel diff vs CudaPoisson2D "
+        f"on the whole grid {d:.3e}")
+    check(counts["stencil"] == 1 and counts["operator_collectives"] == 1,
+          f"sharded stencil matvec counts {counts}")
+    check(d <= REL_TOL[torch.float32], f"sharded stencil differs by {d:.3e}")
+    out["matvec"] = dict(counts, rel_diff=d)
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    X = lt.distribute(torch.randn((4, ny, nx), generator=g, device=dev), mesh, dim=1)
+    from lightkrylov_tpu_torch.krylov.gram_schmidt import orthogonalize_against_basis
+    _, cgs = counted(lambda: orthogonalize_against_basis(u_loc, X))
+    check(cgs["all_reduces"] == 1, f"a CGS pass made {cgs['all_reduces']} all-reduces")
+    out["cgs_pass_all_reduces"] = cgs["all_reduces"]
+    del X
+
+    out["gmres"] = sharded_cycle_vs_serial(op_s, op_u, u_loc, u, rows, log)
+    check(out["gmres"]["stencil"] == 32, f"{out['gmres']['stencil']} stencil launches in the cycle")
+    lam_max = sum(2.0 * (m + 1) ** 2 * (1.0 - np.cos(np.pi * m / (m + 1))) for m in (nx, ny))
+    out["eighs"] = sharded_sweep_vs_serial(op_s, op_u, u_loc, u, lam_max, log)
+    opts = lt.GMRESOptions(kdim=30, maxiter=1)
+    out["cycle_ms"] = alternating_ms({"sharded_cycle": lambda: lt.gmres(
+        op_s, u_loc, rtol=0.0, atol=0.0, options=opts)}, runs=5)["sharded_cycle"]
+    log(f"{tag} phase 26 rank {mesh.rank}: GMRES(30) cycle {out['cycle_ms']:.2f} ms (median of 5; "
+        "both ranks share the card, gloo stages every reduction through the host)")
+    out["collective_us"] = collective_us(mesh, nx)
+    log(f"{tag} phase 26 rank {mesh.rank} one collective over gloo, host us (latency / "
+        "throughput): " + "; ".join(f"{k} {v['latency_us']:.1f} / {v['throughput_us']:.1f}"
+                                    for k, v in out["collective_us"].items()))
+    del u, u_loc, op_u
+    torch.cuda.empty_cache()
+
+    bell = bell_main_matrix(dev)
+    op_bs, _, out["bell"] = bell_sharded_vs_serial(mesh, bell, log)
+    del bell, op_bs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase27(mesh, log, tag):
+    """Small gates on the two ranks: eigs with a restart on the sharded GL
+    operator, svds, Newton-Krylov, and a resumed eighs."""
+    dev = mesh.device
+    out = {}
+    gl = lt.ShardedGinzburgLandau(128, mesh=mesh, dtype=torch.complex128)
+    exact = np.linalg.eigvals(lt.GinzburgLandau(128, dtype=torch.complex128, device="cpu").dense())
+    w, V, r, info, meta = lt.eigs(gl, 3, x0=gl.template() + (1.0 + 0.5j), kdim=10, tolerance=1e-9)
+    err = max(float(np.min(np.abs(lam - exact))) for lam in w)
+    log(f"  eigs ShardedGinzburgLandau(128) c128, kdim 10: info={info}, {meta.n_iter} matvecs, "
+        f"max distance to the dense spectrum {err:.2e}")
+    check(info > 0 and meta.n_iter > 10 and err < 1e-7, "sharded GL eigs")
+    out["gl_eigs"] = dict(info=info, matvecs=meta.n_iter, err=err)
+
+    op = lt.ShardedPoisson2D(16, 32, mesh=mesh, dtype=torch.float64)
+    exact = np.sort(lt.poisson2d_eigvals(16, 32))[::-1]
+    u0 = lt.distribute(seeded((32, 16), torch.float64, dev, seed=26), mesh)
+    U, S, V, res, info, meta = lt.svds(op, 3, u0=u0, kdim=96, tolerance=1e-10)
+    err = float(np.abs(S / exact[:3] - 1).max())
+    log(f"  svds sharded Poisson 16x32 f64: info={info}, sigma rel err {err:.2e}")
+    check(info > 0 and err < 1e-7, "sharded svds")
+    out["svds"] = dict(info=info, rel_err=err)
+
+    u_star = lt.distribute(seeded((32, 16), torch.float64, dev, seed=27), mesh)
+    f = op.matvec(u_star) + u_star**3
+    X, info, meta = lt.newton(lt.System(lambda v: op.matvec(v) + v**3 - f), op.template(),
+                              rtol=0.0, atol=1e-10)
+    err = float(lt.norm(X - u_star))
+    log(f"  newton on -Lap(u) + u^3 = f, sharded 16x32 f64: info={info}, |X - u*| = {err:.2e}")
+    check(info > 0 and err < 1e-6, "sharded Newton-Krylov")
+    out["newton"] = dict(info=info, err=err)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # one directory for both ranks: rank 0's name, sent to rank 1
+        names = [None] * mesh.size
+        torch.distributed.all_gather_object(names, tmp)
+        path = str(Path(names[0]) / "eighs.npz")
+        x0 = lt.distribute(seeded((32, 16), torch.float64, dev, seed=28), mesh)
+        kw = dict(kdim=24, tolerance=1e-9)
+        full = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80), **kw)
+        lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=2, checkpoint_every=1,
+                                                      checkpoint_path=path), **kw)
+        resumed = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80), resume_from=path,
+                           **kw)
+        torch.distributed.barrier()
+    same = bool(np.array_equal(full[0], resumed[0])) and resumed[4].n_iter == full[4].n_iter
+    log(f"  eighs checkpoint/resume on {mesh.size} ranks: {full[4].n_iter} steps uninterrupted, "
+        f"{resumed[4].n_iter} resumed, Ritz values equal bit for bit: {same}")
+    check(same and full[4].converged,
+          "the resumed sharded eighs differs from the uninterrupted run")
+    out["resume"] = dict(steps=full[4].n_iter, bit_identical=same)
+    return out
+
+
+PARTITIONED_PHASES = {"25": (phase25,), "26": (phase26, phase27)}
+
+
+def rank_main(phases, rank, world, backend, store, tag, q):
+    """A rank process: join the group, run its phases, put its log lines
+    and results, or the traceback of a failure."""
+    lines = []
+    try:
+        lt.comm_setup(backend, init_method=f"file://{store}", world_size=world, rank=rank,
+                      timeout=120, device="cuda")
+        mesh = lt.make_mesh()
+        out = {fn.__name__: fn(mesh, lines.append, tag) for fn in PARTITIONED_PHASES[phases]}
+        lt.comm_close()
+        q.put((rank, lines, out, None))
+    except BaseException:  # noqa: BLE001 - the parent fails the script on any of it
+        q.put((rank, lines, None, traceback.format_exc()))
+
+
+def run_ranks(phases, world, backend, tag):
+    """Spawn ``world`` rank processes for ``phases``; print their lines in
+    rank order; fail on a failure, a missing rank or a timeout."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=rank_main,
+                             args=(phases, r, world, backend, str(Path(tmp) / "store"), tag, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in range(world):
+                rank, lines, out, err = q.get(timeout=RANK_TIMEOUT_S)
+                got[rank] = (lines, out, err)
+        except queue.Empty:
+            pass
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    for rank in sorted(got):
+        lines, out, err = got[rank]
+        for line in lines:
+            print(f"[rank {rank}] {line}")
+        check(err is None, f"phases {phases}, rank {rank} failed:\n{err}")
+    check(sorted(got) == list(range(world)),
+          f"phases {phases}: ranks {sorted(got)} of {world} reported within {RANK_TIMEOUT_S} s")
+    check(all(p.exitcode == 0 for p in procs), f"phases {phases}: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    return [got[r][1] for r in range(world)]
+
+
 def main():
     results = {}
 
@@ -1212,6 +1578,12 @@ def main():
     results["roessler_otd"] = roessler_otd(dev, tag)
     results["checkpoint"] = checkpoint_resume(dev, tag)
 
+    # 25-27. the partitioned path: world size 1 over NCCL, then two ranks on
+    # the one card over gloo
+    torch.cuda.empty_cache()
+    results["phase25"] = run_ranks("25", 1, "nccl", tag)[0]["phase25"]
+    results["phase26"] = run_ranks("26", 2, "gloo", tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -1226,7 +1598,13 @@ def main():
                           "eighs_3072": results["eighs_3072"]["launches"],
                           "eigs_3072": results["eigs_3072"]["launches"],
                           "kexpm_3072": results["kexpm"]["launches"],
-                          "svds_3072": results["svds_3072"]["launches"]},
+                          "svds_3072": results["svds_3072"]["launches"],
+                          "sharded_gmres_3162": results["phase25"]["gmres"]["stencil"],
+                          "sharded_eighs_3162": results["phase25"]["eighs"]["stencil"],
+                          "sharded_2rank_matvec_per_rank": [
+                              r["phase26"]["matvec"]["stencil"] for r in results["phase26"]],
+                          "sharded_2rank_gmres_per_rank": [
+                              r["phase26"]["gmres"]["stencil"] for r in results["phase26"]]},
         "max_abs_err": main_err,
         "ms": stencil_main["kernel_cold_ms"],
         "plain_ms": stencil_main["plain_cold_ms"],
@@ -1242,7 +1620,11 @@ def main():
         "path_launches": {"bell_gmres": bell_main["launches"],
                           "eigs_convdiff": results["eigs_nonnormal"]["launches"],
                           "svds_bell": results["svds_bell"]["launches"],
-                          "svds_convdiff": results["svds_kexpm"]["bell"]["launches"]},
+                          "svds_convdiff": results["svds_kexpm"]["bell"]["launches"],
+                          "sharded_bell_gmres": results["phase25"]["bell_gmres"]["bell_spmv"],
+                          "sharded_2rank_bell_matvec_per_rank": [
+                              r["phase26"]["bell"]["matvec_counts"]["bell_spmv"]
+                              for r in results["phase26"]]},
         "max_abs_err": bell_err,
         "ms": bell_main["spmv_ms"]["kernel"],
         "plain_ms": bell_main["spmv_ms"]["plain"],

@@ -10,7 +10,10 @@ Newton-Krylov, the Poisson, convection-diffusion, Toeplitz, Ginzburg-Landau
 and Roessler models with OTD modes, and two operators whose matvec on a
 CUDA tensor is a hand-written CUDA kernel, built for Hopper ``sm_90a`` on
 first use: the 2-D Poisson stencil (``csrc/stencil.cu``) and the Block-ELL
-sparse matrix (``csrc/spmv.cu``).  The module layout follows the JAX
+sparse matrix (``csrc/spmv.cu``), and the distribution layer
+(:mod:`.parallel`): row-partitioned vectors on ``torch.distributed``, one
+process per device, with the stencil and Block-ELL operators running those
+kernels on each rank's rows.  The module layout follows the JAX
 package's, so each counterpart has the same path.
 
 Models, operators and converted arrays land on the card unless the caller
@@ -152,6 +155,17 @@ from .solvers import (  # noqa: E402
     svds,
 )
 
+from .parallel import (  # noqa: E402
+    ShardedBellOperator,
+    ShardedGinzburgLandau,
+    ShardedPoisson2D,
+    comm_close,
+    comm_setup,
+    distribute,
+    make_mesh,
+    replicate,
+    shard_rows,
+)
 from .utils import checkpoint, linalg, logger, options, timer  # noqa: E402
 from .utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from .utils.logger import logger_setup, check_info, LightKrylovError  # noqa: E402

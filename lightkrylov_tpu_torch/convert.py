@@ -9,7 +9,10 @@ Nothing here imports jax or ``lightkrylov_tpu``: an operator is read through
 its class name, its ``_static`` fields and its ``_children``, which the JAX
 operators declare for pytree registration (``linops.py:56-80``).  A child
 is an array or, as in ``GLPropagator``, another operator, which is ported in
-turn.
+turn.  ``operator_spec`` writes the same reading down as a picklable dict of
+numpy arrays, which ``port_operator`` also takes, so that a process that
+never imports jax (a rank of a partitioned run) can port an operator built
+in another.
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ from .models.poisson import BlockJacobiPoisson, Poisson2D
 from .models.toeplitz import TridiagToeplitz
 from .ops.spmv import BellMatrix, BellOperator
 from .ops.stencil import CudaPoisson2D
+from .parallel import ShardedBellOperator, ShardedGinzburgLandau, ShardedPoisson2D
 from .solvers.expm import ExponentialPropagator
 from .utils.options import (CGOptions, EigsOptions, GMRESOptions, KexpmOptions,
                             NewtonOptions, SVDSOptions)
 
-__all__ = ["to_torch", "port_operator", "port_options"]
+__all__ = ["to_torch", "operator_spec", "port_operator", "port_options"]
 
 
 def to_torch(tree, device=None):
@@ -104,29 +108,70 @@ _PORTS = {
 }
 
 
+# the JAX sharded stencil's kernel names, and the port's
+_KERNELS = {"pallas": "cuda", "xla": "plain"}
+
+# the partitioned operators: built on a mesh from the global numpy arrays
+_SHARDED_PORTS = {
+    "ShardedPoisson2D": lambda st, ch, mesh: ShardedPoisson2D(
+        st["nx"], st["ny"], mesh=mesh, dtype=st["dtype_"], kernel=_KERNELS[st["kernel"]],
+        tile=st["tile"]),
+    "ShardedGinzburgLandau": lambda st, ch, mesh: ShardedGinzburgLandau(
+        st["nx"], st["L"], mesh=mesh, dtype=st["dtype_"]),
+    "ShardedBellOperator": lambda st, ch, mesh: ShardedBellOperator(
+        BellMatrix(ch["data"], ch["cols"], st["shape"], st["nnz"]), mesh=mesh,
+        is_hermitian=st["is_hermitian"], interpret=st["interpret"]),
+}
+
+
 def _is_operator(child):
     """A JAX operator: it declares its pytree fields on its class."""
     return hasattr(type(child), "_children") and hasattr(type(child), "_static")
 
 
-def port_operator(op, device=None):
-    """The counterpart of the JAX operator ``op``, with its arrays on
-    ``device`` (default: the package's default device):
+def operator_spec(op) -> dict:
+    """The JAX operator ``op`` as a picklable dict: ``type`` (its class
+    name), ``static`` (its static fields, the JAX mesh left out) and
+    ``children`` (numpy arrays, or the specs of operator children)."""
+    children = {}
+    for n in type(op)._children:
+        child = getattr(op, n)
+        if _is_operator(child):
+            children[n] = operator_spec(child)
+        else:
+            children[n] = np.asarray(child) if hasattr(child, "__array__") else child
+    return {"type": type(op).__name__,
+            "static": {n: getattr(op, n) for n in type(op)._static if n != "mesh"},
+            "children": children}
+
+
+def port_operator(op, device=None, mesh=None):
+    """The counterpart of the JAX operator ``op`` (or of its
+    :func:`operator_spec`), with its arrays on ``device`` (default: the
+    package's default device):
     ``Poisson2D`` -> ``Poisson2D``, ``PallasPoisson2D`` ->
     ``CudaPoisson2D``, ``BlockJacobiPoisson`` (same ``Binv``),
     ``BellOperator`` (same blocks), ``ConvectionDiffusion2D``,
     ``TridiagToeplitz``, ``GinzburgLandau``, ``GinzburgLandauReal``,
     ``GLPropagator`` and ``ExponentialPropagator`` (their operator children
-    ported in turn), and the dense, diagonal and identity operators."""
-    name = type(op).__name__
+    ported in turn), and the dense, diagonal and identity operators.
+
+    The partitioned operators ``ShardedPoisson2D`` (``kernel="pallas"`` to
+    the stencil kernel's path, ``"xla"`` to the plain body),
+    ``ShardedGinzburgLandau`` and ``ShardedBellOperator`` need the port's
+    ``mesh`` (:func:`..parallel.make_mesh`); each rank keeps its rows of the
+    global arrays, on the mesh's device."""
+    spec = op if isinstance(op, dict) else operator_spec(op)
+    name, static = spec["type"], spec["static"]
+    if name in _SHARDED_PORTS:
+        if mesh is None:
+            raise ValueError(f"porting {name} needs the port's mesh")
+        return _SHARDED_PORTS[name](static, spec["children"], mesh)
     if name not in _PORTS:
         raise TypeError(f"no counterpart for operator type {name!r}")
     device = resolve_device(device)
-    static = {n: getattr(op, n) for n in type(op)._static}
-    children = {}
-    for n in type(op)._children:
-        child = getattr(op, n)
-        children[n] = port_operator(child, device) if _is_operator(child) else to_torch(child, device)
+    children = {n: port_operator(c, device) if isinstance(c, dict) else to_torch(c, device)
+                for n, c in spec["children"].items()}
     return _PORTS[name](static, children, device)
 
 

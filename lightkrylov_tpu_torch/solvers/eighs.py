@@ -111,10 +111,11 @@ def eighs(A, nev: int, x0=None, kdim: int | None = None,
     niter = 0
     kstart = 1
     cycle0 = 0
-    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path)
+    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path, {"X": 1})
     if resume_from is not None:
         # the JAX package stores T under the key "H"
-        st = _resume_driver_state(_solver_state({"X": X, "H": T}, 0, 0, 0), resume_from)
+        st = _resume_driver_state(_solver_state({"X": X, "H": T}, 0, 0, 0), resume_from,
+                                  {"X": 1})
         X, T = st["X"], st["H"]
         kstart, cycle0, niter = st["kstart"], st["cycle"], st["niter"]
         log_information(f"eighs: resumed from {resume_from} (cycle {cycle0}, kstart {kstart}, "

@@ -59,12 +59,14 @@ class _DriverCheckpointer:
 
     ``every`` counts convergence checks; the state is written at the next
     safe boundary, one where entering the solver's loop again with the stored
-    ``(kstart, cycle)`` repeats the uninterrupted run.  Only the IO rank
-    writes."""
+    ``(kstart, cycle)`` repeats the uninterrupted run.  ``row_dims`` names
+    the partitioned bases (:func:`..utils.checkpoint.save_checkpoint`);
+    every rank takes part and only the IO rank writes."""
 
-    def __init__(self, every: int, path):
+    def __init__(self, every: int, path, row_dims: dict):
         self.every = int(every or 0)
         self.path = path
+        self.row_dims = row_dims
         self._since = 0
 
     def check(self) -> None:
@@ -77,15 +79,15 @@ class _DriverCheckpointer:
     def save(self, state: dict) -> None:
         if not self.due:
             return
-        if constants.io_rank():
-            save_checkpoint(state, self.path)
+        save_checkpoint(state, self.path, self.row_dims)
         self._since = 0
 
 
-def _resume_driver_state(template: dict, path: str) -> dict:
-    """The solver state stored at ``path``, shaped like ``template``, with
-    ``kstart``, ``cycle`` and ``niter`` as Python ints."""
-    st = load_checkpoint(template, path)
+def _resume_driver_state(template: dict, path: str, row_dims: dict) -> dict:
+    """The solver state stored at ``path``, shaped like ``template`` (this
+    rank's rows of the bases named in ``row_dims``), with ``kstart``,
+    ``cycle`` and ``niter`` as Python ints."""
+    st = load_checkpoint(template, path, row_dims)
     for k in ("kstart", "cycle", "niter"):
         st[k] = int(st[k])
     return st
@@ -163,9 +165,10 @@ def eigs(A, nev: int, x0=None, kdim: int | None = None, tolerance: float | None 
     cycle0 = 0
     n_conv = 0
     niter = 0
-    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path)
+    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path, {"X": 1})
     if resume_from is not None:
-        st = _resume_driver_state(_solver_state({"X": X, "H": H}, 0, 0, 0), resume_from)
+        st = _resume_driver_state(_solver_state({"X": X, "H": H}, 0, 0, 0), resume_from,
+                                  {"X": 1})
         X, H = st["X"], st["H"]
         kstart, cycle0, niter = st["kstart"], st["cycle"], st["niter"]
         log_information(f"eigs: resumed from {resume_from} (cycle {cycle0}, kstart {kstart}, "

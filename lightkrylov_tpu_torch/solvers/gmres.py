@@ -9,8 +9,9 @@ outer cycle (:204-214).  FGMRES keeps the preconditioned directions ``Z``
 (fgmres.fypp:158-207).  ``info = +-n_iter`` (gmres.fypp:233-239).
 
 Orthogonalization is DCGS2 by default (delayed re-orthogonalization: one
-reduction and one rank-2 update over the basis per inner iteration) or
-CGS2; FGMRES always uses CGS2.
+reduction and one rank-2 update over the basis per inner iteration, so one
+all-reduce per iteration on row-partitioned vectors) or CGS2 (two
+projections and a norm, three); FGMRES always uses CGS2.
 
 Where the JAX package runs the restart nest as one ``while_loop`` on the
 device, this is a host loop.  Its only waits on the device are the loop
@@ -93,11 +94,14 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
 
     def dcgs2_measure(V, u_k, w, k):
         """The one reduction of iteration k: ``Q^H [u_k, w]`` over the
-        filled columns, and ``||w||^2``.  Row k gives (sigma, tau) because
-        slot k holds u_k itself."""
+        filled columns, and ``||w||^2``, summed over the reduction group by
+        one all-reduce.  Row k gives (sigma, tau) because slot k holds u_k
+        itself."""
         Y2 = pytree.tree_map(lambda a, b_: torch.stack([a, b_]), u_k, w)
-        PR = _padded(vectors.innerprod_vpu(vectors.lead(V, k + 1), Y2).to(dt), kdim + 1)
-        wTw = vectors.dot(w, w).real.to(rdt)
+        PR, wTw = vectors.allreduce_sum(
+            vectors.innerprod_local(vectors.lead(V, k + 1), Y2), vectors.dot_local(w, w))
+        PR = _padded(PR.to(dt), kdim + 1)
+        wTw = wTw.real.to(rdt)
         sigma = PR[k, 0].real.to(rdt, copy=True)
         tau = PR[k, 1].clone()
         PR[k] = 0

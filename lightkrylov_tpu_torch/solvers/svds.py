@@ -119,9 +119,10 @@ def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
     niter = 0
     kstart = 1
     cycle0 = 0
-    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path)
+    ckpt = _DriverCheckpointer(opts.checkpoint_every, opts.checkpoint_path, {"U": 1, "V": 1})
     if resume_from is not None:
-        st = _resume_driver_state(_solver_state({"U": U, "V": V, "B": B}, 0, 0, 0), resume_from)
+        st = _resume_driver_state(_solver_state({"U": U, "V": V, "B": B}, 0, 0, 0), resume_from,
+                                  {"U": 1, "V": 1})
         U, V, B = st["U"], st["V"], st["B"]
         kstart, cycle0, niter = st["kstart"], st["cycle"], st["niter"]
         log_information(f"svds: resumed from {resume_from} (cycle {cycle0}, kstart {kstart}, "

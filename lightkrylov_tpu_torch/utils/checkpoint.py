@@ -12,16 +12,25 @@ The file layout is the JAX package's: leaf ``i`` is stored under
 or tuple index), and dict keys are visited in sorted order, as JAX flattens
 them.  So a solver's state written by either package loads in the other.
 
+On row-partitioned state (:mod:`..parallel`) the file holds the global
+arrays, as the JAX package's does: ``row_dims`` names the top-level keys
+whose leaves are cut along an axis (1 for a stacked basis); writing gathers
+them, the IO rank writes and every rank waits for it; reading keeps this
+rank's rows.  So a partitioned run resumes from a serial run's file, of
+either package, and the other way round.
+
 The JAX package's Orbax backend (``save_checkpoint_orbax``) is not carried
-over: its counterpart, ``torch.distributed.checkpoint`` for sharded state,
-belongs with the partitioned operators (ROADMAP M12).
+over: its counterpart, ``torch.distributed.checkpoint``, waits in ROADMAP
+M12.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import constants, vectors
 from .timer import host_read
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
@@ -58,24 +67,63 @@ def _to_numpy(leaf):
     return host_read(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
 
 
-def save_checkpoint(state, path: str) -> None:
+def _partitioned_mesh(row_dims):
+    """The mesh of the reduction group when ``row_dims`` asks for
+    partitioned leaves and a group is set, else ``None``."""
+    from ..parallel.mesh import make_mesh
+
+    if not row_dims or vectors.reduction_group() is None:
+        return None
+    return make_mesh(device="cpu")
+
+
+def _leaf_dims(state, row_dims):
+    """For each leaf of ``state``, in order, the axis it is cut along, or
+    ``None`` for a whole leaf."""
+    if not row_dims or not isinstance(state, dict):
+        return [None] * len(_flatten_with_paths(state))
+    return [row_dims.get(k) for k in sorted(state) for _ in _flatten_with_paths(state[k])]
+
+
+def save_checkpoint(state, path: str, row_dims: dict | None = None) -> None:
     """Write a pytree of tensors, arrays and scalars to ``path`` (``.npz``;
-    numpy appends the suffix when ``path`` lacks it)."""
-    arrays = {f"{i:04d}|{key}": _to_numpy(leaf)
-              for i, (key, leaf) in enumerate(_flatten_with_paths(state))}
-    np.savez(path, **arrays)
+    numpy appends the suffix when ``path`` lacks it).  Only the IO rank
+    writes.  Under a reduction group the leaves under the keys of
+    ``row_dims`` are this rank's rows along the axis it gives; they are
+    gathered first, and every rank waits until the file is written."""
+    from ..parallel.mesh import gather
+
+    mesh = _partitioned_mesh(row_dims)
+    pairs = _flatten_with_paths(state)
+    if mesh is not None:
+        pairs = [(key, gather(leaf, mesh, dim) if dim is not None else leaf)
+                 for (key, leaf), dim in zip(pairs, _leaf_dims(state, row_dims))]
+    if constants.io_rank():
+        np.savez(path, **{f"{i:04d}|{key}": _to_numpy(leaf)
+                          for i, (key, leaf) in enumerate(pairs)})
+    if mesh is not None:
+        dist.barrier(mesh.group)
 
 
-def load_checkpoint(state_template, path: str):
+def load_checkpoint(state_template, path: str, row_dims: dict | None = None):
     """Read a pytree written by :func:`save_checkpoint` (by this package or
     the JAX package).  ``state_template`` gives the structure; a leaf whose
     template is a tensor comes back as a tensor on that tensor's device, any
-    other as a numpy array, each in the dtype it was saved in."""
+    other as a numpy array, each in the dtype it was saved in.  Under a
+    reduction group the leaves under the keys of ``row_dims`` keep this
+    rank's rows of the stored global array along the axis it gives."""
+    from ..parallel.mesh import shard_rows
+
+    mesh = _partitioned_mesh(row_dims)
     with np.load(path) as data:
         ordered = [data[k] for k in sorted(data.files)]
     tmpl = [leaf for _, leaf in _flatten_with_paths(state_template)]
     if len(ordered) != len(tmpl):
         raise ValueError(f"checkpoint has {len(ordered)} leaves, template has {len(tmpl)}")
+    if mesh is not None:
+        ordered = [arr if dim is None else np.ascontiguousarray(
+                       arr[(slice(None),) * dim + (shard_rows(mesh, arr.shape[dim]),)])
+                   for arr, dim in zip(ordered, _leaf_dims(state_template, row_dims))]
     leaves = [torch.from_numpy(arr).to(t.device) if isinstance(t, torch.Tensor) else arr
               for t, arr in zip(tmpl, ordered)]
     return _unflatten(state_template, iter(leaves))

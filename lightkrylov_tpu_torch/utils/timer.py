@@ -1,4 +1,4 @@
-"""Timers, operator call counters and the host-read count.
+"""Timers, operator call counters, the host-read and the collective counts.
 
 Counterpart of :mod:`lightkrylov_tpu.utils.timer` (reference:
 src/Utilities/Timer_Utils.f90, Timer.fypp): named timers with
@@ -35,6 +35,7 @@ __all__ = [
     "operator_label",
     "count_applications",
     "host_read",
+    "count_collective",
     "reset_counters",
     "get_counter",
 ]
@@ -217,6 +218,14 @@ def host_read(t: torch.Tensor) -> np.ndarray:
     and is counted under ``"host_reads"``."""
     _counters["host_reads"] += 1
     return t.detach().cpu().numpy()
+
+
+def count_collective(kind: str) -> None:
+    """Record one collective over the process group: ``"all_reduces"`` for
+    the vector layer's reductions (:mod:`..vectors`), ``"operator_collectives"``
+    for the sharded operators' halo exchanges, gathers and adjoint sums
+    (:mod:`..parallel`)."""
+    _counters[kind] += 1
 
 
 def reset_counters() -> None:

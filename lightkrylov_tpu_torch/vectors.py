@@ -18,6 +18,20 @@ Conventions
   ``get_column`` returns a view, so read a column before overwriting it.
 * Random vectors come from an explicit ``torch.Generator`` where the JAX
   package took a PRNG key; the two give different numbers from one seed.
+
+Row-partitioned vectors
+-----------------------
+Where the JAX package gave a global array a ``NamedSharding`` and let GSPMD
+insert the all-reduce behind each inner product (its ``parallel/mesh.py``),
+a partitioned vector here is a plain tensor, or pytree of tensors, that
+holds this rank's rows of every leaf (:func:`..parallel.distribute`).  While
+a reduction group is set (:func:`set_reduction_group`, which
+:func:`..parallel.comm_setup` calls), ``dot``, ``norm``, ``innerprod`` and
+``gram`` end with one all-reduce of their local result over it, counted as
+``"all_reduces"`` by :func:`..utils.timer.count_collective`; nothing else
+in the package reduces over the group, and the small projected quantities
+(Hessenberg matrices, coefficients) stay replicated.  Without a group the
+vectors are whole and nothing is reduced.
 """
 
 from __future__ import annotations
@@ -28,10 +42,17 @@ from functools import reduce
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from .utils.timer import count_collective
+
 __all__ = [
+    "set_reduction_group",
+    "reduction_group",
+    "allreduce_sum",
     "dot",
+    "dot_local",
     "norm",
     "scal",
     "axpby",
@@ -56,6 +77,7 @@ __all__ = [
     "axpby_basis",
     "scal_basis",
     "innerprod",
+    "innerprod_local",
     "gram",
     "linear_combination",
     "innerprod_vpu",
@@ -84,21 +106,75 @@ def _common(a, b):
     return a.to(dt), b.to(dt)
 
 
+# -- the reduction group -----------------------------------------------------
+
+_group = None
+
+
+def set_reduction_group(group):
+    """Reduce every inner product over ``group`` (a process group, or
+    ``None`` for no reduction) from now on; returns the group it replaces."""
+    global _group
+    prev, _group = _group, group
+    return prev
+
+
+def reduction_group():
+    """The process group the inner products reduce over, or ``None``."""
+    return _group
+
+
+def _shard():
+    """``(rank, size)`` of this process in the reduction group; ``(0, 1)``
+    without one."""
+    if _group is None:
+        return 0, 1
+    return dist.get_rank(_group), dist.get_world_size(_group)
+
+
+def allreduce_sum(*parts):
+    """Each tensor of ``parts`` summed over the reduction group, in a tuple,
+    by ONE counted all-reduce: several parts travel in one buffer, in their
+    promoted dtype.  Without a group the parts come back as they are."""
+    if _group is None:
+        return parts
+    count_collective("all_reduces")
+    if len(parts) == 1:
+        buf = parts[0].contiguous()  # the caller's fresh local result
+        dist.all_reduce(buf, group=_group)
+        return (buf,)
+    dt = reduce(torch.promote_types, (p.dtype for p in parts))
+    buf = torch.cat([p.reshape(-1).to(dt) for p in parts])
+    dist.all_reduce(buf, group=_group)
+    out, start = [], 0
+    for p in parts:
+        out.append(buf[start:start + p.numel()].reshape(p.shape).to(p.dtype))
+        start += p.numel()
+    return tuple(out)
+
+
 # -- vector algebra ----------------------------------------------------------
 
-def dot(x, y):
-    """Inner product ``x^H y`` summed over every leaf (``torch.vdot``
-    conjugates its first argument)."""
+def dot_local(x, y):
+    """This rank's share of :func:`dot`: its rows only, no reduction."""
     return _tree_sum([torch.vdot(*_common(xl.reshape(-1), yl.reshape(-1)))
                       for xl, yl in zip(_leaves(x), _leaves(y))])
 
 
+def dot(x, y):
+    """Inner product ``x^H y`` summed over every leaf (``torch.vdot``
+    conjugates its first argument) and over the reduction group."""
+    return allreduce_sum(dot_local(x, y))[0]
+
+
 def norm(x):
-    """Euclidean norm over every leaf, as a 0-d real tensor."""
+    """Euclidean norm over every leaf and the reduction group, as a 0-d
+    real tensor."""
     leaves = _leaves(x)
-    if len(leaves) == 1:
+    if _group is None and len(leaves) == 1:
         return torch.linalg.vector_norm(leaves[0])
-    return torch.sqrt(_tree_sum([torch.linalg.vector_norm(l) ** 2 for l in leaves]))
+    squares = _tree_sum([torch.linalg.vector_norm(l) ** 2 for l in leaves])
+    return torch.sqrt(allreduce_sum(squares)[0])
 
 
 def _scalar(a):
@@ -136,8 +212,10 @@ def zero_like(x):
 
 
 def get_size(x) -> int:
-    """Total number of scalar entries (reference: deferred ``get_size``)."""
-    return sum(leaf.numel() for leaf in _leaves(x))
+    """Total number of scalar entries of the global vector (reference:
+    deferred ``get_size``): this rank's entries times the group size, since
+    :func:`..parallel.distribute` cuts every leaf into equal row blocks."""
+    return sum(leaf.numel() for leaf in _leaves(x)) * _shard()[1]
 
 
 def dtype_of(x) -> torch.dtype:
@@ -150,18 +228,30 @@ def rand_like(generator, x, ifnorm: bool = False):
     drawn from ``generator`` (reference: deferred ``rand``, normalised with
     ``ifnorm``).  As in the JAX package, a complex leaf has standard-normal
     real and imaginary parts.  The numbers are drawn on the generator's
-    device and moved to each leaf's."""
+    device and moved to each leaf's.
+
+    Under a reduction group each rank draws the global leaf, whose rows
+    are the group size times its own, and keeps its own rows: with the
+    same generator state on every rank the partitioned vector is the
+    serial draw."""
+    rank, size = _shard()
 
     def draw(shape, dtype):
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=generator.device)
 
     def leaf_fn(leaf):
+        shape = leaf.shape
+        if size > 1 and leaf.ndim:
+            shape = (shape[0] * size,) + tuple(shape[1:])
         if leaf.is_complex():
             rdt = leaf.real.dtype
-            out = torch.complex(draw(leaf.shape, rdt), draw(leaf.shape, rdt))
+            out = torch.complex(draw(shape, rdt), draw(shape, rdt))
         else:
-            out = draw(leaf.shape, leaf.dtype)
+            out = draw(shape, leaf.dtype)
+        if shape != leaf.shape:
+            n = leaf.shape[0]
+            out = out[rank * n:(rank + 1) * n].clone()
         return out.to(leaf.device)
 
     out = pytree.tree_map(leaf_fn, x)
@@ -261,8 +351,14 @@ def innerprod(X, y):
     """``X^H y -> (k,)`` for a vector ``y``, ``X^H Y -> (k, m)`` for a
     stacked block ``Y`` (reference: AbstractVectors.fypp:659-695).
 
-    One matrix product per leaf.  The conjugate transpose is taken as a
-    view (``.mH``), so no conjugated copy of the basis is made."""
+    One matrix product per leaf and one all-reduce over the reduction
+    group.  The conjugate transpose is taken as a view (``.mH``), so no
+    conjugated copy of the basis is made."""
+    return allreduce_sum(innerprod_local(X, y))[0]
+
+
+def innerprod_local(X, y):
+    """This rank's share of :func:`innerprod`: its rows only, no reduction."""
     terms = []
     for Xl, yl in zip(_leaves(X), _leaves(y)):
         Xl, yl = _common(Xl, yl)
