@@ -26,7 +26,7 @@ from ..linops import LinearOperator
 from ..ops.spmv import BellMatrix, bell_spmv
 from ..utils.timer import count_collective, host_read
 from .mesh import Mesh, shard_rows
-from .stencil import LinearApply
+from .stencil import linear_apply
 
 __all__ = ["ShardedBellOperator"]
 
@@ -72,12 +72,12 @@ class ShardedBellOperator(LinearOperator):
                            device=self.mesh.device)
 
     def matvec(self, x):
-        return LinearApply.apply(self, False, x)
+        return linear_apply(self, False, x)
 
     def rmatvec(self, y):
         if self.is_hermitian:
             return self.matvec(y)
-        return LinearApply.apply(self, True, y)
+        return linear_apply(self, True, y)
 
     def _apply(self, v, adjoint):
         mesh = self.mesh

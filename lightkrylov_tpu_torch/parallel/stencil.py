@@ -24,17 +24,21 @@ tensor and computes the plain version on a CPU tensor.
 with the halo rows spliced in.  ``ShardedGinzburgLandau`` is plain torch, as
 in the JAX package.
 
-Each operator's matvec is a ``torch.autograd.Function`` whose ``jvp`` is
-the matvec and whose ``backward`` the adjoint (exact: the operators are
-linear), with a ``vmap`` rule that applies it column by column:
-``torch.func`` does not trace through the in-place c10d collectives, and
-:class:`..systems.JacobianOperator` differentiates through the matvec.
+Under a ``torch.func`` transform or autograd, each operator's matvec is a
+``torch.autograd.Function`` whose ``jvp`` is the matvec and whose
+``backward`` the adjoint (exact: the operators are linear), with a ``vmap``
+rule that applies it column by column: ``torch.func`` does not trace
+through the in-place c10d collectives, and
+:class:`..systems.JacobianOperator` differentiates through the matvec.  A
+plain tensor that asks for no gradient skips the Function and its per-call
+argument binding (:func:`linear_apply`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from ..constants import as_torch_dtype
 from ..linops import LinearOperator
@@ -43,7 +47,7 @@ from ..ops.stencil import stencil_matvec
 from ..utils.timer import count_collective
 from .mesh import Mesh, shard_rows
 
-__all__ = ["ShardedPoisson2D", "ShardedGinzburgLandau", "halo_rows"]
+__all__ = ["ShardedPoisson2D", "ShardedGinzburgLandau", "halo_rows", "linear_apply"]
 
 
 def halo_rows(u, mesh: Mesh):
@@ -82,18 +86,28 @@ class LinearApply(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, _op_t, _adjoint_t, x_t):
-        return LinearApply.apply(ctx.op, ctx.adjoint, x_t)
+        return linear_apply(ctx.op, ctx.adjoint, x_t)
 
     @staticmethod
     def backward(ctx, g):
-        return None, None, LinearApply.apply(ctx.op, not ctx.adjoint, g)
+        return None, None, linear_apply(ctx.op, not ctx.adjoint, g)
 
     @staticmethod
     def vmap(info, in_dims, op, adjoint, x):
         if in_dims[2] is None:
-            return LinearApply.apply(op, adjoint, x), None
+            return linear_apply(op, adjoint, x), None
         cols = x.movedim(in_dims[2], 0)
-        return torch.stack([LinearApply.apply(op, adjoint, c.contiguous()) for c in cols]), 0
+        return torch.stack([linear_apply(op, adjoint, c.contiguous()) for c in cols]), 0
+
+
+def linear_apply(op, adjoint: bool, x):
+    """``op._apply(x, adjoint)``: through :class:`LinearApply` where a
+    ``torch.func`` transform wraps ``x`` or autograd tracks it, directly
+    otherwise, so that a solver's matvec pays no ``autograd.Function``
+    binding on the host."""
+    if x.requires_grad or is_functorch_wrapped_tensor(x):
+        return LinearApply.apply(op, adjoint, x)
+    return op._apply(x, adjoint)
 
 
 def _stencil_shard(u, above, below, ihx2: float, ihy2: float):
@@ -147,7 +161,7 @@ class ShardedPoisson2D(LinearOperator):
                            device=self.mesh.device)
 
     def matvec(self, u):
-        return LinearApply.apply(self, False, u)
+        return linear_apply(self, False, u)
 
     def rmatvec(self, u):
         return self.matvec(u)
@@ -189,10 +203,10 @@ class ShardedGinzburgLandau(LinearOperator):
                            device=self.mesh.device)
 
     def matvec(self, u):
-        return LinearApply.apply(self, False, u)
+        return linear_apply(self, False, u)
 
     def rmatvec(self, u):
-        return LinearApply.apply(self, True, u)
+        return linear_apply(self, True, u)
 
     def _apply(self, u, adjoint):
         left, right = halo_rows(u, self.mesh)

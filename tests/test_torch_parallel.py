@@ -224,6 +224,26 @@ def test_sharded_gl_jvp_vmap_single_process():
                           torch.stack([ser.matvec(u), ser.matvec(v)]), atol=1e-12)
 
 
+def test_sharded_matvec_skips_the_function_on_plain_tensors():
+    """A plain tensor that asks for no gradient is applied directly (no
+    autograd node); one that asks for a gradient goes through the
+    autograd.Function, whose backward is the adjoint (1e-12 against the
+    serial GL operator)."""
+    mesh = lt.make_mesh()
+    op = lt.ShardedGinzburgLandau(64, mesh=mesh, dtype=torch.complex128)
+    ser = lt.GinzburgLandau(64, dtype=torch.complex128)
+    rng = np.random.default_rng(2)
+    u = torch.from_numpy(rng.standard_normal(64) + 1j * rng.standard_normal(64))
+    g = torch.from_numpy(rng.standard_normal(64) + 1j * rng.standard_normal(64))
+    assert op.matvec(u).grad_fn is None
+    assert torch.allclose(op.matvec(u), ser.matvec(u), atol=1e-12)
+    ug = u.clone().requires_grad_()
+    y = op.matvec(ug)
+    assert type(y.grad_fn).__name__ == "LinearApplyBackward"
+    y.backward(g)
+    assert torch.allclose(ug.grad, ser.rmatvec(g), atol=1e-12)
+
+
 def test_port_operator_needs_the_mesh(jax_side):
     with pytest.raises(ValueError, match="mesh"):
         port_operator(jax_side.specs["poisson_xla"])
