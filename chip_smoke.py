@@ -97,7 +97,28 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 27. small gates on the same two ranks: eigs with a Krylov-Schur restart on
     ShardedGinzburgLandau(128) c128, svds and Newton-Krylov on a sharded
     Poisson 16 x 32 f64, and a sharded eighs resumed from its checkpoint
-    to the uninterrupted run, bit for bit.
+    to the uninterrupted run, bit for bit;
+28. the batched stencil kernel (stencil_matvec_batched, one launch for a
+    (p, ny, nx) stack) against its plain version at STENCIL_SHAPES and the
+    3162^2 shard shape, p = 2 and 4, f32 and f64; at 3072^2, p = 2, timed
+    cold against two single stencil launches and cuDNN conv2d with batch 2;
+29. block eigs through it: (a) probe block_eigs_r5, a DenseOperator of the
+    64-dim spiral spectrum in f32, kdim 12, tol 5e-5, blksize 2 against 1,
+    errors against the exact spectrum (blksize 2 within 10x of blksize 1);
+    (b) eigs_3072_block, eigs(nev=4, kdim=32, one sweep, blksize=2) on
+    CudaPoisson2D(3072) f32 through matvec_counter, exactly 16 batched and 0
+    single stencil launches, 32 counted matvecs, Ritz values against the
+    same sweep on the plain Poisson2D, the sweep timed beside phase 15's and
+    profiled;
+30. the batched Block-ELL kernel (bell_spmm) against its plain version on
+    the full-size matrix, p = 2 and 4, timed against p single bell_spmv
+    launches and cuSPARSE CSR SpMM; block eigs f64 at blksize 2 on
+    ConvectionDiffusion2D(64) through bell_spmm, by true residual, and after
+    6 cycles against the CPU stencil operator;
+31. in the rank processes of phases 25 and 26: an eighs on a sharded Poisson
+    16 x 32 f64 checkpointed to a .npz file and to a torch.distributed.checkpoint
+    directory, each rank writing its own rows, and resumed from each: both
+    resumes equal the uninterrupted run bit for bit.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -122,7 +143,7 @@ import torch
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
-from lightkrylov_tpu_torch.ops.spmv import bell_spmv_reference
+from lightkrylov_tpu_torch.ops.spmv import bell_spmm_reference, bell_spmv_reference
 from lightkrylov_tpu_torch.ops.stencil import stencil_matvec_reference
 from lightkrylov_tpu_torch.parallel.stencil import LinearApply, halo_rows
 
@@ -164,6 +185,11 @@ OTD_STEPS, OTD_STEPS_FLAGSHIP = 2000, 20000
 N_SHARDED = 3162
 WEAK_NY, WEAK_NX = 5120, 2048
 RANK_TIMEOUT_S = 300
+# phases 28-30: the block sizes the batched kernels are held at, the shard
+# shape of phase 25, and probe block_eigs_r5 (benchmarks/results_tpu.json:61)
+BATCH_PS = (2, 4)
+R5_N, R5_NEV, R5_KDIM, R5_TOL = 64, 4, 12, 5e-5
+R5_TPU_ERR = {2: 6.84e-4, 1: 1.54e-6}
 
 
 def fail(msg):
@@ -1074,6 +1100,245 @@ def checkpoint_resume(dev, tag):
     return out
 
 
+# -- 28-30: the batched kernels and block eigs -------------------------------------
+
+def batched_stencil(dev, tag):
+    """Phase 28: stencil_matvec_batched against its plain version, then
+    timed cold at 3072^2, p = 2, against two single launches and cuDNN."""
+    out = {"parity": []}
+    main_err = None
+    shapes = STENCIL_SHAPES + [(N_SHARDED, N_SHARDED)]
+    for dtype in (torch.float32, torch.float64):
+        for shape in shapes:
+            for p in BATCH_PS:
+                u = seeded((p,) + shape, dtype, dev, seed=p)
+                args = stencil_args(u[0])
+                before = (lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES)
+                got = lt.stencil_matvec_batched(u, **args)
+                torch.cuda.synchronize()
+                check((lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES)
+                      == (before[0], before[1] + 1), "stencil_matvec_batched did not count its launch")
+                want = stencil_matvec_reference(u, **args)
+                rel, abs_err = rel_err(got, want), float((got - want).abs().max())
+                check(rel <= REL_TOL[dtype], f"batched stencil {shape} p={p} {dtype}: rel err "
+                      f"{rel:.3e} > {REL_TOL[dtype]}")
+                out["parity"].append(dict(shape=shape, p=p, dtype=str(dtype), rel_err=rel,
+                                          max_abs_err=abs_err))
+                if shape == (N_MAIN, N_MAIN) and p == 2 and dtype == torch.float32:
+                    main_err = abs_err
+                del u, got, want
+            print(f"batched stencil parity {shape} {dtype}, p {BATCH_PS}: rel "
+                  + ", ".join(f"{r['rel_err']:.3e}" for r in out["parity"][-len(BATCH_PS):]))
+    torch.cuda.empty_cache()
+    n, p = N_MAIN, 2
+    nbytes = 8 * p * n * n
+    nbuf = max(1, -(-4 * L2_BYTES // nbytes))
+    stacks = [seeded((p, n, n), torch.float32, dev, seed=30 + s) for s in range(nbuf)]
+    args = stencil_args(stacks[0][0])
+    w = torch.tensor([[0.0, -args["ihy2"], 0.0],
+                      [-args["ihx2"], 2.0 * (args["ihx2"] + args["ihy2"]), -args["ihx2"]],
+                      [0.0, -args["ihy2"], 0.0]], device=dev)[None, None]
+    conv = lambda u: torch.nn.functional.conv2d(u[:, None], w, padding=1)[:, 0]  # noqa: E731
+    rel = rel_err(conv(stacks[0]), stencil_matvec_reference(stacks[0], **args))
+    check(rel <= REL_TOL[torch.float32], f"conv2d batch-2 stencil rel err {rel:.3e}")
+    fns = {"batched": lambda u: lt.stencil_matvec_batched(u, **args),
+           "two_single": lambda u: [lt.stencil_matvec(u[i], **args) for i in range(p)],
+           "plain": lambda u: stencil_matvec_reference(u, **args),
+           "conv2d": conv}
+    ms = {name: median_ms(lambda i: fn(stacks[i % nbuf]), per_run=nbuf * 2)
+          for name, fn in fns.items()}
+    bound = bound_ms(nbytes)
+    print(f"{tag} batched stencil {p}x{n}x{n} f32 cold ({nbuf} stacks rotated): one batched "
+          f"launch {ms['batched'] * 1e3:.1f} us, two single launches {ms['two_single'] * 1e3:.1f} us, "
+          f"plain {ms['plain'] * 1e3:.1f} us, cuDNN conv2d batch {p} {ms['conv2d'] * 1e3:.1f} us "
+          f"(rel err vs plain {rel:.2e}); bound {bound * 1e3:.1f} us (8 B/point, {p} fields, "
+          f"3.35 TB/s): batched at {100 * bound / ms['batched']:.0f}% of its bound")
+    del stacks
+    torch.cuda.empty_cache()
+    out.update(ms=ms, bound_ms=bound, conv2d_rel_err=rel, max_abs_err=main_err, p=p, n=n)
+    return out
+
+
+def spiral_matrix(n, seed):
+    """A real matrix with a known complex spectrum: 2x2 rotation-scaling
+    blocks with geometric radii, orthogonally conjugated
+    (tests/test_block_eigs.py:31-49, the probe block_eigs_r5)."""
+    rng = np.random.default_rng(seed)
+    D = np.zeros((n, n))
+    for j in range(n // 2):
+        r, th = 2.5 * 0.85 ** j, 0.3 + 2.1 * j
+        a, b = r * np.cos(th), r * np.sin(th)
+        D[2 * j, 2 * j] = D[2 * j + 1, 2 * j + 1] = a
+        D[2 * j, 2 * j + 1], D[2 * j + 1, 2 * j] = b, -b
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return Q @ D @ Q.T
+
+
+def block_eigs_stencil(dev, tag, eigs_out):
+    """Phase 29: probe block_eigs_r5 on the card, then eigs_3072_block."""
+    out = {}
+    Am = spiral_matrix(R5_N, seed=7)
+    w_all = np.linalg.eigvals(Am)
+    exact = w_all[np.argsort(-np.abs(w_all))][:R5_NEV]
+    op = lt.DenseOperator(torch.from_numpy(Am.astype(np.float32)).to(dev))
+    x0 = seeded((R5_N,), torch.float32, dev, seed=31)
+    r5 = {}
+    for p in (2, 1):
+        w, V, r, info, meta = lt.eigs(op, R5_NEV, x0=x0, kdim=R5_KDIM, tolerance=R5_TOL,
+                                      blksize=p, options=lt.EigsOptions(maxiter=100))
+        d = np.abs(w[:, None] - exact[None, :])
+        err = float(max(d.min(0).max(), d.min(1).max()))
+        r5[p] = dict(info=info, matvecs=meta.n_iter, err=err)
+        print(f"{tag} block_eigs_r5 f32, blksize {p}: info={info}, {meta.n_iter} matvecs, max "
+              f"|lambda - exact| = {err:.3e} (the TPU probe: {R5_TPU_ERR[p]:.2e})")
+        check(info == R5_NEV, f"block_eigs_r5 blksize {p}: info={info}")
+    check(r5[2]["err"] <= 10 * max(r5[1]["err"], 1e-7),
+          f"block_eigs_r5: blksize 2 error {r5[2]['err']:.2e} beyond 10x blksize 1's")
+    out["block_eigs_r5"] = r5
+
+    n = N_EIGHS
+    op_k = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    op_p = lt.Poisson2D(n, dtype=torch.float32, device=dev)
+    x0 = seeded((n, n), torch.float32, dev, seed=7)
+    opts = lt.EigsOptions(maxiter=1)
+
+    def sweep(op):
+        return lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0, blksize=2, options=opts)
+
+    counted_op = lt.timer.matvec_counter(op_k, "eigs_3072_block")
+    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+    lt.stencil_matvec_batched.LAUNCHES = 0
+    lt.timer.reset_counters()
+    w, V, r, info, meta = sweep(counted_op)
+    torch.cuda.synchronize()
+    launches = dict(batched=lt.stencil_matvec_batched.LAUNCHES,
+                    single=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES)
+    counted = lt.timer.get_counter("eigs_3072_block.matvec")
+    host_reads = lt.timer.get_counter("host_reads")
+    print(f"eigs_3072_block: {launches['batched']} batched and {launches['single']} single "
+          f"stencil launches, matvec_counter {counted} matvecs, {host_reads} host reads for "
+          f"{meta.n_iter} matvecs in block steps of 2; Ritz values {w}")
+    print(lt.timer.counters_summary())
+    check(launches == dict(batched=16, single=0), f"eigs_3072_block launches {launches}")
+    check(counted == meta.n_iter == 32, f"matvec_counter counted {counted}, n_iter {meta.n_iter}")
+    check(V.shape == (4, n, n) and bool(torch.isfinite(V).all()) and np.all(np.isfinite(w)),
+          "eigs_3072_block output not finite")
+    del V
+    w_p = sweep(op_p)[0]
+    lam_max = closed_form_lam_max(n)
+    d = float(np.abs(w - w_p).max() / lam_max)
+    print(f"eigs_3072_block against the same sweep on the plain Poisson2D: {w_p}; max |dw| / "
+          f"lambda_max = {d:.3e}")
+    check(d <= 1e-5, f"eigs_3072_block Ritz values differ from the plain sweep by {d:.3e}")
+    sweep_ms = alternating_ms({"block": lambda: sweep(op_k)})["block"]
+    print(f"{tag} eigs_3072_block sweep (16 block steps of 2, CGS2, host eig) f32: {sweep_ms:.2f} "
+          f"ms; phase 15's blksize-1 sweep (32 steps) {eigs_out['sweep_ms']:.2f} ms (median of "
+          f"{RUNS} each): ratio {sweep_ms / eigs_out['sweep_ms']:.3f}")
+    prof = profile_row(tag, "eigs_3072_block sweep", lambda: sweep(op_k))
+    torch.cuda.empty_cache()
+    out["eigs_3072_block"] = dict(launches=launches, counted_matvecs=counted, steps=meta.n_iter,
+                                  host_reads=host_reads, ritz=[[z.real, z.imag] for z in w],
+                                  plain_rel_diff=d, sweep_ms=sweep_ms,
+                                  blksize1_sweep_ms=eigs_out["sweep_ms"], profile=prof)
+    return out
+
+
+def batched_bell(dev, tag):
+    """Phase 30: bell_spmm against its plain version on the full-size
+    matrix, timed, then block eigs f64 on the convection-diffusion operator
+    through it."""
+    out = {"parity": [], "ms": {}}
+    bell = bell_main_matrix(dev)
+    csr = bell_csr(bell)
+    n = bell.shape[0]
+    mat_bytes = (bell.data.numel() + bell.cols.numel()) * 4
+    for p in BATCH_PS:
+        X = seeded((p, n), torch.float32, dev, seed=40 + p)
+        before = (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES)
+        got = lt.bell_spmm(bell.data, bell.cols, X)
+        torch.cuda.synchronize()
+        check((lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES) == (before[0], before[1] + 1),
+              "bell_spmm did not count its launch")
+        want = bell_spmm_reference(bell.data, bell.cols, X)
+        rel, abs_err = rel_err(got, want), float((got - want).abs().max())
+        check(rel <= BELL_REL_TOL[torch.float32], f"bell_spmm p={p}: rel err {rel:.3e}")
+        # the library's forms of the same product: cuSPARSE SpMM on a dense
+        # (n, p) operand in row-major and in column-major order (X.T is a
+        # column-major view), and p cuSPARSE SpMVs; the fastest is library_ms
+        Xt = X.T.contiguous()
+        library = {"csr_spmm_row_major": lambda: torch.sparse.mm(csr, Xt).T,
+                   "csr_spmm_col_major": lambda: torch.sparse.mm(csr, X.T).T,
+                   "csr_spmv_each": lambda: torch.stack([torch.mv(csr, X[i]) for i in range(p)])}
+        lib_rel = {k: rel_err(fn(), want) for k, fn in library.items()}
+        check(max(lib_rel.values()) <= BELL_REL_TOL[torch.float32],
+              f"cuSPARSE forms p={p}: rel errs {lib_rel}")
+        ms = alternating_ms({
+            "batched": lambda: lt.bell_spmm(bell.data, bell.cols, X),
+            "single": lambda: [lt.bell_spmv(bell.data, bell.cols, X[i]) for i in range(p)],
+            "plain": lambda: bell_spmm_reference(bell.data, bell.cols, X), **library}, per_run=10)
+        best = min(library, key=ms.get)
+        bound = bound_ms(mat_bytes + p * 2 * n * 4)
+        out["parity"].append(dict(p=p, rel_err=rel, max_abs_err=abs_err, library_rel_err=lib_rel))
+        out["ms"][p] = dict(ms, bound_ms=bound, library=best, library_ms=ms[best])
+        print(f"bell_spmm parity full size p={p} f32: rel {rel:.3e}, max abs {abs_err:.3e}")
+        print(f"{tag} bell_spmm full size p={p} f32: one batched launch {ms['batched'] * 1e3:.1f} "
+              f"us, {p} single bell_spmv launches {ms['single'] * 1e3:.1f} us, plain "
+              f"{ms['plain'] * 1e3:.1f} us; cuSPARSE SpMM row-major operand "
+              f"{ms['csr_spmm_row_major'] * 1e3:.1f} us, column-major "
+              f"{ms['csr_spmm_col_major'] * 1e3:.1f} us, {p} SpMVs "
+              f"{ms['csr_spmv_each'] * 1e3:.1f} us (fastest: {best}; rel errs "
+              f"{', '.join(f'{v:.2e}' for v in lib_rel.values())}); bound {bound * 1e3:.1f} us "
+              f"(matrix once, {p} x and y): batched at {100 * bound / ms['batched']:.0f}% of its "
+              "bound (10 calls a sample, in turn)")
+        del X, Xt, got, want
+    del bell, csr
+    torch.cuda.empty_cache()
+
+    cd = lt.ConvectionDiffusion2D(64)
+    A = cd.dense().numpy()
+    op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
+    x0 = seeded((64 * 64,), torch.float64, dev, seed=14)
+    # the kernel at this path's shape and type: a (2, n_pad) float64 stack
+    X = seeded((2, op_b._n_padded()), torch.float64, dev, seed=15)
+    got = lt.bell_spmm(op_b.data, op_b.cols, X)
+    want = bell_spmm_reference(op_b.data, op_b.cols, X)
+    rel, abs_err = rel_err(got, want), float((got - want).abs().max())
+    print(f"bell_spmm parity ConvectionDiffusion2D(64) Block-ELL p=2 f64: rel {rel:.3e}, "
+          f"max abs {abs_err:.3e}")
+    check(rel <= BELL_REL_TOL[torch.float64], f"bell_spmm p=2 f64 convdiff: rel err {rel:.3e}")
+    out["parity_convdiff_f64"] = dict(p=2, rel_err=rel, max_abs_err=abs_err)
+
+    def solve(op, x, cycles):
+        return lt.eigs(op, 6, x0=x, kdim=48, tolerance=1e-10, blksize=2,
+                       generator=torch.Generator().manual_seed(3),
+                       options=lt.EigsOptions(maxiter=cycles))
+
+    lt.bell_spmv.LAUNCHES = lt.bell_spmm.LAUNCHES = 0
+    w, V, r, info, meta = solve(op_b, x0, 100)
+    torch.cuda.synchronize()
+    launches = dict(batched=lt.bell_spmm.LAUNCHES, single=lt.bell_spmv.LAUNCHES)
+    Vh = V.cpu().numpy()
+    res = [float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
+           for i in range(len(w))]
+    print(f"block eigs f64 ConvectionDiffusion2D(64) through Block-ELL, blksize 2, kdim 48: "
+          f"info={info}, {meta.n_iter} matvecs ({launches} launches), eigenvalues "
+          f"{np.round(w, 4)}, max true residual / |lambda_1| {max(res) / abs(w[0]):.3e}")
+    check(info == 6, f"block non-normal eigs info={info}")
+    check(launches == dict(batched=meta.n_iter // 2, single=0),
+          f"{launches} launches for {meta.n_iter} matvecs")
+    check(max(res) <= 1e-8 * abs(w[0]), "block non-normal eigs true residual above 1e-8 |lambda_1|")
+    w6, _, _, _, m6 = solve(op_b, x0, 6)
+    w6c, _, _, _, m6c = solve(cd, x0.cpu().reshape(64, 64), 6)
+    d_cpu = float(np.abs(w6 - w6c).max() / abs(w6c[0]))
+    print(f"the same, 6 restart cycles: Block-ELL {m6.n_iter} matvecs, CPU stencil "
+          f"{m6c.n_iter}; max |w - w_cpu| / |lambda_1| = {d_cpu:.3e}")
+    check(m6.n_iter == m6c.n_iter and d_cpu <= 1e-8,
+          f"block non-normal Ritz values differ from the CPU solve by {d_cpu:.3e}")
+    out["eigs_convdiff_block"] = dict(info=info, matvecs=meta.n_iter, launches=launches,
+                                      max_true_residual=max(res), cpu_rel_diff_6_cycles=d_cpu)
+    return out
+
+
 # -- 25-27: the partitioned path, in spawned rank processes -------------------
 
 def unsharded(fn):
@@ -1437,7 +1702,43 @@ def phase27(mesh, log, tag):
     return out
 
 
-PARTITIONED_PHASES = {"25": (phase25,), "26": (phase26, phase27)}
+def phase31(mesh, log, tag):
+    """The sharded checkpoint backend: an eighs checkpointed to a .npz file
+    and to a torch.distributed.checkpoint directory, resumed from each."""
+    dev = mesh.device
+    op = lt.ShardedPoisson2D(16, 32, mesh=mesh, dtype=torch.float64)
+    x0 = lt.distribute(seeded((32, 16), torch.float64, dev, seed=28), mesh)
+    kw = dict(kdim=24, tolerance=1e-9)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        names = [None] * mesh.size
+        torch.distributed.all_gather_object(names, tmp)
+        paths = {"npz": str(Path(names[0]) / "eighs.npz"),
+                 "dcp": str(Path(names[0]) / "eighs_dcp") + "/"}
+        full = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80), **kw)
+        for name, path in paths.items():
+            lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=2, checkpoint_every=1,
+                                                          checkpoint_path=path), **kw)
+        torch.distributed.barrier()
+        files = {f.name: f.stat().st_size for f in Path(paths["dcp"]).iterdir()}
+        for name, path in paths.items():
+            w, V, r, info, meta = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80),
+                                           resume_from=path, **kw)
+            out[name] = dict(steps=meta.n_iter, ritz=w, V=V)
+        torch.distributed.barrier()
+    same = all(np.array_equal(out[k]["ritz"], full[0]) and out[k]["steps"] == full[4].n_iter
+               for k in paths)
+    same_v = bool(torch.equal(out["npz"]["V"], out["dcp"]["V"]))
+    log(f"  phase 31, rank {mesh.rank} of {mesh.size} over {torch.distributed.get_backend()}: "
+        f"eighs {full[4].n_iter} steps uninterrupted; resumed from .npz {out['npz']['steps']}, "
+        f"from DCP {out['dcp']['steps']}; Ritz values equal bit for bit: {same}, Ritz vectors "
+        f"of the two resumes equal: {same_v}; DCP files {files}")
+    check(same and same_v and full[4].converged,
+          "a resumed eighs differs from the uninterrupted run or the other resume")
+    return dict(steps=full[4].n_iter, bit_identical=same and same_v, dcp_files=files)
+
+
+PARTITIONED_PHASES = {"25": (phase25, phase31), "26": (phase26, phase27, phase31)}
 
 
 def rank_main(phases, rank, world, backend, store, tag, q):
@@ -1663,15 +1964,24 @@ def main():
     results["roessler_otd"] = roessler_otd(dev, tag)
     results["checkpoint"] = checkpoint_resume(dev, tag)
 
-    # 25-27. the partitioned path: world size 1 over NCCL, then two ranks on
-    # the one card over gloo
+    # 28-30. the batched kernels and block eigs through them
+    results["batched_stencil"] = batched_stencil(dev, tag)
+    results["block_eigs"] = block_eigs_stencil(dev, tag, results["eigs_3072"])
+    results["batched_bell"] = batched_bell(dev, tag)
+
+    # 25-27 and 31. the partitioned path: world size 1 over NCCL, then two
+    # ranks on the one card over gloo; each ends with phase 31
     torch.cuda.empty_cache()
-    results["phase25"] = run_ranks("25", 1, "nccl", tag)[0]["phase25"]
+    rank25 = run_ranks("25", 1, "nccl", tag)[0]
+    results["phase25"] = rank25["phase25"]
     results["phase26"] = run_ranks("26", 2, "gloo", tag)
+    results["phase31"] = {"world1_nccl": rank25["phase31"],
+                          "two_gloo_ranks": [r["phase31"] for r in results["phase26"]]}
 
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
+    bst, beig, bbell = results["batched_stencil"], results["block_eigs"], results["batched_bell"]
     kernels = {"kernels": [{
         "name": "stencil",
         "route": "cuda",
@@ -1700,6 +2010,18 @@ def main():
         "bound_ms": yard[f"stencil_{N_MAIN}"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": yard[f"stencil_{N_MAIN}"]["conv2d_cold_ms"],
+        "batched": {
+            "entry": "stencil_matvec_batched",
+            "launches": {"eigs_3072_block": beig["eigs_3072_block"]["launches"]["batched"]},
+            "max_abs_err": bst["max_abs_err"],
+            "shape": [bst["p"], bst["n"], bst["n"]],
+            "ms": bst["ms"]["batched"],
+            "two_single_ms": bst["ms"]["two_single"],
+            "plain_ms": bst["ms"]["plain"],
+            "bound_ms": bst["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": bst["ms"]["conv2d"],
+        },
     }, {
         "name": "bell_spmv",
         "route": "cuda",
@@ -1724,6 +2046,24 @@ def main():
         "bound_ms": yard["bell_spmv"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": yard["bell_spmv"]["csr_ms"],
+        "batched": {
+            "entry": "bell_spmm",
+            "launches": {"eigs_convdiff_block": bbell["eigs_convdiff_block"]["launches"]["batched"]},
+            "max_abs_err": bbell["parity"][0]["max_abs_err"],
+            "p": BATCH_PS[0],
+            "ms": bbell["ms"][BATCH_PS[0]]["batched"],
+            "single_ms": bbell["ms"][BATCH_PS[0]]["single"],
+            "plain_ms": bbell["ms"][BATCH_PS[0]]["plain"],
+            "bound_ms": bbell["ms"][BATCH_PS[0]]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": bbell["ms"][BATCH_PS[0]]["library_ms"],
+            "library": bbell["ms"][BATCH_PS[0]]["library"],
+            "path_max_abs_err": {"eigs_convdiff_block_f64_p2":
+                                 bbell["parity_convdiff_f64"]["max_abs_err"]},
+            "path_rel_err": {"eigs_convdiff_block_f64_p2": bbell["parity_convdiff_f64"]["rel_err"],
+                             "full_size_f32_p2": bbell["parity"][0]["rel_err"]},
+            "by_p": {str(p): v for p, v in bbell["ms"].items()},
+        },
     }]}
     print(json.dumps(kernels))
     print(gpu)

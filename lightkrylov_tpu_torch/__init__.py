@@ -134,9 +134,11 @@ from .ops import (  # noqa: E402
     BellOperator,
     CudaPoisson2D,
     bell_from_scipy,
+    bell_spmm,
     bell_spmv,
     stencil_matvec,
     stencil_matvec_2d,
+    stencil_matvec_batched,
 )
 from .solvers import (  # noqa: E402
     ExponentialPropagator,
@@ -167,7 +169,8 @@ from .parallel import (  # noqa: E402
     shard_rows,
 )
 from .utils import checkpoint, linalg, logger, options, timer  # noqa: E402
-from .utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from .utils.checkpoint import (load_checkpoint, load_checkpoint_dcp,  # noqa: E402
+                               save_checkpoint, save_checkpoint_dcp)
 from .utils.logger import logger_setup, check_info, LightKrylovError  # noqa: E402
 from .utils.options import (  # noqa: E402
     CGOptions,

@@ -34,6 +34,15 @@
 // and the K blocks, then across lanes) differs from the plain version's and
 // the TPU kernel's, so results agree to rounding, not bit for bit.
 //
+// bell_spmm_kernel is the batched form, Y = A X for p vectors at once: x is
+// (p, n_pad) and y (p, nbr*bm), both row-major.  It is the counterpart of
+// jax.vmap over the Pallas call, which the JAX package's block Krylov methods
+// make.  The warp, lane and column layout are those above; a lane loads each
+// value of data once and uses it for all p vectors, whose partial sums it keeps
+// in registers (P x ROWS of them), so data and cols are read once a launch
+// whatever p is.  P is a template parameter from 1 to MAX_P; the C entry
+// refuses any other p.
+//
 // Build: with stencil.cu, by lightkrylov_tpu_torch/ops/_build.py (nvcc,
 // sm_90a, one shared library).  The C entries launch on the given stream
 // and return cudaGetLastError().
@@ -133,6 +142,106 @@ bell_spmv_kernel(const T* __restrict__ data, const int* __restrict__ cols,
   }
 }
 
+template <typename T, int V, int P>
+__global__ void __launch_bounds__(WARPS * 32)
+bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
+                 const T* __restrict__ x, T* __restrict__ y, long long n_pad,
+                 long long nbr, int K, int bm, int bn) {
+  const int lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
+  if (r >= nbr) return;  // the whole warp leaves together
+  const long long block_elems = static_cast<long long>(bm) * bn;
+  const long long m = nbr * bm;
+  const T* row_data = data + r * K * block_elems;
+  const int* row_cols = cols + r * K;
+
+  for (int i0 = 0; i0 < bm; i0 += ROWS) {
+    const int nrows = bm - i0 < ROWS ? bm - i0 : ROWS;
+    T acc[P][ROWS];
+#pragma unroll
+    for (int c = 0; c < P; ++c)
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) acc[c][i] = T(0);
+
+    for (int k = 0; k < K; ++k) {
+      const T* blk = row_data + k * block_elems + static_cast<long long>(i0) * bn;
+      const T* xs = x + static_cast<long long>(row_cols[k]) * bn;
+      for (int j = lane * V; j < bn; j += 32 * V) {
+        T xv[P][V];
+#pragma unroll
+        for (int c = 0; c < P; ++c) Loads<T, V>::x(xs + c * n_pad + j, xv[c]);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          if (i < nrows) {
+            T dv[V];
+            Loads<T, V>::data(blk + static_cast<long long>(i) * bn + j, dv);
+#pragma unroll
+            for (int c = 0; c < P; ++c)
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[c][i] += dv[v] * xv[c][v];
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < P; ++c) {
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[c][i] += __shfl_xor_sync(0xffffffffu, acc[c][i], off);
+      }
+      T out = T(0);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        if (lane == i) out = acc[c][i];
+      if (lane < nrows) y[c * m + r * bm + i0 + lane] = out;
+    }
+  }
+}
+
+template <typename T, int P>
+void launch_spmm(bool wide, dim3 grid, cudaStream_t s, const T* d, const int* c,
+                 const T* xp, T* yp, long long n_pad, long long nbr, int K, int bm,
+                 int bn) {
+  constexpr int VW = 16 / sizeof(T);
+  if (wide)
+    bell_spmm_kernel<T, VW, P><<<grid, WARPS * 32, 0, s>>>(d, c, xp, yp, n_pad, nbr, K, bm, bn);
+  else
+    bell_spmm_kernel<T, 1, P><<<grid, WARPS * 32, 0, s>>>(d, c, xp, yp, n_pad, nbr, K, bm, bn);
+}
+
+constexpr int MAX_P = 8;
+
+template <typename T>
+int launch_batched(const void* data, const void* cols, const void* x, void* y, int p,
+                   long long n_pad, long long nbr, int K, int bm, int bn, void* stream) {
+  if (p < 1 || p > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int VW = 16 / sizeof(T);
+  // every row of x starts 16-byte aligned when n_pad is a multiple of VW
+  const bool wide = reinterpret_cast<std::uintptr_t>(data) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(x) % 16 == 0 && bn % VW == 0 &&
+                    n_pad % VW == 0;
+  const dim3 grid(static_cast<unsigned>((nbr + WARPS - 1) / WARPS));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* d = static_cast<const T*>(data);
+  const auto* c = static_cast<const int*>(cols);
+  const auto* xp = static_cast<const T*>(x);
+  auto* yp = static_cast<T*>(y);
+  switch (p) {
+    case 1: launch_spmm<T, 1>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 2: launch_spmm<T, 2>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 3: launch_spmm<T, 3>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 4: launch_spmm<T, 4>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 5: launch_spmm<T, 5>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 6: launch_spmm<T, 6>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    case 7: launch_spmm<T, 7>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+    default: launch_spmm<T, 8>(wide, grid, s, d, c, xp, yp, n_pad, nbr, K, bm, bn); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* data, const void* cols, const void* x, void* y,
            long long nbr, int K, int bm, int bn, void* stream) {
@@ -164,6 +273,16 @@ int lk_bell_spmv_f32(const void* data, const void* cols, const void* x, void* y,
 int lk_bell_spmv_f64(const void* data, const void* cols, const void* x, void* y,
                      long long nbr, int K, int bm, int bn, void* stream) {
   return launch<double>(data, cols, x, y, nbr, K, bm, bn, stream);
+}
+
+int lk_bell_spmm_f32(const void* data, const void* cols, const void* x, void* y, int p,
+                     long long n_pad, long long nbr, int K, int bm, int bn, void* stream) {
+  return launch_batched<float>(data, cols, x, y, p, n_pad, nbr, K, bm, bn, stream);
+}
+
+int lk_bell_spmm_f64(const void* data, const void* cols, const void* x, void* y, int p,
+                     long long n_pad, long long nbr, int K, int bm, int bn, void* stream) {
+  return launch_batched<double>(data, cols, x, y, p, n_pad, nbr, K, bm, bn, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,14 @@
 // the expression is evaluated in the order above, which is the order of the
 // Pallas body (stencil.py:158-162).  The compiler may contract it into FMAs.
 //
+// The batched entries apply the operator to a contiguous (p, ny, nx) stack of
+// fields, one launch for all p (at most 65535 row segments of SEG rows in
+// all): each block finds its field from blockIdx.y and offsets the pointers
+// by field*ny*nx (64-bit); each field keeps its own boundary, so the row
+// tests read no row of a neighbouring field.  This is the
+// counterpart of jax.vmap over the Pallas call, which the JAX package's block
+// Krylov methods make (a batch grid axis).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (lightkrylov_tpu_torch/ops/_build.py).  The C entries
 // launch on the given stream and return cudaGetLastError().
@@ -39,13 +47,10 @@ namespace {
 constexpr int THREADS = 256;  // columns per block
 constexpr int SEG = 16;       // rows per thread
 
+// One thread's column segment: rows i0 .. i0+SEG-1 of column j of one field.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-stencil_kernel(const T* __restrict__ u, T* __restrict__ y, int ny, int nx,
-               T c0, T cx, T cy) {
-  const long long j = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (j >= nx) return;
-  const long long i0 = static_cast<long long>(blockIdx.y) * SEG;
+__device__ __forceinline__ void column(const T* __restrict__ u, T* __restrict__ y, int ny,
+                                       int nx, T c0, T cx, T cy, long long j, long long i0) {
   const long long i1 = i0 + SEG < ny ? i0 + SEG : ny;
   const bool has_left = j > 0;
   const bool has_right = j < nx - 1;
@@ -65,12 +70,45 @@ stencil_kernel(const T* __restrict__ u, T* __restrict__ y, int ny, int nx,
 }
 
 template <typename T>
-int launch(const void* u, void* y, int ny, int nx, double c0, double cx,
+__global__ void __launch_bounds__(THREADS)
+stencil_kernel(const T* __restrict__ u, T* __restrict__ y, int ny, int nx,
+               T c0, T cx, T cy) {
+  const long long j = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (j >= nx) return;
+  column<T>(u, y, ny, nx, c0, cx, cy, j, static_cast<long long>(blockIdx.y) * SEG);
+}
+
+// The batched grid folds the field into blockIdx.y: row segment
+// blockIdx.y % nyb of field blockIdx.y / nyb.  (A first form that put the
+// field on blockIdx.z was slower per field than single launches on an
+// H100: PERF.md.)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+stencil_batched_kernel(const T* __restrict__ u, T* __restrict__ y, int nyb, int ny, int nx,
+                       T c0, T cx, T cy) {
+  const long long j = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (j >= nx) return;
+  const int z = blockIdx.y / nyb;
+  const long long field = static_cast<long long>(ny) * nx * z;
+  column<T>(u + field, y + field, ny, nx, c0, cx, cy, j,
+            static_cast<long long>(blockIdx.y - z * nyb) * SEG);
+}
+
+template <typename T>
+int launch(const void* u, void* y, int p, int ny, int nx, double c0, double cx,
            double cy, void* stream) {
-  const dim3 grid((nx + THREADS - 1) / THREADS, (ny + SEG - 1) / SEG);
-  stencil_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<T*>(y), ny, nx,
-      static_cast<T>(c0), static_cast<T>(cx), static_cast<T>(cy));
+  const int nyb = (ny + SEG - 1) / SEG;
+  if (p < 1 || static_cast<long long>(nyb) * p > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* up = static_cast<const T*>(u);
+  auto* yp = static_cast<T*>(y);
+  const T tc0 = static_cast<T>(c0), tcx = static_cast<T>(cx), tcy = static_cast<T>(cy);
+  const dim3 grid((nx + THREADS - 1) / THREADS, nyb * p);
+  if (p == 1)
+    stencil_kernel<T><<<grid, THREADS, 0, s>>>(up, yp, ny, nx, tc0, tcx, tcy);
+  else
+    stencil_batched_kernel<T><<<grid, THREADS, 0, s>>>(up, yp, nyb, ny, nx, tc0, tcx, tcy);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -80,12 +118,22 @@ extern "C" {
 
 int lk_stencil_f32(const void* u, void* y, int ny, int nx, double c0,
                    double cx, double cy, void* stream) {
-  return launch<float>(u, y, ny, nx, c0, cx, cy, stream);
+  return launch<float>(u, y, 1, ny, nx, c0, cx, cy, stream);
 }
 
 int lk_stencil_f64(const void* u, void* y, int ny, int nx, double c0,
                    double cx, double cy, void* stream) {
-  return launch<double>(u, y, ny, nx, c0, cx, cy, stream);
+  return launch<double>(u, y, 1, ny, nx, c0, cx, cy, stream);
+}
+
+int lk_stencil_batched_f32(const void* u, void* y, int p, int ny, int nx,
+                           double c0, double cx, double cy, void* stream) {
+  return launch<float>(u, y, p, ny, nx, c0, cx, cy, stream);
+}
+
+int lk_stencil_batched_f64(const void* u, void* y, int p, int ny, int nx,
+                           double c0, double cx, double cy, void* stream) {
+  return launch<double>(u, y, p, ny, nx, c0, cx, cy, stream);
 }
 
 const char* lk_error_string(int code) {

@@ -1,10 +1,10 @@
 """Native (C++) host tier: Block-ELL assembly.
 
-Counterpart of :mod:`lightkrylov_tpu.native`.  It loads the same source,
-``lightkrylov_tpu/native/bell_assembler.cpp``, read by path: importing
-``lightkrylov_tpu.native`` would import jax through its package.  On first
-use ``g++`` builds it into ``lightkrylov_tpu_torch/_build/``, under a name
-keyed by a hash of the source and flags, and ``ctypes`` loads it.
+Counterpart of :mod:`lightkrylov_tpu.native`.  Its source is the port's
+own copy of the JAX package's assembler,
+``lightkrylov_tpu_torch/csrc/bell_assembler.cpp``.  On first use ``g++``
+builds it into ``lightkrylov_tpu_torch/_build/``, under a name keyed by a
+hash of the source and flags, and ``ctypes`` loads it.
 
 As in the JAX package, a missing compiler or source, or a failed build,
 makes :func:`available` false, and ``bell_from_scipy`` then assembles with
@@ -27,7 +27,7 @@ import numpy as np
 __all__ = ["available", "bell_assemble", "unavailable_reason", "SOURCE", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "lightkrylov_tpu" / "native" / "bell_assembler.cpp"
+SOURCE = _PKG / "csrc" / "bell_assembler.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 

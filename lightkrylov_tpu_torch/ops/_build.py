@@ -99,11 +99,24 @@ def load() -> ctypes.CDLL:
                            ctypes.c_int, ctypes.c_double, ctypes.c_double,
                            ctypes.c_double, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for name in ("lk_stencil_batched_f32", "lk_stencil_batched_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         for name in ("lk_bell_spmv_f32", "lk_bell_spmv_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ("lk_bell_spmm_f32", "lk_bell_spmm_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p

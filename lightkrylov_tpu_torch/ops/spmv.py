@@ -12,8 +12,13 @@ padded with zero blocks that point at block-column 0:
 raises: a failed build, a refused launch or an unsupported tensor is an
 error, never a quiet switch to another path.  On a CPU tensor it computes
 the plain version, :func:`bell_spmv_reference`.  It counts its kernel
-launches in ``bell_spmv.LAUNCHES``.  ``BellOperator.rmatvec`` is plain torch
-(an einsum and an ``index_add_``), as the JAX one is plain XLA.
+launches in ``bell_spmv.LAUNCHES``.  :func:`bell_spmm` is the batched form,
+``Y = A X`` for up to :data:`MAX_SPMM_COLUMNS` vectors in one launch that
+reads the matrix once, with its own ``LAUNCHES``; ``BellOperator.matvec_basis``
+goes through it, so a block Krylov step is one launch (one a slice of
+:data:`MAX_SPMM_COLUMNS` vectors for a wider block).
+``BellOperator.rmatvec`` is plain torch (an einsum and an ``index_add_``),
+as the JAX one is plain XLA.
 """
 
 from __future__ import annotations
@@ -26,8 +31,12 @@ from ..linops import LinearOperator
 from ..utils.timer import host_read
 from . import _build
 
-__all__ = ["BellMatrix", "bell_from_scipy", "bell_spmv", "bell_spmv_reference",
-           "BellOperator"]
+__all__ = ["BellMatrix", "bell_from_scipy", "bell_spmm", "bell_spmm_reference", "bell_spmv",
+           "bell_spmv_reference", "BellOperator", "MAX_SPMM_COLUMNS"]
+
+#: The most vectors :func:`bell_spmm` takes in one launch (the kernel keeps
+#: each vector's partial sums in registers).
+MAX_SPMM_COLUMNS = 8
 
 
 class BellMatrix:
@@ -106,9 +115,20 @@ def bell_spmv_reference(data, cols, x_padded):
     return torch.einsum("rkij,rkj->rki", data, xb).sum(1).reshape(-1)
 
 
-def _launch(data, cols, x_padded):
+def bell_spmm_reference(data, cols, X_padded):
+    """Plain PyTorch version of the batched kernel: the einsum of
+    :func:`bell_spmv_reference` with a leading batch axis, ``(p, n_p) ->
+    (p, nbr * bm)``."""
+    nbr, K, bm, bn = data.shape
+    p = X_padded.shape[0]
+    xb = X_padded.reshape(p, -1, bn)[:, cols.long()]     # (p, nbr, K, bn)
+    return torch.einsum("rkij,prkj->pri", data, xb).reshape(p, -1)
+
+
+def _launch(data, cols, x_padded, batched: bool = False):
     """Check the tensors, allocate the output and launch the CUDA kernel on
-    the current stream."""
+    the current stream: one vector ``(n_p,)``, or with ``batched`` a stack
+    ``(p, n_p)``."""
     tensors = {"data": data, "cols": cols, "x": x_padded}
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -118,8 +138,7 @@ def _launch(data, cols, x_padded):
             raise ValueError("bell_spmv kernel: data, cols and x must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"bell_spmv kernel: {name} must be contiguous")
-    entry = {torch.float32: "lk_bell_spmv_f32",
-             torch.float64: "lk_bell_spmv_f64"}.get(data.dtype)
+    entry = {torch.float32: "f32", torch.float64: "f64"}.get(data.dtype)
     if entry is None:
         raise TypeError(f"bell_spmv kernel: dtype {data.dtype} not supported "
                         "(float32 or float64)")
@@ -134,17 +153,28 @@ def _launch(data, cols, x_padded):
     if tuple(cols.shape) != (nbr, K):
         raise ValueError(f"bell_spmv kernel: cols has shape {tuple(cols.shape)}, "
                          f"expected {(nbr, K)}")
-    if x_padded.ndim != 1 or x_padded.shape[0] == 0 or x_padded.shape[0] % bn:
-        raise ValueError(f"bell_spmv kernel: x must be 1-D, padded to a non-zero "
+    ndim = 2 if batched else 1
+    n_p = x_padded.shape[-1] if x_padded.ndim == ndim else 0
+    if n_p == 0 or n_p % bn:
+        what = "a (p, n_p) stack" if batched else "1-D"
+        raise ValueError(f"bell_spmv kernel: x must be {what}, padded to a non-zero "
                          f"multiple of bn={bn}, got shape {tuple(x_padded.shape)}")
+    p = x_padded.shape[0] if batched else 1
+    if not 1 <= p <= MAX_SPMM_COLUMNS:
+        raise ValueError(f"bell_spmm kernel: {p} vectors, it takes 1 to "
+                         f"{MAX_SPMM_COLUMNS} a launch")
     if K >= 2**31 or bm * bn >= 2**31:
         raise ValueError(f"bell_spmv kernel: K={K} or a {bm}x{bn} block is too large")
     lib = _build.load()
-    y = torch.empty(nbr * bm, dtype=data.dtype, device=data.device)
+    y = torch.empty((p, nbr * bm) if batched else (nbr * bm,), dtype=data.dtype,
+                    device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = getattr(lib, entry)(data.data_ptr(), cols.data_ptr(), x_padded.data_ptr(),
-                                  y.data_ptr(), nbr, K, bm, bn, stream)
+        ptrs = (data.data_ptr(), cols.data_ptr(), x_padded.data_ptr(), y.data_ptr())
+        if batched:
+            err = getattr(lib, f"lk_bell_spmm_{entry}")(*ptrs, p, n_p, nbr, K, bm, bn, stream)
+        else:
+            err = getattr(lib, f"lk_bell_spmv_{entry}")(*ptrs, nbr, K, bm, bn, stream)
     if err:
         raise RuntimeError(f"bell_spmv kernel launch failed: CUDA error {err} "
                            f"({lib.lk_error_string(err).decode()})")
@@ -166,7 +196,22 @@ def bell_spmv(data, cols, x_padded, interpret: bool = False, rows_per_step: int 
     return y
 
 
+def bell_spmm(data, cols, X_padded):
+    """``Y = A X`` for a Block-ELL matrix and a ``(p, n_p)`` stack of
+    vectors zero-padded to the block grid, ``1 <= p <=``
+    :data:`MAX_SPMM_COLUMNS`, in one launch: the counterpart of ``jax.vmap``
+    over the Pallas kernel, which the JAX package's block Krylov methods
+    make.  ``Y`` is ``(p, nbr * bm)``; ``cols`` is not checked, as in
+    :func:`bell_spmv`."""
+    if data.device.type == "cpu":
+        return bell_spmm_reference(data, cols, X_padded)
+    y = _launch(data, cols, X_padded, batched=True)
+    bell_spmm.LAUNCHES += 1
+    return y
+
+
 bell_spmv.LAUNCHES = 0
+bell_spmm.LAUNCHES = 0
 
 
 class BellOperator(LinearOperator):
@@ -211,6 +256,24 @@ class BellOperator(LinearOperator):
         y = bell_spmv(self.data, self.cols, x_p, interpret=self.interpret,
                       rows_per_step=self.rows_per_step)
         return y[: self.shape[0]]
+
+    def matvec_basis(self, X):
+        """The stacked block ``X`` (``(p, shape[1])``) through
+        :func:`bell_spmm`, padded once: one launch a block for ``p`` up to
+        :data:`MAX_SPMM_COLUMNS`, and for a larger ``p`` one launch for each
+        slice of at most that many rows, each counted."""
+        n_p = self._n_padded()
+        X_p = torch.nn.functional.pad(X, (0, n_p - X.shape[1])) if n_p != X.shape[1] else X
+        Y = [bell_spmm(self.data, self.cols, X_p[i:i + MAX_SPMM_COLUMNS])
+             for i in range(0, X_p.shape[0], MAX_SPMM_COLUMNS)]
+        return (Y[0] if len(Y) == 1 else torch.cat(Y))[:, : self.shape[0]]
+
+    def rmatvec_basis(self, Y):
+        """:meth:`matvec_basis` when ``is_hermitian``, else one transposed
+        product a column."""
+        if self.is_hermitian:
+            return self.matvec_basis(Y)
+        return super().rmatvec_basis(Y)
 
     def rmatvec(self, y):
         if self.is_hermitian:

@@ -9,7 +9,9 @@ For a CUDA tensor a wrapper launches the kernel or raises: a failed build,
 a refused launch or an unsupported tensor is an error, never a quiet switch
 to another path.  For a CPU tensor it computes the plain version,
 :func:`stencil_matvec_reference`.  Each wrapper counts its kernel launches
-in its ``LAUNCHES`` attribute.
+in its ``LAUNCHES`` attribute.  :func:`stencil_matvec_batched` applies the
+operator to a stack of fields in one launch; ``CudaPoisson2D.matvec_basis``
+goes through it, so a block Krylov step is one launch.
 
 The v5e VMEM tuning of the JAX module (``effective_tile``,
 ``DEFAULT_VMEM_BUDGET``, ``auto_poisson2d``) is not carried over.
@@ -23,43 +25,55 @@ from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
 from . import _build
 
-__all__ = ["stencil_matvec", "stencil_matvec_2d", "stencil_matvec_reference",
-           "CudaPoisson2D"]
+__all__ = ["stencil_matvec", "stencil_matvec_2d", "stencil_matvec_batched",
+           "stencil_matvec_reference", "CudaPoisson2D"]
 
 
 def stencil_matvec_reference(u, *, ihx2: float, ihy2: float):
     """Plain PyTorch version of the kernel, and the matvec of
     :class:`lightkrylov_tpu_torch.models.Poisson2D`: shifted neighbours from
     zero-padded copies (the Dirichlet boundary), as in the JAX
-    ``Poisson2D.matvec``."""
+    ``Poisson2D.matvec``.  The grid is the last two axes; leading axes are a
+    batch of fields, each with its own boundary."""
     un = torch.nn.functional.pad(u, (1, 1))        # pad x
-    left, right = un[:, :-2], un[:, 2:]
+    left, right = un[..., :-2], un[..., 2:]
     um = torch.nn.functional.pad(u, (0, 0, 1, 1))  # pad y
-    down, up = um[:-2, :], um[2:, :]
+    down, up = um[..., :-2, :], um[..., 2:, :]
     return (2.0 * (ihx2 + ihy2)) * u - ihx2 * (left + right) - ihy2 * (down + up)
 
 
-def _launch(u, ihx2: float, ihy2: float):
+def _launch(u, ihx2: float, ihy2: float, batched: bool = False):
     """Check ``u``, allocate the output and launch the CUDA kernel on the
-    current stream."""
+    current stream: on one ``(ny, nx)`` grid, or with ``batched`` on each
+    field of a ``(p, ny, nx)`` stack."""
     if u.device.type != "cuda":
         raise ValueError(f"stencil kernel: expected a CUDA tensor, got {u.device}")
-    entry = {torch.float32: "lk_stencil_f32", torch.float64: "lk_stencil_f64"}.get(u.dtype)
-    if entry is None:
+    names = {torch.float32: "f32", torch.float64: "f64"}
+    if u.dtype not in names:
         raise TypeError(f"stencil kernel: dtype {u.dtype} not supported "
                         "(float32 or float64)")
-    if u.ndim != 2 or 0 in u.shape:
-        raise ValueError(f"stencil kernel: expected a non-empty 2-D grid, "
+    ndim = 3 if batched else 2
+    if u.ndim != ndim or 0 in u.shape:
+        what = "(p, ny, nx) stack of grids" if batched else "2-D grid"
+        raise ValueError(f"stencil kernel: expected a non-empty {what}, "
                          f"got shape {tuple(u.shape)}")
+    if batched and u.shape[0] * -(-u.shape[1] // 16) > 65535:
+        raise ValueError(f"stencil kernel: {u.shape[0]} fields of {u.shape[1]} rows exceed "
+                         "65535 segments of 16 rows a launch")
     if not u.is_contiguous():
         raise ValueError("stencil kernel: the grid must be contiguous")
-    ny, nx = u.shape
+    ny, nx = u.shape[-2:]
     lib = _build.load()
     out = torch.empty_like(u)
+    c = (2.0 * (ihx2 + ihy2), ihx2, ihy2)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = getattr(lib, entry)(u.data_ptr(), out.data_ptr(), ny, nx,
-                                  2.0 * (ihx2 + ihy2), ihx2, ihy2, stream)
+        if batched:
+            err = getattr(lib, f"lk_stencil_batched_{names[u.dtype]}")(
+                u.data_ptr(), out.data_ptr(), u.shape[0], ny, nx, *c, stream)
+        else:
+            err = getattr(lib, f"lk_stencil_{names[u.dtype]}")(
+                u.data_ptr(), out.data_ptr(), ny, nx, *c, stream)
     if err:
         raise RuntimeError(f"stencil kernel launch failed: CUDA error {err} "
                            f"({lib.lk_error_string(err).decode()})")
@@ -90,8 +104,20 @@ def stencil_matvec_2d(u, *, ihx2: float, ihy2: float, tile_y: int = 256,
     return out
 
 
+def stencil_matvec_batched(u, *, ihx2: float, ihy2: float):
+    """5-point ``-Delta`` matvec of each field of the ``(p, ny, nx)`` stack
+    ``u`` in one launch: the counterpart of ``jax.vmap`` over the Pallas
+    kernel, which the JAX package's block Krylov methods make."""
+    if u.device.type == "cpu":
+        return stencil_matvec_reference(u, ihx2=ihx2, ihy2=ihy2)
+    out = _launch(u, ihx2, ihy2, batched=True)
+    stencil_matvec_batched.LAUNCHES += 1
+    return out
+
+
 stencil_matvec.LAUNCHES = 0
 stencil_matvec_2d.LAUNCHES = 0
+stencil_matvec_batched.LAUNCHES = 0
 
 
 class CudaPoisson2D(LinearOperator):
@@ -133,3 +159,12 @@ class CudaPoisson2D(LinearOperator):
 
     def rmatvec(self, u):
         return self.matvec(u)
+
+    def matvec_basis(self, X):
+        """All fields of the stacked block ``X`` (``(p, ny, nx)``) in one
+        batched launch, whatever ``tile``/``tile_x`` say."""
+        ihx2, ihy2 = 1.0 / self.hx**2, 1.0 / self.hy**2
+        return stencil_matvec_batched(X, ihx2=ihx2, ihy2=ihy2)
+
+    def rmatvec_basis(self, Y):
+        return self.matvec_basis(Y)

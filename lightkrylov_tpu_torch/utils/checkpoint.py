@@ -19,12 +19,19 @@ them, the IO rank writes and every rank waits for it; reading keeps this
 rank's rows.  So a partitioned run resumes from a serial run's file, of
 either package, and the other way round.
 
-The JAX package's Orbax backend (``save_checkpoint_orbax``) is not carried
-over: its counterpart, ``torch.distributed.checkpoint``, waits in ROADMAP
-M12.
+:func:`save_checkpoint_dcp`/:func:`load_checkpoint_dcp` are the counterparts
+of the JAX package's Orbax backend (``save_checkpoint_orbax``/
+``load_checkpoint_orbax``, its ``checkpoint.py:67-80``) on
+``torch.distributed.checkpoint`` (DCP): a checkpoint is a directory, each
+rank writes only its own rows of the partitioned leaves, nothing is
+gathered, and loading reshards onto the current group size.  The solvers'
+``checkpoint_path`` and ``resume_from`` select it with a path that ends
+with a separator, and nothing else (:func:`is_dcp_path`).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -33,7 +40,8 @@ import torch.distributed as dist
 from .. import constants, vectors
 from .timer import host_read
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "save_checkpoint_dcp", "load_checkpoint_dcp",
+           "is_dcp_path"]
 
 
 def _flatten_with_paths(tree, prefix=()):
@@ -126,4 +134,91 @@ def load_checkpoint(state_template, path: str, row_dims: dict | None = None):
                    for arr, dim in zip(ordered, _leaf_dims(state_template, row_dims))]
     leaves = [torch.from_numpy(arr).to(t.device) if isinstance(t, torch.Tensor) else arr
               for t, arr in zip(tmpl, ordered)]
+    return _unflatten(state_template, iter(leaves))
+
+
+# -- torch.distributed.checkpoint ------------------------------------------------
+
+
+def is_dcp_path(path) -> bool:
+    """Which backend a solver's ``checkpoint_path``/``resume_from`` selects:
+    DCP exactly when ``path`` ends with a separator (``"ckpt/"``), else one
+    ``.npz`` file.  A path without the separator that names an existing
+    directory is refused, so the spelling alone decides."""
+    path = os.fspath(path)
+    if path.endswith(("/", os.sep)):
+        return True
+    if os.path.isdir(path):
+        raise ValueError(f"checkpoint path {path!r} is a directory: a torch.distributed."
+                         f"checkpoint path ends with a separator ({path + os.sep!r}), a "
+                         ".npz path names a file")
+    return False
+
+
+def _dcp_entries(state, row_dims, mesh):
+    """``{key: tensor}`` for DCP, keyed as the ``.npz`` file is: a leaf
+    under a key of ``row_dims`` becomes a DTensor, this rank's rows of the
+    global leaf, ``Shard(dim)`` over the mesh's group; any other leaf a
+    replicated tensor (numpy values become CPU tensors)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    dims = _leaf_dims(state, row_dims)
+    dmesh = {}
+    out = {}
+    for i, ((key, leaf), dim) in enumerate(zip(_flatten_with_paths(state), dims)):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+        if dim is not None and mesh is not None:
+            kind = t.device.type
+            if kind not in dmesh:
+                dmesh[kind] = DeviceMesh.from_group(mesh.group, kind)
+            shape = list(t.shape)
+            shape[dim] *= mesh.size
+            stride = torch.empty(shape, device="meta").stride()
+            t = DTensor.from_local(t.contiguous(), dmesh[kind], [Shard(dim)], run_check=False,
+                                   shape=torch.Size(shape), stride=stride)
+        out[f"{i:04d}|{key}"] = t
+    return out
+
+
+def save_checkpoint_dcp(state, path: str, row_dims: dict | None = None) -> None:
+    """Write a pytree of tensors, arrays and scalars to the directory
+    ``path`` with ``torch.distributed.checkpoint``; the counterpart of the
+    JAX package's ``save_checkpoint_orbax``.  Every rank of the reduction
+    group takes part.  The leaves under the keys of ``row_dims`` are this
+    rank's rows along the axis it gives, and each rank writes only those;
+    the other leaves are replicated and written once.  Nothing is gathered.
+    Without a group it writes from this one process."""
+    import torch.distributed.checkpoint as dcp
+
+    mesh = _partitioned_mesh(row_dims)
+    group = vectors.reduction_group()
+    dcp.save(_dcp_entries(state, row_dims, mesh), checkpoint_id=os.fspath(path),
+             process_group=group, no_dist=group is None)
+
+
+def load_checkpoint_dcp(state_template, path: str, row_dims: dict | None = None):
+    """Read a pytree written by :func:`save_checkpoint_dcp`, at this or any
+    other group size whose row blocks divide the stored rows; the
+    counterpart of the JAX package's ``load_checkpoint_orbax``.
+    ``state_template`` gives the structure and, for the leaves under the
+    keys of ``row_dims``, this rank's shapes: each rank reads only its own
+    rows.  A leaf whose template is a tensor comes back as a tensor of the
+    template's dtype on its device, any other as a numpy array, as
+    :func:`load_checkpoint` returns them."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    mesh = _partitioned_mesh(row_dims)
+    group = vectors.reduction_group()
+    tmpl = [leaf for _, leaf in _flatten_with_paths(state_template)]
+    # fresh buffers shaped like the template, which DCP fills in place
+    fresh = [torch.empty_like(t) if isinstance(t, torch.Tensor)
+             else torch.from_numpy(np.array(t)) for t in tmpl]
+    entries = _dcp_entries(_unflatten(state_template, iter(fresh)), row_dims, mesh)
+    dcp.load(entries, checkpoint_id=os.fspath(path), process_group=group, no_dist=group is None)
+    leaves = []
+    for t, got in zip(tmpl, entries.values()):
+        got = got.to_local() if isinstance(got, DTensor) else got
+        leaves.append(got if isinstance(t, torch.Tensor) else got.numpy())
     return _unflatten(state_template, iter(leaves))

@@ -27,6 +27,7 @@ __all__ = [
     "schur",
     "ordschur",
     "schur_select",
+    "selection_mask",
     "sqrtm",
     "expm",
     "givens_rotation",
@@ -99,23 +100,16 @@ def ordschur(T, Z, select_mask):
     return res[0].astype(T.dtype), res[1].astype(Z.dtype)
 
 
-def schur_select(A, select):
-    """Sorted Schur form in one call: decompose ``A``, apply the *global*
-    selector ``select(eigvals) -> bool mask`` and reorder.
-
-    The selector sees the whole spectrum at once (the median selector of
-    eigs, IterativeSolvers.fypp:1137-1142), which scipy's per-eigenvalue
-    ``sort`` cannot express.  For a real ``A`` the mask is made consistent
-    over each 2x2 block first: a conjugate pair moves whole or not at all.
-    Returns numpy ``(T, Z, n_selected)``."""
-    a = _host(A)
-    is_cplx = np.issubdtype(a.dtype, np.complexfloating)
-    T, Z = _sla.schur(a, output="complex" if is_cplx else "real")
+def selection_mask(T, select):
+    """The mask of the *global* selector ``select(eigvals) -> bool mask``
+    over the diagonal positions of the Schur form ``T``.  For a real ``T``
+    it is made consistent over each 2x2 block first: a conjugate pair moves
+    whole or not at all.  Returns ``(mask, eigvals)``, numpy."""
+    is_cplx = np.issubdtype(T.dtype, np.complexfloating)
     w = np.diag(T) if is_cplx else _sla.eigvals(T)
-    mask = np.asarray(select(w), dtype=bool)
+    mask = np.array(select(w), dtype=bool)
     if not is_cplx:
         i, n = 0, T.shape[0]
-        mask = mask.copy()
         while i < n - 1:
             if abs(T[i + 1, i]) > 0:
                 both = mask[i] or mask[i + 1]
@@ -123,6 +117,21 @@ def schur_select(A, select):
                 i += 2
             else:
                 i += 1
+    return mask, w
+
+
+def schur_select(A, select):
+    """Sorted Schur form in one call: decompose ``A``, apply the *global*
+    selector ``select(eigvals) -> bool mask`` and reorder.
+
+    The selector sees the whole spectrum at once (the median selector of
+    eigs, IterativeSolvers.fypp:1137-1142), which scipy's per-eigenvalue
+    ``sort`` cannot express (:func:`selection_mask`).  Returns numpy
+    ``(T, Z, n_selected)``."""
+    a = _host(A)
+    T, Z = _sla.schur(a, output="complex" if np.issubdtype(a.dtype, np.complexfloating)
+                      else "real")
+    mask, _ = selection_mask(T, select)
     Ts, Zs = ordschur(T, Z, mask)
     return Ts, Zs, int(mask.sum())
 

@@ -53,8 +53,10 @@ class EigsOptions:
 
     ``checkpoint_every``/``checkpoint_path``: write the factorization state
     (basis, projected matrix, restart index, counters) to one ``.npz`` every
-    N convergence checks, at the next sweep or restart boundary; the
-    solver's ``resume_from=`` argument restores it (:mod:`.checkpoint`).
+    N convergence checks, at the next sweep or restart boundary, or, when
+    the path names a directory (ends with a separator), with
+    ``torch.distributed.checkpoint``; the solver's ``resume_from=`` argument
+    restores it from either (:mod:`.checkpoint`).
 
     Only what the host projected path reads is implemented; the solvers
     raise :class:`NotImplementedError` on the rest rather than ignore it:

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 __all__ = [
     "Timer",
@@ -32,12 +33,14 @@ __all__ = [
     "set_timing",
     "timed",
     "timed_fn",
+    "matvec_counter",
     "operator_label",
     "count_applications",
     "host_read",
     "count_collective",
     "reset_counters",
     "get_counter",
+    "counters_summary",
 ]
 
 _timing_enabled = False
@@ -205,6 +208,39 @@ def operator_label(A) -> str:
     return name
 
 
+def matvec_counter(A, name: str):
+    """Wrap operator ``A`` so that each application bumps the host counters
+    ``name.matvec`` and ``name.rmatvec`` (reference: the ``apply_matvec``
+    counting wrapper, AbstractLinops.fypp:391-424).  The port is eager, so
+    every application is counted where it happens.  The block forms stay
+    batched: ``matvec_basis`` of ``p`` columns calls ``A.matvec_basis`` once
+    and counts ``p``."""
+    from ..linops import MatvecOperator
+
+    def bump(kind, n=1):
+        _counters[f"{name}.{kind}"] += n
+
+    def mv(x):
+        bump("matvec")
+        return A.matvec(x)
+
+    def rmv(y):
+        bump("rmatvec")
+        return A.rmatvec(y)
+
+    def mv_basis(X):
+        bump("matvec", pytree.tree_leaves(X)[0].shape[0])
+        return A.matvec_basis(X)
+
+    def rmv_basis(Y):
+        bump("rmatvec", pytree.tree_leaves(Y)[0].shape[0])
+        return A.rmatvec_basis(Y)
+
+    op = MatvecOperator(mv, rmv, is_hermitian=A.is_hermitian)
+    op.matvec_basis, op.rmatvec_basis = mv_basis, rmv_basis
+    return op
+
+
 def count_applications(A, n: int, kind: str = "matvec") -> None:
     """Record that operator ``A`` was applied ``n`` times
     (reference: ``apply_matvec`` counting, AbstractLinops.fypp:390-424)."""
@@ -237,4 +273,13 @@ def reset_counters() -> None:
 
 def get_counter(name: str) -> int:
     return _counters[name]
+
+
+def counters_summary() -> str:
+    """Formatted table of all nonzero call counters (reference: the
+    matvec/rmatvec counts printed by the operator finalizers)."""
+    lines = ["== call counters =="]
+    for name in sorted(_counters):
+        lines.append(f"  {name:<40s} {_counters[name]}")
+    return "\n".join(lines)
 

@@ -238,6 +238,50 @@ def case_eighs_resume(c):
     return out
 
 
+def _resume_both(c, op, x0, npz, dcp):
+    """eighs resumed from the ``.npz`` file and from the DCP directory:
+    each run's Ritz values, step count and gathered Ritz vectors."""
+    lt = c.lt
+    out = {}
+    for name, src in (("npz", npz), ("dcp", dcp)):
+        w, V, r, info, meta = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80),
+                                       resume_from=src, **EIGHS_KW)
+        out.update({name: w, f"{name}_n_iter": meta.n_iter, f"{name}_V": c.full(V, 1),
+                    f"{name}_converged": meta.converged})
+    return out
+
+
+def _dcp_operator(c):
+    import torch
+
+    return (c.lt.ShardedPoisson2D(16, 32, mesh=c.mesh, dtype=torch.float64),
+            c.dist("eighs_x0"))
+
+
+def case_dcp_save(c):
+    """eighs interrupted after 2 cycles, checkpointed both to a ``.npz`` file
+    and to a DCP directory, the uninterrupted run, and both resumes; the
+    size of each rank's DCP file."""
+    lt = c.lt
+    op, x0 = _dcp_operator(c)
+    npz = os.path.join(c.tmpdir, "eighs.npz")
+    dcp = os.path.join(c.tmpdir, "eighs_dcp") + os.sep
+    full = lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=80), **EIGHS_KW)
+    for path in (npz, dcp):
+        lt.eighs(op, 4, x0=x0, options=lt.EigsOptions(maxiter=2, checkpoint_every=1,
+                                                     checkpoint_path=path), **EIGHS_KW)
+    out = {"full": full[0], "full_n_iter": full[4].n_iter, "npz_path": npz, "dcp_path": dcp,
+           "dcp_files": {f: os.path.getsize(os.path.join(dcp, f)) for f in os.listdir(dcp)}}
+    out.update(_resume_both(c, op, x0, npz, dcp))
+    return out
+
+
+def case_dcp_resume(c):
+    """Both resumes at this world size from the files written on 2 ranks."""
+    op, x0 = _dcp_operator(c)
+    return _resume_both(c, op, x0, c.data["npz_src"], c.data["dcp_src"])
+
+
 def case_counts(c):
     """The all-reduces of each reduction: one for innerprod, gram, dot,
     norm, a CGS pass and a CholeskyQR pass (the JAX package's fused

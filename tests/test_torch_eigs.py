@@ -256,7 +256,8 @@ def test_eigs_times_its_host_solves():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (lambda tmp: dict(blksize=2), NotImplementedError),
+    # block mode is ported; it refuses what the JAX block driver refuses
+    (lambda tmp: dict(blksize=2, resume_from=str(tmp / "state.npz")), NotImplementedError),
     (lambda tmp: dict(options=lt.EigsOptions(projected="device")), NotImplementedError),
     # checkpoints are ported: what is refused is a path that cannot be
     # written, and a resume file that is not there
@@ -268,7 +269,7 @@ def test_eigs_times_its_host_solves():
 ], ids=["block", "device", "checkpoint", "resume", "unknown"])
 def test_eigs_refuses_what_is_not_ported(kwargs, err, tmp_path):
     op = lt.TridiagToeplitz(20, 2.0, -1.0, 1.0)
-    with pytest.raises(err, match="M10|M13|unknown|No such file"):
+    with pytest.raises(err, match="M10|block mode|unknown|No such file"):
         lt.eigs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs(tmp_path))
 
 
