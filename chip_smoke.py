@@ -118,7 +118,19 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 31. in the rank processes of phases 25 and 26: an eighs on a sharded Poisson
     16 x 32 f64 checkpointed to a .npz file and to a torch.distributed.checkpoint
     directory, each rank writing its own rows, and resumed from each: both
-    resumes equal the uninterrupted run bit for bit.
+    resumes equal the uninterrupted run bit for bit;
+32. the bandwidth probes' kernels (csrc/probes.cu): copy_tiles at every
+    TPU copy case's shape and block (P1, P3, P6, P7) and at a ragged shape,
+    copy_ring at the nine (depth, rows) cases of P4/P5 on 8192^2 and at a
+    ragged size, each bit-equal to the plain copy; reduce_8x128 at 4096^2
+    and 65536 x 1024 within 1e-5 of each entry's sum of |x| from the f64
+    plain sum, and equal to itself across two runs; one counted launch a
+    call; each case timed (CUDA events, 10 samples of 10 calls, kernel,
+    plain and copy_ in turn, each sample queued behind a spinning kernel so
+    that the host's launch cost stays out) beside its bound, with its grid
+    and footprint, and the wrappers' host time a call;
+    then the probe path, the five lightkrylov_tpu_torch.probes modules with
+    a short timing loop, its launches counted; the phase's wall time.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -143,9 +155,12 @@ import torch
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
+from lightkrylov_tpu_torch.ops import probes as probe_ops
 from lightkrylov_tpu_torch.ops.spmv import bell_spmm_reference, bell_spmv_reference
 from lightkrylov_tpu_torch.ops.stencil import stencil_matvec_reference
 from lightkrylov_tpu_torch.parallel.stencil import LinearApply, halo_rows
+from lightkrylov_tpu_torch.probes import (copy_shape, deep_buffer, manual_out, roofline,
+                                          stencil_sweep)
 
 STENCIL_SHAPES = [(33, 17), (50, 32), (64, 256), (100, 300), (1000, 3001), (3072, 3072)]
 # f32/f64 kernel-vs-plain bounds on ||a-b||/||b||: the kernel may contract
@@ -156,6 +171,8 @@ TIME_SIZES = (N_MAIN, 8192)
 DEVICE = "cuda:0"
 RUNS = 25
 L2_BYTES = 50 * 2**20
+# clock cycles of the spinning kernel that a spaced sample waits behind (about 1 ms)
+SPACER_CYCLES = 2_000_000
 # Block-ELL: the K3 configuration of benchmarks/tpu_drive.py:174-181, made
 # square, with slot 0 of each block-row on its diagonal block-column and a
 # shift on the diagonal (the random part's spectral radius is about
@@ -190,6 +207,31 @@ RANK_TIMEOUT_S = 300
 BATCH_PS = (2, 4)
 R5_N, R5_NEV, R5_KDIM, R5_TOL = 64, 4, 12, 5e-5
 R5_TPU_ERR = {2: 6.84e-4, 1: 1.54e-6}
+# phase 32: each copy case of copy_tiles by its shape and block, with the TPU
+# probes that copy so (P6's rows 256 and P1's 4096^2 are P7 cases too), a
+# ragged shape, the ring's ragged size, the reduce's shapes, the main case of
+# each kernel in the kernels line, and the probe path's short timing loop
+TILE_CASES = {label: (shape, block, ["P7"]) for label, shape, block in copy_shape.CASES}
+TILE_CASES["4096x4096_rows128"][2].insert(0, "P1")
+TILE_CASES["8192x8192_rows64"][2].insert(0, "P3")
+TILE_CASES["8192x8192_rows256"][2].insert(0, "P6")
+TILE_CASES["8192x8192_rows128"] = ((8192, 8192), (128, 8192), ["P6"])
+TILE_CASES["8192x8192_rows512"] = ((8192, 8192), (512, 8192), ["P6"])
+TILE_CASES["ragged_24x136_blk8x68"] = ((24, 136), (8, 68), [])
+RING_N = 8192
+RING_RAGGED = ((1000, 36), 3, 64)
+REDUCE_SHAPES = ((4096, 4096), (65536, 1024))
+REDUCE_TOL = 1e-5
+PROBE_REPLACES = {
+    "copy_tiles": "P1 benchmarks/roofline_probe.py:72-80, P3 benchmarks/manual_out_probe.py:59-67, "
+                  "P6 benchmarks/stencil_sweep.py:61-74, P7 benchmarks/copy_shape_probe.py:47-69",
+    "copy_ring": "P4 benchmarks/manual_out_probe.py:112-126, "
+                 "P5 benchmarks/deep_buffer_probe.py:86-102",
+    "reduce_8x128": "P2 benchmarks/roofline_probe.py:116-126",
+}
+PROBE_MAIN = {"copy_tiles": "8192x8192_rows64", "copy_ring": "depth2_rows64",
+              "reduce_8x128": "4096x4096"}
+PROBE_LOOP = dict(min_diff=0.02, iters0=8)
 
 
 def fail(msg):
@@ -238,18 +280,23 @@ def rel_err(got, want):
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
-def alternating_ms(fns, runs=RUNS, per_run=1):
+def alternating_ms(fns, runs=RUNS, per_run=1, spacer=False):
     """Median CUDA-event time in ms per call of each of ``fns`` (a dict of
     callables), timed in turn ``runs`` times over ``per_run`` back-to-back
     calls, after one warm-up call each.  Several calls per sample keep the
     GPU busy while the host enqueues the next, so a short kernel's time
-    leaves out the wrapper's host overhead."""
+    leaves out the wrapper's host overhead.  With ``spacer`` each sample is
+    queued behind a kernel that spins for about 1 ms, so the host has
+    enqueued the sample's calls before the first starts: the time is the
+    device's alone, even where a call's host time exceeds its kernel's."""
     for fn in fns.values():
         fn()
     times = {name: [] for name in fns}
     for _ in range(runs):
         for name, fn in fns.items():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if spacer:
+                torch.cuda._sleep(SPACER_CYCLES)
             start.record()
             for _ in range(per_run):
                 fn()
@@ -1339,6 +1386,156 @@ def batched_bell(dev, tag):
     return out
 
 
+# -- 32: the bandwidth probes' kernels and the probe path ---------------------
+
+def counted_call(wrapper, *args):
+    """``wrapper(*args)``, synchronised, checked to count one launch."""
+    before = wrapper.LAUNCHES
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    check(wrapper.LAUNCHES == before + 1, f"{wrapper.__name__} did not count its one launch")
+    return out
+
+
+def probe_row(tag, name, label, fns, nbytes, grid, extra):
+    """Time ``fns`` (kernel, plain and library) in turn, 10 samples of 10
+    calls each, each sample behind a spinning kernel (device time), and print
+    and return the case's row; ``nbytes`` is what the kernel must move (its
+    bound) and ``grid`` its CTA count."""
+    ms = alternating_ms(fns, runs=10, per_run=10, spacer=True)
+    ms.setdefault("library", ms["plain"])
+    row = {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "bound_ms": bound_ms(nbytes), "grid": grid, "footprint_MB": nbytes / 1e6, **extra}
+    rate = nbytes / (ms["kernel"] * 1e-3) / 1e9
+    note = ", above the datasheet rate: L2, not device memory" if rate > HBM_BYTES_PER_S / 1e9 else ""
+    print(f"{tag} {name} {label} (grid {grid}, {nbytes / 1e6:.1f} MB moved, L2 50 MB): kernel "
+          f"{ms['kernel'] * 1e3:.1f} us ({rate:.0f} GB/s{note}), plain {ms['plain'] * 1e3:.1f} us, "
+          f"library {ms['library'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us: kernel at "
+          f"{100 * row['bound_ms'] / ms['kernel']:.0f}% of its bound")
+    return row
+
+
+def probe_path(dev, tag):
+    """Phase 32: each probe kernel against its plain version at every TPU
+    case's shape, timed, then the probe path with its launches counted."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    out = {"copy_tiles": {}, "copy_ring": {}, "reduce_8x128": {}}
+
+    for label, (shape, block, ids) in TILE_CASES.items():
+        x = torch.randn(shape, generator=gen.manual_seed(0), device=dev)
+        y = counted_call(probe_ops.copy_tiles, x, block)
+        err = float((y - probe_ops.copy_reference(x)).abs().max())
+        check(torch.equal(y, x), f"copy_tiles {label} is not the copy (max error {err:.3e})")
+        out["copy_tiles"][label] = probe_row(
+            tag, "copy_tiles", label,
+            {"kernel": lambda: probe_ops.copy_tiles(x, block),
+             "plain": lambda: probe_ops.copy_reference(x), "library": lambda: y.copy_(x)},
+            2 * x.numel() * 4, probe_ops.tiles_geometry(*shape, *block)[2],
+            {"replaces": ids, "shape": list(shape), "block": list(block), "max_abs_err": err})
+        del x, y
+
+    ring_cases = [(f"depth{d}_rows{r}", (RING_N, RING_N), d, r) for d, r in deep_buffer.cases()]
+    ring_cases.append((f"ragged_{RING_RAGGED[0][0]}x{RING_RAGGED[0][1]}_depth{RING_RAGGED[1]}",
+                       *RING_RAGGED))
+    x = None
+    for label, shape, depth, rows in ring_cases:
+        if x is None or tuple(x.shape) != shape:
+            x = torch.randn(shape, generator=gen.manual_seed(0), device=dev)
+        stage = deep_buffer.ring_stage(rows)
+        y = counted_call(probe_ops.copy_ring, x, depth, stage)
+        err = float((y - probe_ops.copy_reference(x)).abs().max())
+        check(torch.equal(y, x), f"copy_ring {label} is not the copy (max error {err:.3e})")
+        out["copy_ring"][label] = probe_row(
+            tag, "copy_ring", f"{label} (stage {stage} B, ring {depth * stage} B)",
+            {"kernel": lambda: probe_ops.copy_ring(x, depth, stage),
+             "plain": lambda: probe_ops.copy_reference(x), "library": lambda: y.copy_(x)},
+            2 * x.numel() * 4, probe_ops.ring_geometry(x.numel() * 4, stage, sms)[1],
+            {"replaces": ["P4", "P5"] if depth == 2 else ["P5"], "shape": list(shape),
+             "depth": depth, "tpu_rows": rows, "stage_bytes": stage, "max_abs_err": err})
+        del y
+    del x
+
+    small = torch.randn((64, 1024), generator=gen.manual_seed(0), device=dev)
+    host = host_us({"copy_tiles": lambda: probe_ops.copy_tiles(small, (8, 1024)),
+                    "copy_ring": lambda: probe_ops.copy_ring(small, 2, 12288),
+                    "reduce_8x128": lambda: probe_ops.reduce_8x128(small),
+                    "clone": lambda: small.clone(),
+                    "reshape_sum": lambda: probe_ops.reduce_8x128_reference(small)})
+    print(f"{tag} host us a call, 50 in a row on a 64 x 1024 array: " + ", ".join(
+        f"{name} {v['throughput_us']:.1f}" for name, v in host.items()))
+
+    for shape in REDUCE_SHAPES:
+        label = f"{shape[0]}x{shape[1]}"
+        x = torch.randn(shape, generator=gen.manual_seed(0), device=dev)
+        got = counted_call(probe_ops.reduce_8x128, x)
+        want = probe_ops.reduce_8x128_reference(x.double())
+        scale = probe_ops.reduce_8x128_reference(x.double().abs())
+        err = (got.double() - want).abs()
+        worst = float((err / scale).max())
+        check(worst <= REDUCE_TOL, f"reduce_8x128 {label}: error {worst:.3e} of the entry's sum of |x|")
+        again = counted_call(probe_ops.reduce_8x128, x)
+        check(torch.equal(got, again), f"reduce_8x128 {label} differs between two runs")
+        print(f"reduce_8x128 {label}: max error {float(err.max()):.3e}, {worst:.3e} of the entry's "
+              "sum of |x| (f64 plain sum), bit-equal across two runs")
+        out["reduce_8x128"][label] = probe_row(
+            tag, "reduce_8x128", label,
+            {"kernel": lambda: probe_ops.reduce_8x128(x),
+             "plain": lambda: probe_ops.reduce_8x128_reference(x)},
+            x.numel() * 4 + 8 * 128 * 4, probe_ops.reduce_grid(*shape, sms),
+            {"replaces": ["P2"], "shape": list(shape), "max_abs_err": float(err.max()),
+             "err_of_abs_sum": worst, "library": "the plain reshape-sum"})
+        del x, want, scale, err
+    torch.cuda.empty_cache()
+
+    # the probe path: the five modules as a user runs them, launches counted
+    wrappers = (probe_ops.copy_tiles, probe_ops.copy_ring, probe_ops.reduce_8x128)
+    for w in wrappers:
+        w.LAUNCHES = 0
+    path = {}
+    for mod in (roofline, manual_out, deep_buffer, stencil_sweep, copy_shape):
+        t0 = time.perf_counter()
+        res = mod.run(dev, **PROBE_LOOP)
+        check(res["device_kind"] == torch.cuda.get_device_name(dev), f"{res['probe']} device")
+        path[res["probe"]] = res
+        print(f"{tag} probe path: {res['probe']} in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.LAUNCHES for w in wrappers}
+    print(f"probe path launches: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the probe path launched {name} no time")
+    torch.cuda.empty_cache()
+
+    loop = {"copy_tiles": {}, "copy_ring": {}, "reduce_8x128": {}}
+    for case in path["copy_shape"]["cases"]:
+        if case["label"] in TILE_CASES:
+            loop["copy_tiles"].setdefault(case["label"], {})["P7"] = case["GBs"]
+    for case in path["stencil_sweep_8192"]["copy_sweep"]:
+        loop["copy_tiles"].setdefault(f"8192x8192_rows{case['rows']}", {})["P6"] = case["GBs"]
+    loop["copy_tiles"]["4096x4096_rows128"]["P1"] = path["roofline"]["cuda_copy_GBs"]
+    loop["copy_tiles"]["8192x8192_rows64"]["P3"] = path["manual_out"]["managed_GBs"]
+    for case in path["deep_buffer"]["cases"]:
+        loop["copy_ring"][f"depth{case['depth']}_rows{case['rows']}"] = {"P5": case["GBs"]}
+    loop["copy_ring"]["depth2_rows64"]["P4"] = path["manual_out"]["manual_GBs"]
+    loop["reduce_8x128"]["4096x4096"] = {"P2": path["roofline"]["cuda_reduce_GBs"],
+                                         "P2_with_update_3_streams":
+                                         path["roofline"]["cuda_reduce3_GBs"]}
+    for name, rows in out.items():
+        for label, row in rows.items():
+            row["loop_GBs"] = loop[name].get(label)
+    print(f"{tag} timing loop GB/s by case: {json.dumps(loop)}")
+    print(f"{tag} roofline: copy linearity {path['roofline']['linearity_ratio']:.3f} (expect ~2), "
+          f"torch a+1.0 {path['roofline']['torch_stream_GBs']:.0f} GB/s, stencils "
+          f"{path['roofline']['torch_stencil_Gnnzs']:.2f} / {path['roofline']['cuda_stencil_Gnnzs']:.2f} "
+          f"Gnnz/s (plain / kernel), matmul bf16 {path['roofline']['matmul_bf16_TFLOPs']:.1f} and "
+          f"f32 {path['roofline']['matmul_f32_TFLOPs']:.1f} TFLOP/s")
+    wall = time.perf_counter() - t_phase
+    print(f"{tag} phase 32 wall time: {wall:.1f} s")
+    return {"cases": out, "launches": launches, "path": path, "host_us": host, "wall_s": wall}
+
+
 # -- 25-27: the partitioned path, in spawned rank processes -------------------
 
 def unsharded(fn):
@@ -1978,6 +2175,9 @@ def main():
     results["phase31"] = {"world1_nccl": rank25["phase31"],
                           "two_gloo_ranks": [r["phase31"] for r in results["phase26"]]}
 
+    # 32. the bandwidth probes' kernels and the probe path
+    results["probes"] = probe_path(dev, tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -2065,6 +2265,24 @@ def main():
             "by_p": {str(p): v for p, v in bbell["ms"].items()},
         },
     }]}
+    probes = results["probes"]
+    for name in ("copy_tiles", "copy_ring", "reduce_8x128"):
+        main_row = probes["cases"][name][PROBE_MAIN[name]]
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "lightkrylov_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_REPLACES[name],
+            "launches": probes["launches"][name],
+            "max_abs_err": main_row["max_abs_err"],
+            "main_case": PROBE_MAIN[name],
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": main_row["library_ms"],
+            "by_case": probes["cases"][name],
+        })
     print(json.dumps(kernels))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

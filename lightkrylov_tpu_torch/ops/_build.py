@@ -21,7 +21,7 @@ from pathlib import Path
 __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu")
+SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu")
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -118,6 +118,16 @@ def load() -> ctypes.CDLL:
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.lk_copy_tiles_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lk_copy_ring_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lk_reduce_8x128_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p]
+        for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_reduce_8x128_f32"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p
         _lib = lib

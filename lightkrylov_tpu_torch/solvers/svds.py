@@ -19,8 +19,8 @@ operators work.
 Only the JAX package's host projected path is ported (its
 ``svds.py:227-290``): each check reads ``B`` to the host for one numpy SVD.
 Checks come every ``check_every`` steps, or once per sweep of ``kdim`` steps
-by default.  Left out with the device projected path, which ROADMAP M10
-leaves out: the fused on-device sweep (``_fused_bidiag_sweep``), the device
+by default.  Left out with the device projected path, still to port (ROADMAP
+M10): the fused on-device sweep (``_fused_bidiag_sweep``), the device
 restart (``_svds_thick_restart_device``), the adaptive check cadence
 (``_AdaptiveStride``) and the final float64 recheck, which runs only after
 the device path (``svds.py:63-125,184-226,292-314``).  ``projected="device"``

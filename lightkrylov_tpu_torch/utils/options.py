@@ -96,8 +96,8 @@ def check_host_projected(name: str, opts) -> None:
     ``eighs`` and ``svds`` does not implement."""
     if opts.projected == "device":
         raise NotImplementedError(
-            f"{name}: projected='device' (the fused on-device sweep) is not ported; "
-            "ROADMAP M10 decides it by measurement. Use 'host' or 'auto'.")
+            f"{name}: projected='device' (the fused on-device sweep) is not ported yet "
+            "(ROADMAP M10). Use 'host' or 'auto'.")
     if opts.projected not in ("auto", "host"):
         raise ValueError(f"{name}: unknown projected={opts.projected!r}")
 
