@@ -120,15 +120,21 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     directory, each rank writing its own rows, and resumed from each: both
     resumes equal the uninterrupted run bit for bit;
 32. the bandwidth probes' kernels (csrc/probes.cu): copy_tiles at every
-    TPU copy case's shape and block (P1, P3, P6, P7) and at a ragged shape,
-    copy_ring at the nine (depth, rows) cases of P4/P5 on 8192^2 and at a
-    ragged size, each bit-equal to the plain copy; reduce_8x128 at 4096^2
-    and 65536 x 1024 within 1e-5 of each entry's sum of |x| from the f64
-    plain sum, and equal to itself across two runs; one counted launch a
-    call; each case timed (CUDA events, 10 samples of 10 calls, kernel,
-    plain and copy_ in turn, each sample queued behind a spinning kernel so
-    that the host's launch cost stays out) beside its bound, with its grid
-    and footprint, and the wrappers' host time a call;
+    TPU copy case's shape and block (P1, P3, P6, P7), at a ragged shape and
+    at P7's 1 KB-wide blocks on two more widths (16 and 64 blocks across),
+    each row with its unit a CTA; copy_ring at the nine (depth, rows) cases
+    of P4/P5 on 8192^2 and at a ragged size with fewer chunks than rings,
+    each row with its rings an SM (what the card reports it holds at once,
+    at most 8), CTAs, chunks a CTA and bytes in flight an SM, and both ends
+    of that geometry (1 and 8 rings an SM) checked to have run; each copy
+    bit-equal to the plain copy;
+    reduce_8x128 at 4096^2 and 65536 x 1024 within 1e-5 of each entry's sum
+    of |x| from the f64 plain sum, and equal to itself across two runs; one
+    counted launch a call; each case timed (CUDA events, 10 samples of 10
+    calls, kernel, plain and copy_ in turn, each sample queued behind a
+    spinning kernel so that the host's launch cost stays out) beside its
+    bound, with its grid and footprint, and the wrappers' host time a call
+    beside clone's;
     then the probe path, the five lightkrylov_tpu_torch.probes modules with
     a short timing loop, its launches counted; the phase's wall time.
 
@@ -218,6 +224,10 @@ TILE_CASES["8192x8192_rows256"][2].insert(0, "P6")
 TILE_CASES["8192x8192_rows128"] = ((8192, 8192), (128, 8192), ["P6"])
 TILE_CASES["8192x8192_rows512"] = ((8192, 8192), (512, 8192), ["P6"])
 TILE_CASES["ragged_24x136_blk8x68"] = ((24, 136), (8, 68), [])
+# P7's (1024, 256) blocks, 32 across at 8192^2, on arrays of the same bytes
+# 16 and 64 blocks across: how much of each row the units in flight span
+TILE_CASES["16384x4096_blk1024x256"] = ((16384, 4096), (1024, 256), [])
+TILE_CASES["4096x16384_blk1024x256"] = ((4096, 16384), (1024, 256), [])
 RING_N = 8192
 RING_RAGGED = ((1000, 36), 3, 64)
 REDUCE_SHAPES = ((4096, 4096), (65536, 1024))
@@ -1429,12 +1439,14 @@ def probe_path(dev, tag):
         y = counted_call(probe_ops.copy_tiles, x, block)
         err = float((y - probe_ops.copy_reference(x)).abs().max())
         check(torch.equal(y, x), f"copy_tiles {label} is not the copy (max error {err:.3e})")
+        unit_rows, unit_cols, grid = probe_ops.tiles_geometry(*shape, *block)
         out["copy_tiles"][label] = probe_row(
-            tag, "copy_tiles", label,
+            tag, "copy_tiles", f"{label} (a unit of {unit_rows} x {unit_cols} a CTA)",
             {"kernel": lambda: probe_ops.copy_tiles(x, block),
              "plain": lambda: probe_ops.copy_reference(x), "library": lambda: y.copy_(x)},
-            2 * x.numel() * 4, probe_ops.tiles_geometry(*shape, *block)[2],
-            {"replaces": ids, "shape": list(shape), "block": list(block), "max_abs_err": err})
+            2 * x.numel() * 4, grid,
+            {"replaces": ids, "shape": list(shape), "block": list(block), "max_abs_err": err,
+             "unit": [unit_rows, unit_cols]})
         del x, y
 
     ring_cases = [(f"depth{d}_rows{r}", (RING_N, RING_N), d, r) for d, r in deep_buffer.cases()]
@@ -1448,15 +1460,30 @@ def probe_path(dev, tag):
         y = counted_call(probe_ops.copy_ring, x, depth, stage)
         err = float((y - probe_ops.copy_reference(x)).abs().max())
         check(torch.equal(y, x), f"copy_ring {label} is not the copy (max error {err:.3e})")
+        n_chunks, rings, grid = probe_ops.card_ring_geometry(dev, x.numel() * 4, depth, stage)
+        fits = probe_ops.ring_ctas_per_sm(dev, depth, stage)
+        # rings an SM in use, and the stages they keep in flight
+        busy = min(rings, -(-grid // sms))
+        least = len(probe_ops.ring_chunks(n_chunks, grid, grid - 1))
+        most = len(probe_ops.ring_chunks(n_chunks, grid, 0))
         out["copy_ring"][label] = probe_row(
-            tag, "copy_ring", f"{label} (stage {stage} B, ring {depth * stage} B)",
+            tag, "copy_ring", f"{label} (stage {stage} B, ring {depth * stage} B; {rings} rings "
+            f"an SM, the card holds {fits}; {grid} CTAs of {least}-{most} chunks; "
+            f"{busy * depth * stage // 1024} KB in flight an SM)",
             {"kernel": lambda: probe_ops.copy_ring(x, depth, stage),
              "plain": lambda: probe_ops.copy_reference(x), "library": lambda: y.copy_(x)},
-            2 * x.numel() * 4, probe_ops.ring_geometry(x.numel() * 4, stage, sms)[1],
+            2 * x.numel() * 4, grid,
             {"replaces": ["P4", "P5"] if depth == 2 else ["P5"], "shape": list(shape),
-             "depth": depth, "tpu_rows": rows, "stage_bytes": stage, "max_abs_err": err})
+             "depth": depth, "tpu_rows": rows, "stage_bytes": stage, "max_abs_err": err,
+             "rings_per_sm": rings, "card_ctas_per_sm": fits, "n_chunks": n_chunks,
+             "bytes_in_flight_per_sm": busy * depth * stage})
         del y
     del x
+    # both ends of the ring geometry ran on the card
+    ends = {row["rings_per_sm"] for row in out["copy_ring"].values()}
+    check({1, probe_ops.RING_MAX_CTAS_PER_SM} <= ends,
+          f"copy_ring ran at {sorted(ends)} rings an SM, not at both 1 and "
+          f"{probe_ops.RING_MAX_CTAS_PER_SM}")
 
     small = torch.randn((64, 1024), generator=gen.manual_seed(0), device=dev)
     host = host_us({"copy_tiles": lambda: probe_ops.copy_tiles(small, (8, 1024)),

@@ -4,7 +4,8 @@ The sources in ``lightkrylov_tpu_torch/csrc`` are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, loaded
 with ``ctypes``.  The build happens on first use, into
 ``lightkrylov_tpu_torch/_build/``, under a name keyed by a hash of the
-sources, so an edited source is rebuilt.  It uses nothing but the sources in
+sources, so an edited source is rebuilt: one ``nvcc`` a source, all started
+together, then one link.  It uses nothing but the sources in
 this package and the CUDA toolkit.  A missing compiler or a failed build
 raises :class:`KernelCompileError`; nothing falls back to another path.
 """
@@ -30,6 +31,8 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: ``NVCC_FLAGS`` less ``-shared``: what compiles one source to an object
+_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 _lib = None
 
@@ -61,10 +64,42 @@ def _library_path() -> Path:
     return BUILD_DIR / f"liblk_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(nvcc: str, sources, path: Path) -> None:
+    """Compile ``sources`` into the shared library ``path``: one ``nvcc -c``
+    a source, all started together, then one link.  The compilers' output,
+    register and shared-memory use included, is kept beside the library as
+    ``<name>.log``."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [path.with_name(f"{tag}.{i}.o") for i in range(len(sources))]
+    cmds = [[nvcc, *_COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = ["\n".join((" ".join(cmd), out)) for cmd, out in zip(cmds, outs)]
+    failed = [(cmd, proc.returncode, out) for cmd, proc, out in zip(cmds, procs, outs)
+              if proc.returncode != 0]
+    tmp = path.with_name(f"{tag}.tmp.so")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append((cmd, proc.returncode, proc.stderr))
+    path.with_suffix(".log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        cmd, code, out = failed[0]
+        raise KernelCompileError(f"nvcc failed with exit code {code} ({cmd[-1]}):\n{out}")
+    os.replace(tmp, path)
+
+
 def build() -> Path:
     """Compile the kernels unless a library for the current sources exists;
-    return its path.  The compiler's output, register and shared-memory use
-    included, is kept beside the library as ``<name>.log``."""
+    return its path (the compilers' output is in ``<name>.log`` beside it)."""
     path = _library_path()
     if path.exists():
         return path
@@ -74,17 +109,7 @@ def build() -> Path:
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA toolkit is needed to build "
             "the CUDA kernels for a CUDA tensor")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelCompileError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, path)
+    _compile(nvcc, SOURCES, path)
     return path
 
 
@@ -123,10 +148,13 @@ def load() -> ctypes.CDLL:
                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.lk_copy_ring_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lk_copy_ring_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                 ctypes.POINTER(ctypes.c_int)]
         lib.lk_reduce_8x128_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_void_p]
-        for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_reduce_8x128_f32"):
+        for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_copy_ring_ctas_per_sm",
+                     "lk_reduce_8x128_f32"):
             getattr(lib, name).restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p

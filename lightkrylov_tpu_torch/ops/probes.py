@@ -16,18 +16,24 @@ counts its kernel launches in its ``LAUNCHES`` attribute.
 
 The launch geometry is computed here (:func:`tiles_geometry`,
 :func:`ring_geometry`, :func:`reduce_grid`) and handed to the kernels, so
-that the probes can print it beside each reading.
+that the probes can print it beside each reading; the rings an SM of
+``copy_ring`` come from the card's own occupancy calculator
+(:func:`ring_ctas_per_sm`).  All three kernels are bound by device-memory
+bytes: the bound of a copy is twice the array's bytes over the card's rate
+(3.35 TB/s on an H100 SXM).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 
 __all__ = ["copy_tiles", "copy_ring", "reduce_8x128", "copy_reference",
-           "reduce_8x128_reference", "tiles_geometry", "ring_geometry", "reduce_grid",
-           "RING_SMEM_MAX"]
+           "reduce_8x128_reference", "tiles_geometry", "ring_geometry", "card_ring_geometry",
+           "ring_chunks", "ring_ctas_per_sm", "reduce_grid", "RING_SMEM_MAX"]
 
 #: floats a CTA of ``copy_tiles`` copies at most: 16 KB, 4 float4 a thread
 UNIT_FLOATS = 4096
@@ -37,8 +43,12 @@ REDUCE_CTAS_PER_SM = 8
 #: shared memory the ring may take: 227 KB a CTA, less 1 KB for its barriers
 RING_SMEM_MAX = 227 * 1024 - 1024
 RING_MAX_DEPTH = 8
+#: ring CTAs an SM at most
+RING_MAX_CTAS_PER_SM = 8
 
 _SM_COUNT = {}
+#: (device index, depth x stage bytes) -> ring CTAs an SM of that device holds
+_RING_FITS = {}
 
 
 def copy_reference(x):
@@ -55,10 +65,12 @@ def reduce_8x128_reference(x):
 
 def tiles_geometry(ny: int, nx: int, by: int, bx: int):
     """``(unit_rows, unit_cols, grid)`` of :func:`copy_tiles` on an
-    ``(ny, nx)`` array in ``(by, bx)`` blocks: a CTA copies one unit of
+    ``(ny, nx)`` array in TPU blocks ``(by, bx)``: a CTA copies one unit of
     ``unit_rows x unit_cols`` of a block (the widest multiple of 4 dividing
-    ``bx``, then the most rows dividing ``by``, within :data:`UNIT_FLOATS`),
-    and the grid has one CTA a unit."""
+    ``bx``, then the most rows dividing ``by``, within :data:`UNIT_FLOATS`,
+    16 KB), its four loads a thread before its stores, and the grid has one
+    CTA a unit, numbered block by block in the TPU grid's order.  The copy
+    is bound by twice the array's bytes over the card's memory rate."""
     unit_cols = min(bx, UNIT_FLOATS) // 4 * 4
     while bx % unit_cols:
         unit_cols -= 4
@@ -68,11 +80,27 @@ def tiles_geometry(ny: int, nx: int, by: int, bx: int):
     return unit_rows, unit_cols, (ny // unit_rows) * (nx // unit_cols)
 
 
-def ring_geometry(nbytes: int, stage: int, sm_count: int):
-    """``(n_chunks, grid)`` of :func:`copy_ring`: chunks of one stage, one
-    ring (one CTA) an SM."""
+def ring_geometry(nbytes: int, stage: int, sm_count: int, ctas_per_sm: int):
+    """``(n_chunks, rings_per_sm, grid)`` of :func:`copy_ring`: chunks of
+    one stage; as many rings (one a CTA) an SM as it holds at once,
+    ``ctas_per_sm`` (what the card reports, :func:`ring_ctas_per_sm`), at
+    most :data:`RING_MAX_CTAS_PER_SM`; and ``rings_per_sm x sm_count`` CTAs,
+    or one a chunk where there are fewer chunks (CTA ``b`` takes the chunks
+    :func:`ring_chunks` gives it).  Every ring is resident at once, so the
+    bytes in flight an SM are up to ``rings_per_sm x depth x stage``, and
+    the copy is bound by twice ``nbytes`` over the card's memory rate."""
+    if ctas_per_sm < 1:
+        raise ValueError(f"copy_ring: the SM holds {ctas_per_sm} rings of this size")
     n_chunks = -(-nbytes // stage)
-    return n_chunks, min(n_chunks, sm_count)
+    rings = min(RING_MAX_CTAS_PER_SM, ctas_per_sm)
+    return n_chunks, rings, min(n_chunks, rings * sm_count)
+
+
+def ring_chunks(n_chunks: int, grid: int, b: int) -> range:
+    """The chunks CTA ``b`` of a ``grid``-CTA ring copy takes, the kernel's
+    own rule: ``b, b + grid, ...``, so that the CTAs' counts differ by at
+    most one and the card works on one window of the array at a time."""
+    return range(b, n_chunks, grid)
 
 
 def reduce_grid(ny: int, nx: int, sm_count: int) -> int:
@@ -95,8 +123,12 @@ def _check(x, what: str, ndim: int | None = 2):
         raise ValueError(f"{what}: the array must start on a 16-byte boundary")
 
 
+def _index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _sm_count(device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _index(device)
     if index not in _SM_COUNT:
         _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return _SM_COUNT[index]
@@ -106,14 +138,43 @@ def _launch(what: str, entry: str, x, *args):
     """Call the C entry ``entry`` with ``args`` and the current stream of
     ``x``'s device; raise on the error it returns.  The raw stream handle
     costs less host time than a ``torch.cuda.Stream`` object, which counts
-    where a kernel is as short as the reduction's at 4096^2."""
+    where a kernel is as short as the reduction's at 4096^2, and the device
+    is made current only when it is not already."""
     lib = _build.load()
-    device = x.device
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    index = x.device.index
+    fn = getattr(lib, entry)
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
                            f"({lib.lk_error_string(err).decode()})")
+
+
+def ring_ctas_per_sm(device, depth: int, stage: int) -> int:
+    """Ring CTAs of ``depth x stage`` bytes one SM of the CUDA
+    ``torch.device`` holds at once, as the card's occupancy calculator
+    reports it (with the kernel's shared-memory attributes set); asked once
+    a size."""
+    key = (_index(device), depth * stage)
+    if key not in _RING_FITS:
+        lib = _build.load()
+        out = ctypes.c_int()
+        with torch.cuda.device(key[0]):
+            err = lib.lk_copy_ring_ctas_per_sm(stage, depth, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"copy_ring occupancy query failed: CUDA error {err} "
+                               f"({lib.lk_error_string(err).decode()})")
+        _RING_FITS[key] = out.value
+    return _RING_FITS[key]
+
+
+def card_ring_geometry(device, nbytes: int, depth: int, stage: int):
+    """:func:`ring_geometry` of a copy of ``nbytes`` on the CUDA
+    ``torch.device``: its SM count and the rings an SM it holds."""
+    return ring_geometry(nbytes, stage, _sm_count(device), ring_ctas_per_sm(device, depth, stage))
 
 
 def copy_tiles(x, block):
@@ -138,11 +199,12 @@ def copy_tiles(x, block):
 
 
 def copy_ring(x, depth: int, stage: int):
-    """``y = x`` for a contiguous float32 array of any shape, through a ring
+    """``y = x`` for a contiguous float32 array of any shape, through rings
     of ``depth`` shared-memory stages of ``stage`` bytes, loaded by TMA bulk
-    copies and stored by bulk stores: the counterpart of the manual-DMA
-    Pallas copies P4 (depth 2) and P5.  ``depth`` is 2-8, ``stage`` a
-    multiple of 16, and ``depth * stage`` at most :data:`RING_SMEM_MAX`."""
+    copies and stored by bulk stores, several rings an SM
+    (:func:`card_ring_geometry`): the counterpart of the manual-DMA Pallas copies
+    P4 (depth 2) and P5.  ``depth`` is 2-8, ``stage`` a multiple of 16, and
+    ``depth * stage`` at most :data:`RING_SMEM_MAX`."""
     _check(x, "copy_ring", ndim=None)
     if not 2 <= depth <= RING_MAX_DEPTH:
         raise ValueError(f"copy_ring: depth {depth} outside 2-{RING_MAX_DEPTH}")
@@ -154,7 +216,7 @@ def copy_ring(x, depth: int, stage: int):
         raise ValueError(f"copy_ring: {nbytes} bytes is not a multiple of 16")
     if x.device.type == "cpu":
         return copy_reference(x)
-    _, grid = ring_geometry(nbytes, stage, _sm_count(x.device))
+    _, _, grid = card_ring_geometry(x.device, nbytes, depth, stage)
     y = torch.empty_like(x)
     _launch("copy_ring", "lk_copy_ring_f32", x, x.data_ptr(), y.data_ptr(), nbytes, stage,
             depth, grid)

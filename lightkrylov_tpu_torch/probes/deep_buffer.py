@@ -3,11 +3,17 @@ sizes.
 
 The counterpart of ``benchmarks/deep_buffer_probe.py`` (its Pallas body P5):
 the same nine ``(depth, rows)`` cases on an ``n``-square float32 array, each
-through ``copy_ring``.  A TPU stage is ``rows`` rows of the array in VMEM,
-2-8 MB; a Hopper stage lives in shared memory (227 KB a CTA), so each case
-maps ``rows`` to :func:`ring_stage` bytes, in the TPU's proportions, with
-``depth * stage <= 192 KB``.  The TPU case list and its 100 MiB rule are
-kept as the labels.
+through ``copy_ring``: a ring of ``depth`` shared-memory stages a CTA, TMA
+bulk loads in and bulk stores out, a producer thread and a store thread
+decoupled by full and empty barriers so that a freed stage is refilled at
+once, and as many rings an SM as its shared memory holds (8 rings of 24 KB
+down to 1 of 192 KB; ``grid`` in each case's line).  A TPU stage is
+``rows`` rows of the array in VMEM, 2-8 MB; a Hopper stage lives in shared
+memory (227 KB a CTA), so each case maps ``rows`` to :func:`ring_stage`
+bytes, in the TPU's proportions, with ``depth * stage <= 192 KB``.  The
+bound is twice the array's bytes over the card's memory rate (3.35 TB/s on
+an H100 SXM).  The TPU case list and its 100 MiB rule are kept as the
+labels.
 
 Run on the card: ``python -m lightkrylov_tpu_torch.probes.deep_buffer [--out PATH]``.
 Prints one JSON line (``"probe": "deep_buffer"``).
@@ -19,9 +25,9 @@ import time
 
 import torch
 
-from ..ops.probes import copy_ring, ring_geometry
+from ..ops.probes import card_ring_geometry, copy_ring
 from .timing import (cuda_device, datasheet_bw, device_kind, emit, health_gate, log,
-                     parse_out, sm_count, timed_loop)
+                     parse_out, timed_loop)
 
 DEPTHS = (2, 3, 4)
 ROWS = (64, 128, 256)
@@ -51,7 +57,6 @@ def run(device, n=8192, min_diff=0.25, iters0=64):
     x = torch.randn((n, n), generator=torch.Generator(device=device).manual_seed(0),
                     device=device)
     nbytes = x.numel() * 4
-    sms = sm_count(device)
     res["footprint_MB"] = 2 * nbytes / 1e6
     for depth, rows in cases():
         stage = ring_stage(rows)
@@ -61,7 +66,8 @@ def run(device, n=8192, min_diff=0.25, iters0=64):
         t, d = timed_loop(lambda v, depth=depth, stage=stage: copy_ring(v, depth, stage), x,
                           min_diff=min_diff, iters0=iters0)
         gbs = 2 * nbytes / t / 1e9
-        grid = ring_geometry(nbytes, stage, sms)[1] if sms else None
+        grid = (card_ring_geometry(device, nbytes, depth, stage)[2]
+                if device.type == "cuda" else None)
         log(f"depth={depth} rows={rows} (stage {stage} B, {depth * stage} B a ring, "
             f"grid {grid}): {gbs:.0f} GB/s (valid={d['valid']})"
             + (f", {gbs * 1e9 / sheet:.3f} of datasheet" if sheet else ""))

@@ -2,11 +2,16 @@
 
 The counterpart of ``benchmarks/manual_out_probe.py``: the pipelined
 (managed) Pallas copy P3 becomes ``copy_tiles`` in ``(64, n)`` row blocks,
-with plain stores; the manual double-buffered copy P4, whose both
-directions are async DMAs, becomes ``copy_ring`` at depth 2, TMA bulk loads
-and bulk stores through shared memory, with the TPU's ``rows`` mapped to a
-stage that fits (:func:`.deep_buffer.ring_stage`).  Each is checked on the
-``[5000:5008, 1000:1032]`` window (the TPU's) and on the whole array.
+with register loads and plain stores; the manual double-buffered copy P4,
+whose both directions are async DMAs, becomes ``copy_ring`` at depth 2:
+TMA bulk loads into a ring of two shared-memory stages and bulk stores out
+of it, a producer thread and a store thread decoupled by full and empty
+barriers, several rings an SM (as many as its shared memory holds, at most
+8), with the TPU's ``rows`` mapped to a stage that fits
+(:func:`.deep_buffer.ring_stage`).  Both are bound by twice the array's
+bytes over the card's memory rate (3.35 TB/s on an H100 SXM).  Each is
+checked on the ``[5000:5008, 1000:1032]`` window (the TPU's) and on the
+whole array.
 
 Run on the card: ``python -m lightkrylov_tpu_torch.probes.manual_out [--out PATH]``.
 Prints one JSON line (``"probe": "manual_out"``).
@@ -18,10 +23,10 @@ import time
 
 import torch
 
-from ..ops.probes import copy_ring, copy_tiles, ring_geometry, tiles_geometry
+from ..ops.probes import card_ring_geometry, copy_ring, copy_tiles, tiles_geometry
 from .deep_buffer import ring_stage
 from .timing import (cuda_device, datasheet_bw, device_kind, emit, health_gate, log,
-                     parse_out, sm_count, timed_loop)
+                     parse_out, timed_loop)
 
 ROWS = 64
 WINDOW = (slice(5000, 5008), slice(1000, 1032))
@@ -38,9 +43,8 @@ def run(device, n=8192, min_diff=0.25, iters0=64):
                     device=device)
     res["footprint_MB"] = 2 * x.numel() * 4 / 1e6
     res["managed_grid"] = tiles_geometry(n, n, ROWS, n)[2]
-    sms = sm_count(device)
-    if sms:
-        res["manual_grid"] = ring_geometry(x.numel() * 4, ring_stage(ROWS), sms)[1]
+    if device.type == "cuda":
+        res["manual_grid"] = card_ring_geometry(device, x.numel() * 4, 2, ring_stage(ROWS))[2]
     for name, fn in (("managed", lambda v: copy_tiles(v, (ROWS, n))),
                      ("manual", lambda v: copy_ring(v, 2, ring_stage(ROWS)))):
         y = fn(x)

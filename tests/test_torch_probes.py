@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import lightkrylov_tpu_torch as lt
+from lightkrylov_tpu_torch.ops import _build
 from lightkrylov_tpu_torch.ops import probes as P
 from lightkrylov_tpu_torch.probes import (copy_shape, deep_buffer, manual_out, roofline,
                                           stencil_sweep, timing)
@@ -316,16 +317,52 @@ def test_tiles_geometry_gives_full_units_for_every_tpu_case():
         assert unit_rows * unit_cols == P.UNIT_FLOATS
         assert grid == ny * nx // P.UNIT_FLOATS
     assert P.tiles_geometry(24, 136, 8, 68) == (8, 68, 6)
+    assert P.tiles_geometry(40, 136, 8, 68) == (8, 68, 10)
+
+
+# ring CTAs an SM of each TPU (depth, rows) case as an H100's occupancy
+# calculator reports them (chip_smoke.py phase 32), and the rings an SM
+# that follow: 8 rings of 24 KB down to 1 of 144 or 192 KB
+H100_RING_CTAS_PER_SM = {(2, 64): 9, (2, 128): 4, (2, 256): 2, (3, 64): 6, (3, 128): 3,
+                         (3, 256): 1, (4, 64): 4, (4, 128): 2, (4, 256): 1}
+TPU_RINGS_PER_SM = {(2, 64): 8, (2, 128): 4, (2, 256): 2, (3, 64): 6, (3, 128): 3,
+                    (3, 256): 1, (4, 64): 4, (4, 128): 2, (4, 256): 1}
 
 
 def test_ring_and_reduce_geometry():
     assert deep_buffer.cases() == [(d, r) for d in (2, 3, 4) for r in (64, 128, 256)]
+    n8192 = 8192 * 8192 * 4
     for depth, rows in deep_buffer.cases():
-        assert depth * deep_buffer.ring_stage(rows) <= 192 * 1024 <= P.RING_SMEM_MAX
-    assert P.ring_geometry(1000 * 36 * 4, 12288, 132) == (12, 12)
-    assert P.ring_geometry(8192 * 8192 * 4, 12288, 132) == (21846, 132)
+        stage = deep_buffer.ring_stage(rows)
+        assert depth * stage <= 192 * 1024 <= P.RING_SMEM_MAX
+        n_chunks, rings, grid = P.ring_geometry(n8192, stage, 132,
+                                                H100_RING_CTAS_PER_SM[depth, rows])
+        assert rings == TPU_RINGS_PER_SM[depth, rows]
+        assert (n_chunks, grid) == (-(-n8192 // stage), rings * 132)
+    # the edge: a ring above 113 KB fits once an SM, and a ring that fits
+    # no time is refused
+    assert P.ring_geometry(n8192, 57808, 132, 1)[1:] == (1, 132)
+    with pytest.raises(ValueError, match="holds 0 rings"):
+        P.ring_geometry(n8192, 113 * 1024, 132, 0)
+    # another card's SM count and occupancy set the grid
+    assert P.ring_geometry(n8192, 12288, 114, 6)[1:] == (6, 684)
+    # more rings than chunks: one CTA a chunk
+    assert P.ring_geometry(1000 * 36 * 4, 12288, 132, 6) == (12, 6, 12)
+    assert P.ring_geometry(64 * 64 * 4, 16, 132, 32) == (1024, 8, 1024)
+    assert P.ring_geometry(n8192, 12288, 132, 9) == (21846, 8, 1056)
     assert P.reduce_grid(4096, 4096, 132) == 1056
     assert P.reduce_grid(16, 256, 132) == 4
+
+
+@pytest.mark.parametrize("n_chunks,grid", [(21846, 1056), (5462, 132), (12, 12), (1024, 1024),
+                                           (7, 3), (1, 1), (1056, 1056), (1057, 1056)])
+def test_ring_chunks_cover_every_chunk_once_in_balanced_shares(n_chunks, grid):
+    shares = [P.ring_chunks(n_chunks, grid, b) for b in range(grid)]
+    assert sorted(c for share in shares for c in share) == list(range(n_chunks))
+    counts = [len(share) for share in shares]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    # each step of the CTAs reads one window of the array: chunks k*grid .. k*grid + grid - 1
+    assert [share[0] for share in shares] == list(range(grid))
 
 
 # ---------------------------------------------------------------------------
@@ -458,8 +495,11 @@ def counted(wrapper, *args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,shape,block", COPY_CASES + [
     ("rows64", (8192, 8192), (64, 8192)), ("blk1024x256", (8192, 8192), (1024, 256)),
-    ("wide", (4096, 16384), (128, 16384)), ("slim", (65536, 1024), (1024, 1024))],
-    ids=[c[0] for c in COPY_CASES] + ["rows64", "blk1024x256", "wide", "slim"])
+    ("wide", (4096, 16384), (128, 16384)), ("slim", (65536, 1024), (1024, 1024)),
+    ("blk1024x256_16across", (16384, 4096), (1024, 256)),
+    ("blk1024x256_64across", (4096, 16384), (1024, 256))],
+    ids=[c[0] for c in COPY_CASES] + ["rows64", "blk1024x256", "wide", "slim",
+                                      "blk1024x256_16across", "blk1024x256_64across"])
 def test_cuda_copy_tiles_matches_plain(cuda, label, shape, block):
     x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
     assert torch.equal(counted(P.copy_tiles, x, block), P.copy_reference(x))
@@ -468,10 +508,38 @@ def test_cuda_copy_tiles_matches_plain(cuda, label, shape, block):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,depth,stage", [
     ((8192, 8192), 2, 12288), ((8192, 8192), 3, 24576), ((8192, 8192), 4, 49152),
-    ((1000, 36), 3, 12288), ((64, 64), 2, 16), ((37, 4), 8, 1024)])
+    ((1000, 36), 3, 12288), ((64, 64), 2, 16), ((37, 4), 8, 1024),
+    # more rings than chunks; one ring an SM; depth 8 x 16 B; ragged last
+    # chunks in CTAs of many chunks
+    ((100, 1024), 2, 12288), ((4096, 4096), 3, 49152), ((64, 64), 8, 16),
+    ((8192, 8190), 2, 12288), ((4097, 1028), 4, 49152)])
 def test_cuda_copy_ring_matches_plain(cuda, shape, depth, stage):
     x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
     assert torch.equal(counted(P.copy_ring, x, depth, stage), P.copy_reference(x))
+
+
+@pytest.mark.cuda
+def test_cuda_ring_geometry_is_the_cards(cuda):
+    """The card's ring count an SM: at least one ring, fewer as a ring
+    grows, within the SM's shared memory, and what the wrapper launches; a
+    grid beyond it is refused, not run in waves."""
+    props = torch.cuda.get_device_properties(cuda)
+    sizes = sorted({(d, deep_buffer.ring_stage(r)) for d, r in deep_buffer.cases()}
+                   | {(2, 57792), (2, 57808), (8, 16)}, key=lambda c: c[0] * c[1])
+    fits = [P.ring_ctas_per_sm(cuda, d, s) for d, s in sizes]
+    assert min(fits) >= 1 and fits == sorted(fits, reverse=True)
+    for (depth, stage), fit in zip(sizes, fits):
+        assert fit * depth * stage <= props.shared_memory_per_multiprocessor
+        assert P.card_ring_geometry(cuda, 1 << 28, depth, stage)[1] == min(
+            P.RING_MAX_CTAS_PER_SM, fit)
+    assert P.ring_ctas_per_sm(cuda, 4, deep_buffer.ring_stage(256)) == 1
+    x = torch.zeros((8192, 8192), device=cuda)
+    y = torch.empty_like(x)
+    fit = P.ring_ctas_per_sm(cuda, 2, 12288)
+    err = _build.load().lk_copy_ring_f32(
+        x.data_ptr(), y.data_ptr(), x.numel() * 4, 12288, 2,
+        (fit + 1) * props.multi_processor_count, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.cuda
