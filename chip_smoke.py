@@ -136,13 +136,35 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     bound, with its grid and footprint, and the wrappers' host time a call
     beside clone's;
     then the probe path, the five lightkrylov_tpu_torch.probes modules with
-    a short timing loop, its launches counted; the phase's wall time.
+    a short timing loop, its launches counted; the phase's wall time;
+33. the device projected path (csrc/hessenberg.cu): (a) hessenberg_schur
+    (embedding, Hessenberg reduction, Francis sweeps, Z, real-block split)
+    against its plain version and numpy's eig on seeded Hessenberg matrices
+    at n = 3-200 (200 is above the f64 shared-memory limit of 168), the
+    Krylov-Schur arrow form, exact conjugate pairs and k_eff < n, f32 and
+    f64, eigenvalues within 1e-5 / 1e-11 of ||H||_F, ||Z T Z^T - H|| and
+    ||Z^T Z - I|| within 1e-5 / 1e-12; francis_filter_sweeps against its
+    plain version on Arnoldi Hessenbergs at kdim 16, 40, 64; one
+    hessenberg_ritz check at kdim 40 under set_sync_debug_mode("error");
+    (b) gl512 under projected="device" (the phase's main path, the kernels'
+    launches zeroed before and read after): 16/16 inside the kappa budgets,
+    no QR host redo, no host restart, matvecs, stride, checks, host reads a
+    check, restarts by kind and the warm solve beside phase 13's; (c)
+    eigs_3072, (e) eighs_3072 and svds_3072 and (f) eigs_3072_block under
+    projected="device" with their launch counts, against phases 15, 10, 19
+    and 29b; (d) the non-normal eigs f64 through Block-ELL with IRAM
+    restarts, then with a custom selector through the device Schur restart
+    (its ordschur host reads printed), by true residual; (g) a check, each
+    kernel alone and the plain Schur core at kdim 32, 40, 64, 128, f32 and
+    f64, with sweeps and chase steps, beside the host path's read plus
+    numpy eig and torch.linalg.eigvals on the card.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the package beside it, the script fails before it prints any result.
 """
 
+import importlib
 import json
 import queue
 import shutil
@@ -157,16 +179,19 @@ import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
+from scipy.optimize import linear_sum_assignment
 
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
+from lightkrylov_tpu_torch.ops import hessenberg as hess_ops
 from lightkrylov_tpu_torch.ops import probes as probe_ops
 from lightkrylov_tpu_torch.ops.spmv import bell_spmm_reference, bell_spmv_reference
 from lightkrylov_tpu_torch.ops.stencil import stencil_matvec_reference
 from lightkrylov_tpu_torch.parallel.stencil import LinearApply, halo_rows
 from lightkrylov_tpu_torch.probes import (copy_shape, deep_buffer, manual_out, roofline,
                                           stencil_sweep)
+from lightkrylov_tpu_torch.utils import hessenberg as hess
 
 STENCIL_SHAPES = [(33, 17), (50, 32), (64, 256), (100, 300), (1000, 3001), (3072, 3072)]
 # f32/f64 kernel-vs-plain bounds on ||a-b||/||b||: the kernel may contract
@@ -212,6 +237,19 @@ RANK_TIMEOUT_S = 300
 # shape of phase 25, and probe block_eigs_r5 (benchmarks/results_tpu.json:61)
 BATCH_PS = (2, 4)
 R5_N, R5_NEV, R5_KDIM, R5_TOL = 64, 4, 12, 5e-5
+# phase 33: the device projected path
+SCHUR_N = (3, 17, 40, 64, 128, 200)
+SCHUR_EIG_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}   # of ||H||_F
+SCHUR_ORTH_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms
+FILTER_EIG_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F
+RITZ_KDIMS = (32, 40, 64, 128)
+MAIN_KDIM = 40  # gl512's, the main path's shape
+# peak non-tensor-core rates of one H100 SXM at 700 W (NVIDIA's data sheet):
+# float32 67 TFLOP/s, float64 34 TFLOP/s
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+HESS_REPLACES = {"hessenberg_schur": "lightkrylov_tpu/utils/hessenberg.py:226",
+                 "francis_filter_sweeps": "lightkrylov_tpu/utils/hessenberg.py:687"}
+
 R5_TPU_ERR = {2: 6.84e-4, 1: 1.54e-6}
 # phase 32: each copy case of copy_tiles by its shape and block, with the TPU
 # probes that copy so (P6's rows 256 and P1's 4096^2 are P7 cases too), a
@@ -729,7 +767,7 @@ def eigs_3072(dev, tag, eighs_out):
           f"per Arnoldi step {host_reads / meta.n_iter:.3f}")
     torch.cuda.empty_cache()
     return dict(launches=launches, host_reads=host_reads, steps=meta.n_iter, re_dev=d_re,
-                im_dev=d_im, sweep_ms=sweep)
+                im_dev=d_im, sweep_ms=sweep, ritz=[[z.real, z.imag] for z in w])
 
 
 def eigs_nonnormal(dev):
@@ -2016,6 +2054,400 @@ def run_ranks(phases, world, backend, tag):
     return [got[r][1] for r in range(world)]
 
 
+
+# -- phase 33: the device projected path ---------------------------------------
+
+def match_dist(a, b):
+    """Largest distance between two multisets of complex numbers, matched one
+    to one."""
+    a, b = np.asarray(a), np.asarray(b)
+    cost = np.abs(a[:, None] - b[None, :])
+    r, c = linear_sum_assignment(cost)
+    return float(cost[r, c].max()) if len(r) else 0.0
+
+
+def arnoldi_hessenberg(kdim, seed, n=512):
+    """The ``(kdim + 1, kdim)`` Arnoldi Hessenberg of the spiral operator
+    from a seeded start vector, in float64 on the host: the projected matrix
+    an eigs check sees."""
+    A = spiral_matrix(n, seed)
+    V = np.zeros((n, kdim + 1))
+    H = np.zeros((kdim + 1, kdim))
+    v = np.random.default_rng(seed + 1).standard_normal(n)
+    V[:, 0] = v / np.linalg.norm(v)
+    for k in range(kdim):
+        w = A @ V[:, k]
+        for _ in range(2):
+            h = V[:, :k + 1].T @ w
+            w -= V[:, :k + 1] @ h
+            H[:k + 1, k] += h
+        H[k + 1, k] = np.linalg.norm(w)
+        V[:, k + 1] = w / H[k + 1, k]
+    return H
+
+
+def schur_inputs():
+    """(label, matrix, k_eff): seeded Hessenberg matrices at SCHUR_N, the
+    Krylov-Schur arrow form, exact conjugate pairs, and k_eff < n."""
+    rng = np.random.default_rng(33)
+    cases = [(f"hess{n}", np.triu(rng.standard_normal((n, n)), -1), n) for n in SCHUR_N]
+    m, n = 20, 40
+    arrow = np.triu(rng.standard_normal((n, n)), -1)
+    arrow[:m, :m] = np.triu(arrow[:m, :m])
+    arrow[m, :m] = rng.standard_normal(m)  # the spike row
+    cases.append(("arrow40", arrow, n))
+    D = np.zeros((n, n))
+    for j in range(n // 2):
+        a, b = np.cos(0.3 + j), 0.5 + 0.05 * j
+        D[2 * j:2 * j + 2, 2 * j:2 * j + 2] = [[a, b], [-b, a]]
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    cases.append(("pairs40", Q @ D @ Q.T, n))
+    cases.append(("keff50of64", np.triu(rng.standard_normal((64, 64)), -1), 50))
+    return cases
+
+
+def schur_work(n, steps, with_z, dtype):
+    """Bytes moved and operations of one hessenberg_schur call: the input
+    read and T, Z, wr, wi written once; the reduction's four rank-one passes
+    a column (two more for Z) and 15 operations a row or column element of a
+    3-row or 3-column chase update (the 3x3 reflector applied to H's rows,
+    H's columns and Z's columns)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * (n * n * (3 if with_z else 2) + 2 * n)
+    red = sum((8 + (4 if with_z else 0)) * (n - j - 1) * n for j in range(max(n - 2, 0)))
+    chase = steps * 15 * n * (3 if with_z else 2)
+    return nbytes, red + chase
+
+
+def filter_work(n, steps, dtype):
+    """Bytes and operations of one francis_filter_sweeps call: H, the shifts
+    and their order read once, Hf and Z written once; 15 operations a row or
+    column element of each chase step's three 3-wide updates."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return size * (3 * n * n + 3 * n), steps * 15 * n * 3
+
+
+def bound_of(nbytes, flops, dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def hessenberg_kernels(dev, tag):
+    """Phase 33 (a): both kernels against their plain versions on the card,
+    f32 and f64; the check under set_sync_debug_mode("error")."""
+    out = {"schur": [], "filter": []}
+    for dtype in (torch.float32, torch.float64):
+        for label, H, k in schur_inputs():
+            Ht = torch.from_numpy(H).to(dev, dtype)
+            T, Z, wr, wi, acc, ok, work = hess_ops.hessenberg_schur(Ht, k, with_z=True,
+                                                                    split=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, pwr, pwi, _, pok, pwork = hess_ops.hessenberg_schur_reference(Ht, k, True, True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            w = (wr.double() + 1j * wi.double()).cpu().numpy()[:k]
+            wp = (pwr.double() + 1j * pwi.double()).cpu().numpy()[:k]
+            Ha = Ht.double().cpu().numpy()[:k, :k]
+            norm = float(np.linalg.norm(Ha))
+            d_plain = match_dist(w, wp) / norm
+            d_np = match_dist(w, np.linalg.eigvals(Ha)) / norm
+            Hm = hess._embed(Ht.double(), k)[0].cpu().numpy()
+            Tn, Zn = T.double().cpu().numpy(), Z.double().cpu().numpy()
+            fact = float(np.linalg.norm(Zn @ Tn @ Zn.T - Hm, 2) / np.linalg.norm(Hm, 2))
+            orth = float(np.linalg.norm(Zn.T @ Zn - np.eye(len(Zn)), 2))
+            row = dict(case=label, dtype=str(dtype), n=int(H.shape[0]), k_eff=k, ok=bool(ok),
+                       sweeps=int(work[0]), steps=int(work[1]), plain_sweeps=int(pwork[0]),
+                       eig_vs_plain=d_plain, eig_vs_numpy=d_np, factorization=fact,
+                       orthogonality=orth, max_abs_err=d_plain * norm, plain_s=plain_s)
+            out["schur"].append(row)
+            print(f"hessenberg_schur {label} {dtype}: ok {bool(ok)}, {row['sweeps']} sweeps "
+                  f"({row['steps']} chase steps; plain {row['plain_sweeps']}), eigenvalues vs "
+                  f"plain {d_plain:.2e} and vs numpy {d_np:.2e} of ||H||_F, ||ZTZ^T-H||/||H|| "
+                  f"{fact:.2e}, ||Z^TZ-I|| {orth:.2e}; plain {plain_s:.2f} s on the card")
+            check(bool(ok) and bool(pok), f"hessenberg_schur {label} {dtype}: sweep budget out")
+            tol, otol = SCHUR_EIG_TOL[dtype], SCHUR_ORTH_TOL[dtype]
+            check(d_plain <= tol and d_np <= tol,
+                  f"hessenberg_schur {label} {dtype}: eigenvalues off by {d_plain:.2e} / "
+                  f"{d_np:.2e} of ||H||_F (gate {tol})")
+            check(fact <= otol and orth <= otol,
+                  f"hessenberg_schur {label} {dtype}: factorization {fact:.2e}, orthogonality "
+                  f"{orth:.2e} (gate {otol})")
+        for kdim in (16, MAIN_KDIM, 64):
+            Hs = arnoldi_hessenberg(kdim, seed=kdim)[:kdim, :kdim]
+            Ht = torch.from_numpy(Hs).to(dev, dtype)
+            wr, wi, order, n, pure, ok = hess._filter_shifts(Ht, kdim // 2)
+            Hf, Z, work = hess_ops.francis_filter_sweeps(Ht, wr, wi, order, n, pure)
+            torch.cuda.synchronize()
+            Hp, Zp, pwork = hess_ops.francis_filter_sweeps_reference(Ht, wr, wi, order, n, pure)
+            n = int(n)
+            Hd = Ht.double().cpu().numpy()
+            norm = float(np.linalg.norm(Hd))
+            Hfn, Zn = Hf.double().cpu().numpy(), Z.double().cpu().numpy()
+            fact = float(np.linalg.norm(Zn.T @ Hd @ Zn - Hfn, 2) / np.linalg.norm(Hd, 2))
+            orth = float(np.linalg.norm(Zn.T @ Zn - np.eye(kdim), 2))
+            kept = np.linalg.eigvals(Hfn[:n, :n])
+            d_plain = match_dist(kept, np.linalg.eigvals(Hp.double().cpu().numpy()[:n, :n])) / norm
+            w_all = np.linalg.eigvals(Hd)
+            d_lead = match_dist(kept, w_all[np.argsort(-np.abs(w_all))][:n]) / norm
+            row = dict(kdim=kdim, dtype=str(dtype), n=n, ok=bool(ok & pure),
+                       sweeps=int(work[0]), steps=int(work[1]), plain_sweeps=int(pwork[0]),
+                       kept_vs_plain=d_plain, kept_vs_lead=d_lead, factorization=fact,
+                       orthogonality=orth, max_abs_err=d_plain * norm)
+            out["filter"].append(row)
+            print(f"francis_filter_sweeps kdim {kdim} {dtype}: keep {n}, {row['sweeps']} sweeps "
+                  f"({row['steps']} chase steps; plain {row['plain_sweeps']}), kept spectrum vs "
+                  f"plain {d_plain:.2e} and vs the {n} largest {d_lead:.2e} of ||H||_F, "
+                  f"||Z^THZ-Hf||/||H|| {fact:.2e}, ||Z^TZ-I|| {orth:.2e}")
+            check(bool(ok & pure) and row["sweeps"] == row["plain_sweeps"] > 0,
+                  f"francis_filter_sweeps kdim {kdim} {dtype}: sweeps {row}")
+            tol, otol = FILTER_EIG_TOL[dtype], SCHUR_ORTH_TOL[dtype]
+            check(d_plain <= tol and d_lead <= tol,
+                  f"francis_filter_sweeps kdim {kdim} {dtype}: kept spectrum off by "
+                  f"{d_plain:.2e} / {d_lead:.2e} (gate {tol})")
+            check(fact <= otol and orth <= otol,
+                  f"francis_filter_sweeps kdim {kdim} {dtype}: factorization {fact:.2e}, "
+                  f"orthogonality {orth:.2e} (gate {otol})")
+    He = torch.from_numpy(arnoldi_hessenberg(MAIN_KDIM, seed=MAIN_KDIM)).to(dev, torch.float32)
+    hess.hessenberg_ritz(He, MAIN_KDIM, 1e-6, 16)
+    torch.cuda.synchronize()
+    k = torch.full((), MAIN_KDIM - 3, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hess.hessenberg_ritz(He, k, 1e-6, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"hessenberg_ritz at kdim {MAIN_KDIM} f32 ran under set_sync_debug_mode('error'): no "
+          "host round-trip in a check")
+    return out
+
+
+def hessenberg_times(dev, tag):
+    """Phase 33 (g): a check of hessenberg_ritz, the Schur kernel and the
+    filter kernel alone, and the plain Schur core, at the kdims of the table,
+    beside the host path's read plus numpy eig and torch.linalg.eigvals on the
+    device."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        for kdim in RITZ_KDIMS:
+            He = torch.from_numpy(arnoldi_hessenberg(kdim, seed=kdim)).to(dev, dtype)
+            Hs = He[:kdim, :kdim].contiguous()
+            ritz_ms = median_ms(lambda i: hess.hessenberg_ritz(He, kdim, 1e-6, 16), runs=10)
+            schur_ms = median_ms(lambda i: hess_ops.hessenberg_schur(Hs, kdim), runs=10)
+            _, _, _, _, _, _, work = hess_ops.hessenberg_schur(Hs, kdim)
+            wr, wi, order, n, pure, _ = hess._filter_shifts(Hs, kdim // 2)
+            filt_ms = median_ms(lambda i: hess_ops.francis_filter_sweeps(Hs, wr, wi, order, n,
+                                                                         pure), runs=10)
+            _, _, fwork = hess_ops.francis_filter_sweeps(Hs, wr, wi, order, n, pure)
+
+            def host_clock(fn, reps=10):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / reps * 1e3
+
+            host_ms = host_clock(lambda: np.linalg.eig(Hs.cpu().numpy()))
+            lib_ms = host_clock(lambda: torch.linalg.eigvals(Hs))
+            plain_ms = host_clock(lambda: hess_ops.hessenberg_schur_reference(Hs, kdim), reps=1)
+            fplain_ms = host_clock(lambda: hess_ops.francis_filter_sweeps_reference(
+                Hs, wr, wi, order, n, pure), reps=1)
+            sweeps, steps = int(work[0]), int(work[1])
+            nbytes, flops = schur_work(kdim, steps, False, dtype)
+            bound, bound_by = bound_of(nbytes, flops, dtype)
+            fbound, fbound_by = bound_of(*filter_work(kdim, int(fwork[1]), dtype), dtype)
+            row = dict(ritz_ms=ritz_ms, schur_ms=schur_ms, schur_plain_ms=plain_ms,
+                       sweeps=sweeps, steps=steps, bound_ms=bound, bound_by=bound_by,
+                       filter_ms=filt_ms, filter_plain_ms=fplain_ms, filter_sweeps=int(fwork[0]),
+                       filter_steps=int(fwork[1]), filter_bound_ms=fbound,
+                       filter_bound_by=fbound_by, host_read_eig_ms=host_ms, eigvals_ms=lib_ms)
+            rows[f"{kdim}_{str(dtype)[6:]}"] = row
+            print(f"{tag} kdim {kdim} {dtype}: hessenberg_ritz check {ritz_ms:.3f} ms; "
+                  f"hessenberg_schur {schur_ms:.3f} ms ({sweeps} sweeps, {steps} chase steps; "
+                  f"bound {bound * 1e3:.2f} us by {bound_by}), plain {plain_ms:.1f} ms; "
+                  f"francis_filter_sweeps {filt_ms:.3f} ms ({row['filter_sweeps']} sweeps, "
+                  f"{row['filter_steps']} steps), plain {fplain_ms:.1f} ms; host read + numpy "
+                  f"eig {host_ms:.3f} ms; torch.linalg.eigvals {lib_ms:.3f} ms")
+    return rows
+
+
+def device_projected_path(dev, tag, results):
+    """Phase 33 (b)-(f): gl512, eigs_3072, the non-normal eigs through K3
+    (IRAM restarts, then a custom selector), eighs_3072, svds_3072 and
+    eigs_3072_block under projected="device", each against its host-path
+    phase."""
+    out = {}
+    eigs_mod = importlib.import_module("lightkrylov_tpu_torch.solvers.eigs")
+    dev_opts = dict(projected="device")
+
+    # (b) gl512: the main path of this phase
+    gl = lt.GinzburgLandauReal(N_GL, dtype=torch.float32, device=dev)
+    prop = lt.GLPropagator(gl, tau=0.01, n_steps=10)
+    x0 = seeded((2, N_GL), torch.float32, dev, seed=11)
+    opts = lt.EigsOptions(maxiter=200, **dev_opts)
+
+    def solve():
+        res = lt.eigs(prop, 16, x0=x0, kdim=40, tolerance=GL_TOL, options=opts)
+        torch.cuda.synchronize()
+        return res
+
+    t0 = time.perf_counter()
+    solve()
+    t_first = time.perf_counter() - t0
+    lt.timer.reset_counters()
+    hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
+    t0 = time.perf_counter()
+    w, V, r, info, meta = solve()
+    t_warm = time.perf_counter() - t0
+    launches = {"hessenberg_schur": hess_ops.hessenberg_schur.LAUNCHES,
+                "francis_filter_sweeps": hess_ops.francis_filter_sweeps.LAUNCHES}
+    c = lt.timer.get_counter
+    checks, reads = c("ritz_checks"), c("host_reads")
+    restarts = {k: c(f"restarts.eigs.{k}") for k in ("iram", "schur_device", "host")}
+    stride = eigs_mod._AdaptiveStride.chosen.get("eigs")
+    host13 = results["gl512"]
+    print(f"gl512 device: eigs(16, kdim=40, projected='device') of GLPropagator("
+          f"GinzburgLandauReal({N_GL}) f32): info={info}, {meta.n_iter} matvecs (host path, "
+          f"phase 13: {host13['matvecs']}), adaptive stride {stride}, {checks} checks, "
+          f"{reads} host reads ({reads / max(checks, 1):.2f} a check, "
+          f"{reads / meta.n_iter:.3f} a matvec), restarts {restarts}, QR host redos "
+          f"{c('qr_host_redos')}, launches {launches}")
+    check(info > 0, f"gl512 device eigs reported non-convergence: info={info}")
+    gl_out = gl_checks(gl, V, r, 16, conj_too=True, budget=flagship_budget)
+    print(f"gl512 device: {gl_out['n_conv']}/16 converged, max true eigen-residual "
+          f"{gl_out['max_true_residual']:.2e}, anchor devs "
+          f"{['%.1e' % d for d in gl_out['anchor_devs']]} within budgets "
+          f"{['%.1e' % b for b in gl_out['anchor_budgets']]}")
+    print(f"{tag} gl512 device solve: warm {t_warm:.3f} s (first {t_first:.3f} s); phase 13's "
+          f"host-path warm solve {host13['warm_s']:.3f} s")
+    check(gl_out["n_conv"] == 16, f"gl512 device: {gl_out['n_conv']}/16 converged")
+    check(c("qr_host_redos") == 0, "gl512 device: a check was redone on the host")
+    check(restarts["host"] == 0, f"gl512 device: host restarts {restarts}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the main path (gl512 device)")
+    out["gl512"] = dict(info=info, matvecs=meta.n_iter, host_matvecs=host13["matvecs"],
+                        stride=stride, checks=checks, host_reads=reads, restarts=restarts,
+                        qr_host_redos=c("qr_host_redos"), launches=launches, warm_s=t_warm,
+                        first_s=t_first, host_warm_s=host13["warm_s"], **gl_out)
+    del V
+
+    n = N_EIGHS
+    h = 1.0 / (n + 1)
+    lam_max = (2.0 / h**2) * (2.0 - 2.0 * np.cos(np.pi * n * h))
+    op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    x7 = seeded((n, n), torch.float32, dev, seed=7)
+    one = lt.EigsOptions(maxiter=1, **dev_opts)
+
+    def counted(fn):
+        lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+        lt.stencil_matvec_batched.LAUNCHES = 0
+        hess_ops.hessenberg_schur.LAUNCHES = 0
+        lt.timer.reset_counters()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(single=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES,
+                         batched=lt.stencil_matvec_batched.LAUNCHES,
+                         hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
+                         checks=c("ritz_checks"), host_reads=c("host_reads"),
+                         library_syncs=c("library_syncs"))
+
+    # (c) eigs_3072
+    (w, V, r, info, meta), k = counted(lambda: lt.eigs(op, 4, x0=x7, kdim=32, tolerance=0.0,
+                                                      options=one))
+    ref = np.array([complex(*z) for z in results["eigs_3072"]["ritz"]])
+    d = match_dist(w, ref) / lam_max
+    print(f"eigs_3072 device: {k['single']} stencil launches, {k['hessenberg_schur']} "
+          f"hessenberg_schur, {k['checks']} checks, {k['host_reads']} host reads "
+          f"({k['host_reads'] / max(k['checks'], 1):.2f} a check) for {meta.n_iter} steps; Ritz "
+          f"values {w}; against phase 15's max |dw| / lambda_max = {d:.3e}")
+    check(k["single"] == meta.n_iter == 32, f"eigs_3072 device: {k['single']} launches")
+    check(bool(torch.isfinite(V).all()) and d <= 1e-5, f"eigs_3072 device Ritz values off {d:.3e}")
+    out["eigs_3072"] = dict(launches=k, rel_diff=d)
+    del V
+
+    # (e) eighs_3072 and svds_3072
+    (w, V, r, info, meta), k = counted(lambda: lt.eighs(op, 4, x0=x7, kdim=32, tolerance=0.0,
+                                                       options=one))
+    d = float(np.abs(w - np.array(results["eighs_3072"]["ritz"])).max() / lam_max)
+    print(f"eighs_3072 device: {k['single']} stencil launches, {k['checks']} checks, "
+          f"{k['host_reads']} host reads and {k['library_syncs']} eigh syncs "
+          f"({(k['host_reads'] + k['library_syncs']) / max(k['checks'], 1):.2f} a check) for "
+          f"{meta.n_iter} steps; against phase 10's max |dw| / lambda_max = {d:.3e}")
+    check(k["single"] == meta.n_iter == 32 and d <= 1e-5, f"eighs_3072 device: {k}, {d:.3e}")
+    out["eighs_3072"] = dict(launches=k, rel_diff=d)
+    del V
+    u0 = seeded((n, n), torch.float32, dev, seed=16)
+    (U, S, V, r, info, meta), k = counted(lambda: lt.svds(
+        op, 4, u0=u0, kdim=32, tolerance=0.0, options=lt.SVDSOptions(maxiter=1, **dev_opts)))
+    sig = np.array(results["svds_3072"]["sigma"])
+    d = float(np.abs(S - sig).max() / sig[0])
+    print(f"svds_3072 device: {k['single']} stencil launches, {k['checks']} checks, "
+          f"{k['host_reads']} host reads and {k['library_syncs']} svd syncs for {meta.n_iter} "
+          f"steps; against phase 19's max |ds| / s_1 = {d:.3e}")
+    check(k["single"] == 64 and meta.n_iter == 32 and d <= 1e-5, f"svds_3072 device: {k}, {d:.3e}")
+    out["svds_3072"] = dict(launches=k, rel_diff=d)
+    del U, V
+
+    # (f) eigs_3072_block
+    (w, V, r, info, meta), k = counted(lambda: lt.eigs(op, 4, x0=x7, kdim=32, tolerance=0.0,
+                                                      blksize=2, options=one))
+    ref = np.array([complex(*z) for z in results["block_eigs"]["eigs_3072_block"]["ritz"]])
+    d = match_dist(w, ref) / lam_max
+    print(f"eigs_3072_block device: {k['batched']} batched and {k['single']} single stencil "
+          f"launches, {k['hessenberg_schur']} hessenberg_schur, {k['checks']} checks; against "
+          f"phase 29b's max |dw| / lambda_max = {d:.3e}")
+    check(k["batched"] == 16 and k["single"] == 0 and d <= 1e-5,
+          f"eigs_3072_block device: {k}, {d:.3e}")
+    out["eigs_3072_block"] = dict(launches=k, rel_diff=d)
+    del V
+    torch.cuda.empty_cache()
+
+    # (d) the non-normal eigs f64 through K3: IRAM restarts, then a custom
+    # selector through the device Schur restart
+    cd = lt.ConvectionDiffusion2D(64)
+    A = cd.dense().numpy()
+    op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
+    x14 = seeded((64 * 64,), torch.float64, dev, seed=14)
+
+    def true_res(w, V):
+        Vh = V.cpu().numpy()
+        return max(float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
+                   for i in range(len(w)))
+
+    for label, select in (("iram", None),
+                          ("custom", lambda v: np.abs(v) > np.median(np.abs(v)))):
+        lt.bell_spmv.LAUNCHES = 0
+        hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
+        lt.timer.reset_counters()
+        t0 = time.perf_counter()
+        w, V, r, info, meta = lt.eigs(op_b, 6, x0=x14, kdim=30, tolerance=1e-10, select=select,
+                                      options=lt.EigsOptions(maxiter=100, **dev_opts))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = true_res(w, V)
+        restarts = {k_: c(f"restarts.eigs.{k_}") for k_ in ("iram", "schur_device", "host")}
+        row = dict(info=info, matvecs=meta.n_iter, bell_spmv=lt.bell_spmv.LAUNCHES,
+                   hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
+                   francis_filter_sweeps=hess_ops.francis_filter_sweeps.LAUNCHES,
+                   restarts=restarts, ordschur_reads=c("ordschur_reads"), checks=c("ritz_checks"),
+                   max_true_residual=res, seconds=secs)
+        out[f"convdiff_{label}"] = row
+        print(f"{tag} eigs f64 ConvectionDiffusion2D(64) through Block-ELL, device, {label}: "
+              f"info={info}, {meta.n_iter} matvecs (phase 16: "
+              f"{results['eigs_nonnormal']['matvecs']}), {row['bell_spmv']} bell_spmv, restarts "
+              f"{restarts}, {row['ordschur_reads']} ordschur host reads, {row['checks']} checks, "
+              f"launches hessenberg_schur {row['hessenberg_schur']} francis_filter_sweeps "
+              f"{row['francis_filter_sweeps']}, max true residual / |lambda_1| "
+              f"{res / abs(w[0]):.3e}, {secs:.2f} s")
+        check(info == 6 and res <= 1e-8 * abs(w[0]), f"convdiff device {label}: {row}")
+        check(row["bell_spmv"] >= meta.n_iter, f"convdiff device {label}: bell_spmv launches")
+        check(restarts["iram" if select is None else "schur_device"] > 0,
+              f"convdiff device {label}: restarts {restarts}")
+    return out
+
+
 def main():
     results = {}
 
@@ -2205,6 +2637,15 @@ def main():
     # 32. the bandwidth probes' kernels and the probe path
     results["probes"] = probe_path(dev, tag)
 
+    # 33. the device projected path: the Francis-QR kernels against their
+    # plain versions, then gl512, eigs_3072, the non-normal eigs, eighs_3072,
+    # svds_3072 and eigs_3072_block under projected="device", then times
+    t33 = time.perf_counter()
+    results["hess_kernels"] = hessenberg_kernels(dev, tag)
+    results["device_path"] = device_projected_path(dev, tag, results)
+    results["hess_times"] = hessenberg_times(dev, tag)
+    print(f"phase 33: {time.perf_counter() - t33:.1f} s")
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -2309,6 +2750,41 @@ def main():
             "bound_by": "bytes",
             "library_ms": main_row["library_ms"],
             "by_case": probes["cases"][name],
+        })
+    hk, dp, ht = results["hess_kernels"], results["device_path"], results["hess_times"]
+    main_key = f"{MAIN_KDIM}_float32"
+    schur_main = [r for r in hk["schur"] if r["case"] == f"hess{MAIN_KDIM}"
+                  and r["dtype"] == "torch.float32"][0]
+    filter_main = [r for r in hk["filter"] if r["kdim"] == MAIN_KDIM
+                   and r["dtype"] == "torch.float32"][0]
+    for name, main_row, prefix, library in (
+            ("hessenberg_schur", schur_main, "schur", ht[main_key]["eigvals_ms"]),
+            ("francis_filter_sweeps", filter_main, "filter", None)):
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "lightkrylov_tpu_torch/csrc/hessenberg.cu",
+            "replaces": HESS_REPLACES[name],
+            "launches": dp["gl512"]["launches"][name],
+            "path_launches": {
+                "gl512_device": dp["gl512"]["launches"][name],
+                "convdiff_device_iram": dp["convdiff_iram"][name],
+                "convdiff_device_custom": dp["convdiff_custom"][name],
+                **({"eigs_3072_device": dp["eigs_3072"]["launches"]["hessenberg_schur"],
+                    "eigs_3072_block_device":
+                        dp["eigs_3072_block"]["launches"]["hessenberg_schur"]}
+                   if name == "hessenberg_schur" else {})},
+            "max_abs_err": main_row["max_abs_err"],
+            "main_case": f"kdim {MAIN_KDIM} f32",
+            "ms": ht[main_key][f"{prefix}_ms"],
+            "plain_ms": ht[main_key][f"{prefix}_plain_ms"],
+            "bound_ms": ht[main_key]["bound_ms" if prefix == "schur" else "filter_bound_ms"],
+            "bound_by": ht[main_key]["bound_by" if prefix == "schur" else "filter_bound_by"],
+            "library_ms": library,
+            "by_case": {case: {k: v for k, v in row.items()
+                               if k.startswith("filter") == (prefix == "filter")
+                               or k in ("host_read_eig_ms", "eigvals_ms")}
+                        for case, row in ht.items()},
         })
     print(json.dumps(kernels))
     print(gpu)

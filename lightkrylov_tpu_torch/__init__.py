@@ -3,9 +3,12 @@ and CUDA.
 
 A port of the JAX package's vector and operator layers, CGS2 and DCGS2
 orthogonalization, QR, ``gmres``/``fgmres``/``cg``, Lanczos and ``eighs``
-(host projected path, thick restart), Arnoldi and ``eigs`` (host projected
-path, Krylov-Schur restart), Golub-Kahan and ``svds`` (host projected path,
-thick restart), checkpoints of the three eigensolvers, ``kexpm``, nonlinear systems and
+(thick restart), Arnoldi and ``eigs`` (Krylov-Schur and exact-shift IRAM
+restarts, block mode), Golub-Kahan and ``svds`` (thick restart), each with
+the host and the device projected path (``projected="device"``: the
+projected eigensolve checked on the device, through the hand-written
+Francis-QR kernel ``csrc/hessenberg.cu`` on a card), checkpoints of the
+three eigensolvers, ``kexpm``, nonlinear systems and
 Newton-Krylov, the Poisson, convection-diffusion, Toeplitz, Ginzburg-Landau
 and Roessler models with OTD modes, and two operators whose matvec on a
 CUDA tensor is a hand-written CUDA kernel, built for Hopper ``sm_90a`` on

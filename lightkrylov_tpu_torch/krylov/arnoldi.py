@@ -75,13 +75,39 @@ def initialize_arnoldi_block(x0, kdim: int, p: int, generator=None):
     return X, H
 
 
-def arnoldi_step(A, X, H, k: int, transpose: bool = False, tol: float = 0.0):
+def _step_at(A, X, H, k, transpose, tol):
+    """:func:`arnoldi_step` at a step index ``k`` held in a 0-d integer
+    tensor on the device, with no host read: the columns are gathered and
+    written by index, and the CGS2 projection runs against the whole buffer,
+    whose columns past ``k`` are exactly zero and add exactly zero
+    coefficients (the buffer invariant)."""
+    k = k.reshape(1).long()
+    xk = pytree.tree_map(lambda l: l.index_select(0, k)[0], X)
+    v = A.rmatvec(xk) if transpose else A.matvec(xk)
+    v, proj = double_gram_schmidt_step(v, X)
+    beta = vectors.norm(v)
+    ok = beta > tol
+    inv = torch.where(ok, 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta),
+                      torch.zeros_like(beta))
+    v = vectors.scal(inv, v)
+    pytree.tree_map(lambda Xl, vl: Xl.index_copy_(0, k + 1, vl.unsqueeze(0)), X, v)
+    col = proj.to(H.dtype).clone()
+    col.index_copy_(0, k + 1, torch.where(ok, beta, torch.zeros_like(beta)).to(H.dtype).reshape(1))
+    H.index_copy_(1, k, col.reshape(-1, 1))
+    return X, H, beta
+
+
+def arnoldi_step(A, X, H, k, transpose: bool = False, tol: float = 0.0):
     """One Arnoldi step: extend a k-column factorization to k+1 (0-based
     ``k``; column ``k`` of ``X`` is filled).  Writes ``H[:, k]`` (the CGS2
     coefficients and ``H[k+1, k] = beta``) and column ``k+1`` of ``X`` (the
     next unit vector, zero on breakdown) in place and returns
     ``(X, H, beta)``, ``beta`` a 0-d real tensor (reference:
-    arnoldi.fypp:34-73 for p = 1)."""
+    arnoldi.fypp:34-73 for p = 1).  ``k`` may be a 0-d integer tensor on the
+    device, as a device restart leaves it; the step then projects against
+    the whole buffer."""
+    if isinstance(k, torch.Tensor):
+        return _step_at(A, X, H, k, transpose, tol)
     xk = vectors.get_column(X, k)
     v = A.rmatvec(xk) if transpose else A.matvec(xk)
     v, proj = double_gram_schmidt_step(v, vectors.lead(X, k + 1))

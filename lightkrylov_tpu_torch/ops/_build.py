@@ -22,7 +22,8 @@ from pathlib import Path
 __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "BUILD_DIR", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu")
+SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu",
+           _PKG / "csrc" / "hessenberg.cu")
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -156,6 +157,14 @@ def load() -> ctypes.CDLL:
         for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_copy_ring_ctas_per_sm",
                      "lk_reduce_8x128_f32"):
             getattr(lib, name).restype = ctypes.c_int
+        for name in ("lk_hessenberg_schur_f32", "lk_hessenberg_schur_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ("lk_francis_sweeps_f32", "lk_francis_sweeps_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p
         _lib = lib

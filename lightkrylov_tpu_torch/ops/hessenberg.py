@@ -1,0 +1,158 @@
+"""The projected Hessenberg eigensolve through the hand-written CUDA kernels.
+
+The JAX package computes its device projected path
+(:mod:`lightkrylov_tpu.utils.hessenberg`) outside Pallas: ``jax.jit``
+compiles the Francis iteration's ``while_loop`` and its chases into one
+program.  A line-by-line PyTorch translation would read the device at every
+loop test and launch a dozen small kernels a chase step, so here the whole
+iteration is one CTA of ``csrc/hessenberg.cu`` that keeps the matrix on
+chip:
+
+- :func:`hessenberg_schur` embeds the active ``k_eff x k_eff`` block
+  (``k_eff`` read by the kernel from device memory), reduces it to
+  Hessenberg form, runs the Francis sweeps to quasi-triangular form
+  (optionally accumulating ``Z`` and splitting real-pair 2x2 blocks) and
+  extracts the eigenvalues: ``_embed``, ``_to_hessenberg``, ``_schur_core``,
+  ``_split_real_blocks`` and ``_extract_eigvals`` of the JAX module;
+- :func:`francis_filter_sweeps` applies the ``kdim // 2`` sweeps of
+  ``francis_filter`` (its ``hessenberg.py:687-714``) for a given shift
+  order, keep count and ``pure`` flag, all read from device memory.
+
+For a CUDA tensor a wrapper launches its kernel or raises: a failed build
+(:class:`._build.KernelCompileError`), a refused launch or an unsupported
+tensor is an error, never a quiet switch to another path.  For a CPU tensor
+it runs the plain version, :func:`hessenberg_schur_reference` or
+:func:`francis_filter_sweeps_reference`, built from the pieces of
+:mod:`..utils.hessenberg`.  Each wrapper counts its launches in its
+``LAUNCHES`` attribute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import hessenberg as _plain
+from . import _build
+
+__all__ = ["francis_filter_sweeps", "francis_filter_sweeps_reference", "hessenberg_schur",
+           "hessenberg_schur_reference"]
+
+_NAMES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def hessenberg_schur_reference(H, k_eff=None, with_z: bool = False, split: bool = False):
+    """Plain PyTorch version of :func:`hessenberg_schur`, on ``H``'s
+    device."""
+    k = H.shape[0] if k_eff is None else k_eff
+    return _plain._schur_plain(H, k, with_z, split)
+
+
+def francis_filter_sweeps_reference(H, wr, wi, shift_order, n_keep, pure):
+    """Plain PyTorch version of :func:`francis_filter_sweeps`."""
+    return _plain._sweeps_plain(H, wr, wi, shift_order, n_keep, pure)
+
+
+def _check(H, what):
+    if H.device.type != "cuda":
+        raise ValueError(f"{what} kernel: expected a CUDA tensor, got {H.device}")
+    if H.dtype not in _NAMES:
+        raise TypeError(f"{what} kernel: dtype {H.dtype} not supported (float32 or float64)")
+    if H.ndim != 2 or H.shape[0] != H.shape[1] or H.shape[0] == 0:
+        raise ValueError(f"{what} kernel: expected a non-empty square matrix, "
+                         f"got shape {tuple(H.shape)}")
+
+
+def _int32_scalar(v, n, device):
+    if v is None:
+        return torch.full((), n, dtype=torch.int32, device=device)
+    if isinstance(v, torch.Tensor):
+        if v.device != device:
+            raise ValueError(f"expected a scalar on {device}, got {v.device}")
+        return v.reshape(()).to(torch.int32).contiguous()
+    return torch.full((), int(v), dtype=torch.int32, device=device)
+
+
+def _raise_on(err, lib, what):
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({lib.lk_error_string(err).decode()})")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def hessenberg_schur(H, k_eff=None, with_z: bool = False, split: bool = False):
+    """The Schur core of the square real matrix ``H`` on its active
+    ``k_eff x k_eff`` block -> ``(T, Z, wr, wi, accepted, ok, sweeps)``:
+    ``T`` quasi-triangular, ``Z`` the accumulated transform (``None`` unless
+    ``with_z``; ``H_embedded = Z T Z^T``), the eigenvalues aligned with
+    ``T``'s diagonal (0 at inactive positions), ``accepted`` the terminal
+    2x2 blocks (bool, ``n - 1``), ``ok`` (0-d bool) False if the budget of
+    30 n sweeps ran out, ``work`` (int32) the passes made and the chase
+    steps they took, ``[sweeps, steps]``.  With
+    ``split`` every remaining 2x2 block is a conjugate pair.  ``k_eff`` is
+    an int, a 0-d tensor on ``H``'s device, or ``None`` (all of ``H``).
+    One launch on a CUDA tensor."""
+    if H.device.type == "cpu":
+        return hessenberg_schur_reference(H, k_eff, with_z, split)
+    _check(H, "hessenberg_schur")
+    n = H.shape[0]
+    dev = H.device
+    H = H.contiguous()
+    keff = _int32_scalar(k_eff, n, dev)
+    T = torch.empty_like(H)
+    Z = torch.empty_like(H) if with_z else None
+    wr = torch.empty(n, dtype=H.dtype, device=dev)
+    wi = torch.empty(n, dtype=H.dtype, device=dev)
+    acc = torch.empty(max(n - 1, 0), dtype=torch.int32, device=dev)
+    status = torch.empty(3, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    err = getattr(lib, f"lk_hessenberg_schur_{_NAMES[H.dtype]}")(
+        H.data_ptr(), T.data_ptr(), Z.data_ptr() if with_z else None, wr.data_ptr(),
+        wi.data_ptr(), acc.data_ptr() if n > 1 else None, status.data_ptr(), keff.data_ptr(),
+        n, int(with_z), int(split), _stream(dev))
+    _raise_on(err, lib, "hessenberg_schur")
+    hessenberg_schur.LAUNCHES += 1
+    return T, Z, wr, wi, acc.bool(), status[0].bool(), status[1:]
+
+
+def francis_filter_sweeps(H, wr, wi, shift_order, n_keep, pure):
+    """The sweeps of :func:`..utils.hessenberg.francis_filter` ->
+    ``(Hf, Z, work)``: sweep ``j`` deflates explicitly and, while
+    ``2 j + 1 < kdim - n_keep``, ``pure`` holds and the top-connected block
+    reaches row 2, chases that block with the shifts
+    ``shift_order[2j], shift_order[2j+1]`` of ``(wr, wi)``, accumulating
+    ``Hf = Z^T H Z``; ``work`` (int32) counts the sweeps that chased and
+    their chase steps, ``[sweeps, steps]``.
+    ``n_keep`` and ``pure`` are ints/bools or 0-d tensors on ``H``'s device.
+    One launch on a CUDA tensor."""
+    if H.device.type == "cpu":
+        return francis_filter_sweeps_reference(H, wr, wi, shift_order, n_keep, pure)
+    _check(H, "francis_filter_sweeps")
+    n = H.shape[0]
+    dev = H.device
+    H = H.contiguous()
+    wr = wr.to(H.dtype).contiguous()
+    wi = wi.to(H.dtype).contiguous()
+    order = shift_order.to(torch.int32).contiguous()
+    nk = _int32_scalar(n_keep, n, dev)
+    pu = _int32_scalar(pure, n, dev)
+    for t, name in ((wr, "wr"), (wi, "wi"), (order, "shift_order")):
+        if t.device != dev or t.shape != (n,):
+            raise ValueError(f"francis_filter_sweeps kernel: {name} must have shape ({n},) "
+                             f"on {dev}, got {tuple(t.shape)} on {t.device}")
+    Hf = torch.empty_like(H)
+    Z = torch.empty_like(H)
+    status = torch.empty(2, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    err = getattr(lib, f"lk_francis_sweeps_{_NAMES[H.dtype]}")(
+        H.data_ptr(), Hf.data_ptr(), Z.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+        order.data_ptr(), nk.data_ptr(), pu.data_ptr(), status.data_ptr(), n, _stream(dev))
+    _raise_on(err, lib, "francis_filter_sweeps")
+    francis_filter_sweeps.LAUNCHES += 1
+    return Hf, Z, status
+
+
+hessenberg_schur.LAUNCHES = 0
+francis_filter_sweeps.LAUNCHES = 0

@@ -16,31 +16,38 @@ and the bidiagonalization goes on from column ``n+1``.  The general
 lives in the codomain of ``A`` and ``V`` in its domain, so rectangular
 operators work.
 
-Only the JAX package's host projected path is ported (its
-``svds.py:227-290``): each check reads ``B`` to the host for one numpy SVD.
-Checks come every ``check_every`` steps, or once per sweep of ``kdim`` steps
-by default.  Left out with the device projected path, still to port (ROADMAP
-M10): the fused on-device sweep (``_fused_bidiag_sweep``), the device
-restart (``_svds_thick_restart_device``), the adaptive check cadence
-(``_AdaptiveStride``) and the final float64 recheck, which runs only after
-the device path (``svds.py:63-125,184-226,292-314``).  ``projected="device"``
-raises.  Checkpoints write and restore ``(U, V, B, kstart, cycle, niter)``
-at sweep and restart boundaries (see :mod:`.eigs`).
+With ``options.projected = "host"`` (or ``"auto"``) each check reads ``B``
+to the host for one numpy SVD (the JAX package's ``svds.py:227-290``);
+checks come every ``check_every`` steps, or once per sweep of ``kdim``
+steps by default.  With ``"device"`` (real dtypes) the sweep checks on the
+device (:func:`_fused_bidiag_sweep`, the JAX package's
+``svds.py:44-100``): a ``torch.linalg.svd`` of the zero-padded projected
+matrix at the adaptive cadence of :class:`.eigs._AdaptiveStride`, one
+batched read a cycle besides the step's breakdown flag, the thick restart
+on the device (:func:`_svds_thick_restart_device`) and the final float64
+host recheck.  On a CUDA tensor ``torch.linalg.svd`` waits for the device
+to check its result: each such check is counted under ``"library_syncs"``.
+Checkpoints write and restore ``(U, V, B, kstart, cycle, niter)`` at sweep
+and restart boundaries (see :mod:`.eigs`).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from .. import constants, vectors
-from ..krylov.bidiag import bidiagonalization, initialize_bidiag
+from ..krylov.bidiag import bidiag_step, bidiagonalization, initialize_bidiag
 from ..linops import aslinop
+from ..utils.hessenberg import take_at
 from ..utils.logger import check_info, log_information, log_warning
-from ..utils.options import SVDSOptions, SolverMetadata, check_host_projected
-from ..utils.timer import count_applications, host_read, timed_fn
-from .eigs import _DriverCheckpointer, _solver_state, _resume_driver_state
+from ..utils.options import SVDSOptions, SolverMetadata, check_projected
+from ..utils.timer import count_applications, count_event, host_read, timed_fn
+from .eigs import (_AdaptiveStride, _DriverCheckpointer, _device_projected, _read,
+                   _resume_driver_state, _solver_state)
 
 __all__ = ["svds"]
 
@@ -72,6 +79,89 @@ def _thick_restart(U, V, svals, umat, vmat, beta, n: int):
     return U_new, V_new, torch.from_numpy(B).to(dev)
 
 
+def _ritz_check_svd(B, k_eff, tol, nsv):
+    """The svds check on the device (svd_solvers.fypp:80-102; the JAX
+    package's ``svds.py:44-60``): the SVD of the zero-padded active block
+    (its padding's singular values are 0 and sort last), the residuals
+    ``|beta vm_last|``, ``+inf`` at inactive slots, and the converged count
+    among the leading ``nsv``.  Returns ``(s, res, um, vm, n_conv)``."""
+    kdim = B.shape[1]
+    dev, dt = B.device, B.dtype
+    idx = torch.arange(kdim, device=dev)
+    active = idx < k_eff
+    Bk = torch.where(active[:, None] & active[None, :], B[:kdim, :kdim],
+                     torch.zeros((), dtype=dt, device=dev))
+    um, s, vmh = torch.linalg.svd(Bk)  # descending
+    if B.device.type == "cuda":
+        count_event("library_syncs")  # svd reads its error flag to the host
+    vm = vmh.T
+    km1 = torch.clamp(k_eff - 1, min=0)
+    beta = torch.abs(take_at(B, k_eff * kdim + km1))
+    r = beta * torch.abs(vm.index_select(0, km1.reshape(1))[0])  # (:93)
+    res = torch.where(active, r, torch.full((), float("inf"), dtype=dt, device=dev))
+    n_conv = torch.sum(torch.where(idx < nsv, res, float("inf")) < tol).to(torch.int32)
+    return s, res, um, vm, n_conv
+
+
+def _fused_bidiag_sweep(A, U, V, B, kstart: int, kend: int, nsv, tol, btol, stride):
+    """One Golub-Kahan sweep with on-device checks (the JAX package's
+    ``_fused_bidiag_sweep``, ``svds.py:63-100``), with one host read a step
+    (the breakdown flag, with a check's converged count) and none after the
+    last.  Returns ``(U, V, B, k_fin, info, n_conv, s, res, um, vm)``."""
+    kdim = B.shape[1]
+    dev, dt = B.device, B.dtype
+    chk = (torch.zeros(kdim, dtype=dt, device=dev),
+           torch.full((kdim,), float("inf"), dtype=dt, device=dev),
+           torch.zeros((kdim, kdim), dtype=dt, device=dev),
+           torch.zeros((kdim, kdim), dtype=dt, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    k = kstart - 1
+    while True:
+        U, V, B, alpha, beta = bidiag_step(A, U, V, B, k, tol=btol)
+        info = torch.where((alpha <= btol) | (beta <= btol), k + 1, 0)
+        info = torch.where(torch.isnan(alpha) | torch.isnan(beta), -(k + 1), info)
+        info = info.to(torch.int32)
+        k_eff = torch.where(info > 0, info, k + 1)
+        check = (k + 1 - kstart) % stride == 0 or k + 1 >= kend
+
+        def ritz_check():
+            count_event("ritz_checks")
+            s, res, um, vm, n_conv = _ritz_check_svd(B, k_eff, tol, nsv)
+            return s, res, um, vm, torch.where(info < 0, 0, n_conv).to(torch.int32)
+
+        if check:
+            chk = ritz_check()
+        if k + 1 >= kend:
+            break
+        vals = _read(info, chk[4]) if check else _read(info)
+        if int(vals[0]) != 0:
+            if not check:
+                chk = ritz_check()
+            break
+        if check and int(vals[1]) >= nsv:
+            break
+        k += 1
+    return (U, V, B, k + 1, info, chk[4]) + chk[:4]
+
+
+def _svds_thick_restart_device(U, V, B, s, um, vm, n: int):
+    """The thick restart from the device check's outputs, on the device
+    (the JAX package's ``svds.py:103-125``).  Returns new ``(U, V, B)``."""
+    kdim = B.shape[1]
+    dev, dt = B.device, B.dtype
+    idx = torch.arange(kdim, device=dev)
+    keep = idx < n
+    zero = torch.zeros((), dtype=dt, device=dev)
+    Uc = vectors.linear_combination(vectors.lead(U, kdim), torch.where(keep[None, :], um, zero))
+    Vc = vectors.linear_combination(V, torch.where(keep[None, :], vm, zero))
+    U_new = pytree.tree_map(lambda c, full: torch.cat([c, torch.zeros_like(full[:1])]), Uc, U)
+    vectors.set_column(U_new, n, vectors.get_column(U, kdim))
+    B_new = torch.zeros_like(B)
+    B_new[idx, idx] = torch.where(keep, s, zero)
+    B_new[n, :] = torch.where(keep, B[kdim, kdim - 1] * vm[kdim - 1, :], zero)
+    return U_new, Vc, B_new
+
+
 @timed_fn("svds", "IterativeSolvers")
 def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
          tolerance: float | None = None, options: SVDSOptions | None = None,
@@ -97,7 +187,7 @@ def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
     restart boundaries, as in :func:`.eigs.eigs`."""
     A = aslinop(A)
     opts = options or SVDSOptions()
-    check_host_projected("svds", opts)
+    check_projected("svds", opts)
     if kdim is None:
         kdim = opts.kdim or 4 * nsv
     if u0 is None:
@@ -130,7 +220,46 @@ def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
     res_history = []
     invariant = False
     n_conv = 0
-    for cycle in range(cycle0, opts.maxiter):
+    use_device = _device_projected(opts, dt)
+    svecs_device = None  # (um, vm) on the device when the device path checked last
+    btol = constants.atol(rdt)
+    adapt = _AdaptiveStride(kdim, "svds") if use_device and not check_every else None
+    device_cycles, host_cycles = ((range(cycle0, opts.maxiter), ()) if use_device
+                                  else ((), range(cycle0, opts.maxiter)))
+    for cycle in device_cycles:
+        dstride = check_every if check_every else adapt.next_stride()
+        t0 = time.perf_counter()
+        U, V, B, k_fin, info_d, nconv_d, s_d, res_d, um_d, vm_d = _fused_bidiag_sweep(
+            A, U, V, B, kstart, kdim, nsv, tol, btol, dstride)
+        out = _read(info_d, nconv_d, s_d, res_d)
+        binfo, n_conv = int(out[0]), int(out[1])
+        s_h, r_all = out[2:2 + kdim].astype(rdt), out[2 + kdim:].astype(rdt)
+        if adapt is not None:
+            adapt.record(time.perf_counter() - t0, k_fin - (kstart - 1), dstride)
+        check_info(binfo, "bidiagonalization", "solvers", "svds")
+        k_eff = binfo if binfo > 0 else k_fin
+        count_applications(A, k_fin - (kstart - 1), "matvec")
+        count_applications(A, k_fin - (kstart - 1), "rmatvec")
+        niter += k_fin - (kstart - 1)
+        if binfo > 0:
+            invariant = True  # residuals exactly zero (beta = 0)
+        r = r_all[:k_eff]
+        res_history.append(r[: min(nsv, len(r))].copy())
+        svals, res, k_final = s_h[:k_eff], r, k_eff
+        umat = vmat = None
+        svecs_device = (um_d, vm_d)
+        ckpt.check()
+        if n_conv >= nsv or invariant:
+            break
+        if cycle < opts.maxiter - 1 and k_final == kdim:
+            n = min(max(nsv + (kdim - nsv) // 2, nsv + 1), kdim - 1)
+            U, V, B = _svds_thick_restart_device(U, V, B, s_d, um_d, vm_d, n)
+            kstart = n + 1
+            count_event("restarts.svds.thick_device")
+            ckpt.save(_solver_state({"U": U, "V": V, "B": B}, kstart, cycle + 1, niter))
+            log_information(f"svds: thick restart cycle {cycle + 1}, kept n={n}, "
+                            f"{n_conv}/{nsv} converged", "solvers", "svds")
+    for cycle in host_cycles:
         k = kstart
         while k <= kdim:
             kend = min(kdim, k + stride - 1)
@@ -169,6 +298,23 @@ def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
             log_information(f"svds: thick restart cycle {cycle + 1}, kept n={n}, "
                             f"{n_conv}/{nsv} converged", "solvers", "svds")
 
+    if n_conv < nsv and not invariant and umat is None and svecs_device is not None:
+        # the device path's final float64 recheck (the JAX package's
+        # svds.py:292-314): the working-dtype SVD floors the residuals near
+        # eps * sigma_max; a float64 SVD of the same stored B settles them
+        Bh = host_read(B).astype(np.float64)
+        if k_final > 0:
+            um, s, vmh = np.linalg.svd(Bh[:k_final, :k_final])
+            vm = vmh.T
+            r = abs(Bh[k_final, k_final - 1]) * np.abs(vm[-1, :])
+            n_conv2 = int(np.sum(r[:nsv] < tol))
+            if n_conv2 > n_conv:
+                log_information(f"svds: final f64 host recheck sharpened the converged count "
+                                f"{n_conv} -> {n_conv2}", "solvers", "svds")
+                svals, umat, vmat, res, svecs_device = s, um, vm, r, None
+                n_conv = n_conv2
+                res_history.append(r[: min(nsv, len(r))].copy())
+
     converged = n_conv >= nsv or invariant
     if not converged:
         log_warning(f"svds: only {n_conv}/{nsv} triplets converged after {opts.maxiter} "
@@ -176,8 +322,15 @@ def svds(A, nsv: int, u0=None, v_template=None, kdim: int | None = None,
 
     nsv_out = min(nsv, len(svals))
     dev = B.device
-    Usv = vectors.linear_combination(U, _coeffs(umat[:, :nsv_out], kdim + 1, dt, dev))
-    Vsv = vectors.linear_combination(V, _coeffs(vmat[:, :nsv_out], kdim, dt, dev))
+    if umat is None and svecs_device is not None:
+        um_d, vm_d = svecs_device
+        cu = torch.zeros((kdim + 1, nsv_out), dtype=dt, device=dev)
+        cu[:kdim] = um_d[:, :nsv_out].to(dt)
+        Usv = vectors.linear_combination(U, cu)
+        Vsv = vectors.linear_combination(V, vm_d[:, :nsv_out].to(dt))
+    else:
+        Usv = vectors.linear_combination(U, _coeffs(umat[:, :nsv_out], kdim + 1, dt, dev))
+        Vsv = vectors.linear_combination(V, _coeffs(vmat[:, :nsv_out], kdim, dt, dev))
 
     info = n_conv if converged else -n_conv
     meta = SolverMetadata(

@@ -1,0 +1,704 @@
+"""The real-Hessenberg projected eigensolve on the device: Francis
+double-shift QR, the real Schur form and its reordering, the exact-shift
+IRAM filter, inverse-iteration eigenvectors and the fused Ritz check.
+
+Counterpart of :mod:`lightkrylov_tpu.utils.hessenberg` (reference: the
+projected ``eig`` of ``H(:k,:k)`` each Arnoldi step,
+src/IterativeSolvers/IterativeSolvers.fypp:1065, and the Ritz residuals of
+:1069-1083), with the same functions, names and ``__all__``:
+
+- :func:`hessenberg_eigvals`: ``dhseqr``-style Francis double-shift QR with
+  deflation, 2x2-block acceptance and exceptional shifts, all in real
+  arithmetic (complex pairs live in accepted 2x2 diagonal blocks);
+- :func:`schur_real`: the same with the accumulated transform and the
+  standardization of real-pair 2x2 blocks (``dlanv2``'s role), ``H = Z T Z^T``;
+- :func:`ordschur_device`: LAPACK TRSEN/dtrexc's reordering by adjacent
+  orthogonal block swaps (Bai and Demmel's direct swap);
+- :func:`francis_filter`: the exact-shift IRAM filter of a Krylov restart;
+- :func:`hessenberg_eigvecs`: ``dhsein``-style eigenvectors, one inverse
+  iteration per eigenvalue on the realified ``2n x 2n`` systems, batched;
+- :func:`hessenberg_ritz`: the Ritz values, residuals, modulus-descending
+  order and converged count of one ``eigs`` check (``p = 1``, and the block
+  residual for ``p > 1``).
+
+The active ``k_eff x k_eff`` problem is embedded in the static buffer by
+zeroing the rest and planting separated dummy diagonal entries
+(``> 2 ||H||``), pre-deflated 1x1 blocks that are masked out afterwards, so
+``k_eff`` may be a 0-d tensor on the device and never cross to the host.
+
+The Schur core (embedding, Householder reduction to Hessenberg form, the
+Francis sweeps, the block split, the eigenvalue extraction) and the filter's
+sweeps run through :mod:`..ops.hessenberg`: on a CUDA tensor one launch of
+the hand-written kernel of ``csrc/hessenberg.cu`` each, on a CPU tensor the
+plain versions below, whose data-dependent loops are Python loops reading
+the few scalars they branch on.  The arithmetic follows the JAX package's
+order: each chase step applies its 3-row and 3-column updates over the full
+slices and sets the annihilated bulge entries to exactly zero.  What stays
+plain torch on the device: the shift bookkeeping of the filter, the batched
+inverse iteration (``torch.linalg.solve_ex``, which checks no error on the
+host), the stable sorts, and :func:`ordschur_device`, which reads one
+packed vector to the host a block swap (counted by
+:func:`..utils.timer.host_read`).
+
+Real dtypes only, as in the JAX package: a complex input raises
+``TypeError`` (complex projected problems take the host path).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .timer import count_event, host_read
+
+__all__ = ["francis_filter", "hessenberg_eigvals", "hessenberg_eigvecs",
+           "hessenberg_ritz", "ordschur_device", "schur_real"]
+
+
+def _real_only(H, name):
+    if H.is_complex():
+        raise TypeError(f"{name} is real-only; complex projected problems take the host "
+                        "LAPACK path")
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def take_at(x, i):
+    """The entry of ``x`` at the flat index ``i`` (a 0-d integer tensor on
+    ``x``'s device), gathered on the device with no host read."""
+    return x.reshape(-1).index_select(0, i.reshape(1).long()).reshape(())
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _stable_argsort(x):
+    return torch.argsort(x, stable=True)
+
+
+def _lexsort(keys):
+    """``numpy.lexsort``/``jnp.lexsort`` on the device: the last key is the
+    primary one; successive stable argsorts, least significant first."""
+    order = _stable_argsort(keys[0])
+    for k in keys[1:]:
+        order = order.index_select(0, _stable_argsort(k.index_select(0, order)))
+    return order
+
+
+# -- the plain versions of the kernel's pieces ---------------------------------
+
+def _householder3(x, y, z):
+    """3-element Householder ``P = I - 2 v v^T / (v^T v)`` annihilating
+    ``(y, z)`` in ``(x, y, z)`` (numpy scalars of the working dtype, so the
+    arithmetic is the dtype's); identity when the vector already is
+    ``(x, 0, 0)``."""
+    dt = x.dtype.type
+    s = np.sqrt(x * x + y * y + z * z)
+    alpha = -(s if x >= 0 else -s)
+    v0 = x - alpha
+    vnorm2 = v0 * v0 + y * y + z * z
+    inv = dt(2.0) / vnorm2 if vnorm2 > 0 else dt(0.0)
+    one, zero = dt(1.0), dt(0.0)
+    v = (v0, y, z)
+    return np.array([[(one if r == c else zero) - inv * (v[r] * v[c]) for c in range(3)]
+                     for r in range(3)], dtype=x.dtype)
+
+
+def _chase(H, lo, hi, s, t, Z=None):
+    """One Francis double-implicit-shift bulge chase on the window
+    ``[lo, hi]`` (0-indexed, inclusive, size >= 3) with shift sum ``s`` and
+    product ``t`` (Golub and Van Loan Alg. 7.5.1-7.5.2), in place on ``H``
+    (and ``Z <- Z Q``).  Row and column updates apply to the full slices;
+    the annihilated bulge entries are set to exactly zero.  Returns the
+    number of chase steps."""
+    n = H.shape[0]
+    if n < 3:
+        return 0
+    dt = H.dtype
+    h = _np(H[lo:lo + 3, lo:lo + 2])
+    h00, h01, h10, h11, h21 = h[0, 0], h[0, 1], h[1, 0], h[1, 1], h[2, 1]
+    x0 = h00 * h00 + h01 * h10 - s * h00 + t
+    y0 = h10 * (h00 + h11 - s)
+    z0 = h10 * h21
+    p = min(max(lo, 0), n - 3)
+    while p <= hi - 2:
+        first = p == lo
+        x, y, z = (x0, y0, z0) if first else _np(H[p:p + 3, p - 1])
+        P = torch.from_numpy(_householder3(x, y, z)).to(H.device, dt)
+        H[p:p + 3, :] = P @ H[p:p + 3, :]
+        H[:, p:p + 3] = H[:, p:p + 3] @ P
+        if Z is not None:
+            Z[:, p:p + 3] = Z[:, p:p + 3] @ P
+        if not first:
+            H[p + 1:p + 3, p - 1] = 0.0
+        p += 1
+    x, y = _np(H[hi - 1:hi + 1, hi - 2])
+    r = np.sqrt(x * x + y * y)
+    c, sn = (x / r, y / r) if r > 0 else (x.dtype.type(1.0), x.dtype.type(0.0))
+    G = torch.from_numpy(np.array([[c, sn], [-sn, c]])).to(H.device, dt)
+    H[hi - 1:hi + 1, :] = G @ H[hi - 1:hi + 1, :]
+    H[:, hi - 1:hi + 1] = H[:, hi - 1:hi + 1] @ G.T
+    if Z is not None:
+        Z[:, hi - 1:hi + 1] = Z[:, hi - 1:hi + 1] @ G.T
+    H[hi, hi - 2] = 0.0
+    return hi - lo - 1
+
+
+def _embed(H, k_eff):
+    """Zero the inactive block of the buffer and plant separated dummy
+    diagonal entries there (pre-deflated 1x1 blocks).  ``k_eff`` is an int
+    or a 0-d tensor; returns ``(Hm, active)``."""
+    n = H.shape[0]
+    idx = torch.arange(n, device=H.device)
+    active = idx < k_eff
+    Hm = torch.where(active[:, None] & active[None, :], H, torch.zeros((), dtype=H.dtype,
+                                                                      device=H.device))
+    norm = torch.max(torch.abs(Hm)) + 1.0
+    dummy = norm * (2.0 + idx.to(H.dtype) / n)
+    diag = torch.where(active, torch.diagonal(Hm), dummy)
+    Hm = Hm.clone()
+    Hm[idx, idx] = diag
+    return Hm, active
+
+
+def _to_hessenberg(H, Z=None):
+    """Householder similarity reduction to upper Hessenberg form (GEHRD's
+    role), one vectorized reflector a column; with ``Z``, also ``Z <- Z Q``.
+    Returns ``(H, Z)``."""
+    n = H.shape[0]
+    if n < 3:
+        return H, Z
+    rows = torch.arange(n, device=H.device)
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    for j in range(n - 2):
+        below = rows > j
+        x = torch.where(below, H[:, j], zero)
+        s = torch.sqrt(torch.sum(x * x))
+        x0 = H[j + 1, j]
+        alpha = -torch.where(x0 >= 0, s, -s)
+        u = x - alpha * (rows == j + 1).to(H.dtype)
+        un2 = torch.sum(u * u)
+        safe = un2 > 0
+        inv = torch.where(safe, 2.0 / torch.where(safe, un2, torch.ones_like(un2)), zero)
+        H = H - inv * torch.outer(u, u @ H)
+        H = H - inv * torch.outer(H @ u, u)
+        if Z is not None:
+            Z = Z - inv * torch.outer(Z @ u, u)
+        keep = ~below | (rows == j + 1)
+        H[:, j] = torch.where(keep, H[:, j], zero)
+    return H, Z
+
+
+def _schur_core(H, Z=None):
+    """Francis sweeps to quasi-triangular form, in place: LAPACK
+    ``dlahqr``-style deflation with the zero-neighbour safeguard, the
+    trailing 2x2 Wilkinson double shift, an exceptional shift every 10
+    stalled sweeps, and a budget of 30 n sweeps.  Returns
+    ``(H, Z, accepted, ok, work)``: ``accepted[i]`` marks a terminal 2x2
+    block on rows ``(i, i+1)`` (a bool tensor), ``ok`` is False only if the
+    budget ran out, ``work`` the passes made and their chase steps."""
+    n = H.shape[0]
+    dev = H.device
+    if n < 2:
+        return H, Z, torch.zeros(0, dtype=torch.bool, device=dev), True, (0, 0)
+    eps = torch.finfo(H.dtype).eps
+    ii = np.arange(n - 1)
+    accepted = np.zeros(n - 1, bool)
+    last_hi, stall, sweeps, steps = -1, 0, 0, 0
+    max_sweeps = 30 * n
+    while True:
+        band = _np(torch.stack([torch.diagonal(H), torch.cat([torch.diagonal(H, -1),
+                                                             H[:1, 0]])]))
+        d, sub = np.abs(band[0]), band[1, :-1].copy()
+        if not (np.any((sub != 0) & ~accepted) and sweeps < max_sweeps):
+            break
+        tst = d[:-1] + d[1:]
+        if np.any(tst == 0):
+            tst = np.where(tst == 0, _np(torch.max(torch.abs(H))), tst)
+        small = np.abs(sub) <= eps * tst
+        if small.any():
+            sub[small] = 0
+            rows = torch.from_numpy(ii[small]).to(dev)
+            H[rows + 1, rows] = 0.0
+        op = (sub != 0) & ~accepted
+        any_open = bool(op.any())
+        hi_c = int(np.max(np.where(op, ii, -1)))
+        hi = hi_c + 1
+        zero_below = (sub == 0) & (ii < hi_c)
+        lo = int(np.max(np.where(zero_below, ii + 1, 0)))
+        stall = stall + 1 if hi == last_hi else 0
+        if any_open and hi - lo >= 2:
+            blk = _np(H[hi - 2:hi + 1, hi - 2:hi + 1])
+            a11, a12, a21, a22 = blk[1, 1], blk[1, 2], blk[2, 1], blk[2, 2]
+            s = a11 + a22
+            t = a11 * a22 - a12 * a21
+            if stall > 0 and stall % 10 == 0:
+                sexc = np.abs(a21) + np.abs(blk[1, 0])
+                wexc = a22 + a22.dtype.type(0.75) * sexc
+                s, t = a22.dtype.type(2.0) * wexc, wexc * wexc
+            steps += _chase(H, lo, hi, s, t, Z)
+        elif any_open:
+            accepted[max(hi_c, 0)] = True
+        last_hi = hi
+        sweeps += 1
+    sub = _np(torch.diagonal(H, -1))
+    ok = not np.any((sub != 0) & ~accepted)
+    return H, Z, torch.from_numpy(accepted).to(dev), ok, (sweeps, steps)
+
+
+def _extract_eigvals(H, accepted):
+    """Eigenvalues of the quasi-triangular form: the diagonal for 1x1
+    blocks, the quadratic formula on accepted 2x2 blocks (real and
+    imaginary parts as two real arrays)."""
+    d = torch.diagonal(H)
+    pad = torch.zeros(1, dtype=H.dtype, device=H.device)
+    padb = torch.zeros(1, dtype=torch.bool, device=H.device)
+    pair_start = torch.cat([accepted, padb])
+    pair_second = torch.cat([padb, accepted])
+    a = d
+    b = torch.cat([torch.diagonal(H, 1), pad])
+    c = torch.cat([torch.diagonal(H, -1), pad])
+    dd = torch.cat([d[1:], pad])
+    m = 0.5 * (a + dd)
+    disc = 0.25 * (a - dd) ** 2 + b * c
+    sq = torch.sqrt(torch.abs(disc))
+    real_pair = disc >= 0
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    wr1 = torch.where(real_pair, m + sq, m)
+    wr2 = torch.where(real_pair, m - sq, m)
+    wi1 = torch.where(real_pair, zero, sq)
+    wr2s = torch.cat([pad, wr2[:-1]])
+    wi2s = torch.cat([pad, wi1[:-1]])
+    wr = torch.where(pair_start, wr1, torch.where(pair_second, wr2s, d))
+    wi = torch.where(pair_start, wi1, torch.where(pair_second, -wi2s, zero))
+    return wr, wi
+
+
+def _split_real_blocks(T, Z, accepted):
+    """Split each accepted 2x2 block whose eigenvalues are REAL into two
+    1x1 blocks by a Givens similarity (``dlanv2``'s standardization), in
+    place: afterwards every 2x2 block is a complex-conjugate pair.  The
+    rotation's first column is the eigenvector of the larger-modulus real
+    eigenvalue."""
+    n = T.shape[0]
+    if n < 2:
+        return T, Z, accepted
+    acc = _np(accepted).copy()
+    for i in np.flatnonzero(acc):
+        i = int(i)
+        (a, b), (c, d) = _np(T[i:i + 2, i:i + 2])
+        dt = a.dtype.type
+        m = dt(0.5) * (a + d)
+        disc = dt(0.25) * (a - d) ** 2 + b * c
+        if not disc >= 0:
+            continue
+        sq = np.sqrt(np.abs(disc))
+        lam = m + (sq if m >= 0 else -sq)
+        v1 = np.array([b, lam - a])
+        v2 = np.array([lam - d, c])
+        v = v1 if np.sum(v1 * v1) >= np.sum(v2 * v2) else v2
+        nrm = np.sqrt(np.sum(v * v))
+        v = v / nrm if nrm > 0 else np.array([1.0, 0.0], dtype=a.dtype)
+        G = torch.from_numpy(np.array([[v[0], -v[1]], [v[1], v[0]]])).to(T.device, T.dtype)
+        T[i:i + 2, :] = G.T @ T[i:i + 2, :]
+        T[:, i:i + 2] = T[:, i:i + 2] @ G
+        Z[:, i:i + 2] = Z[:, i:i + 2] @ G
+        T[i + 1, i] = 0.0
+        acc[i] = False
+    return T, Z, torch.from_numpy(acc).to(T.device)
+
+
+def _sweeps_plain(H, wr, wi, shift_order, n_keep, pure):
+    """The plain version of :func:`francis_filter`'s ``kdim // 2`` sweeps:
+    each does its own explicit deflation (the ``dlahqr`` threshold) and
+    chases only the top-connected block with the next pair of shifts.
+    Returns ``(Hf, Z, work)``, ``work`` (int32) the number of sweeps that
+    chased and their chase steps."""
+    kdim = H.shape[0]
+    Hc = H.clone()
+    Z = _eye(kdim, H)
+    n, pure = int(torch.as_tensor(n_keep)), bool(torch.as_tensor(pure))
+    wr, wi, order = _np(wr), _np(wi), _np(shift_order)
+    eps = np.finfo(wr.dtype).eps
+    ii = np.arange(kdim - 1)
+    active_sweeps = steps = 0
+    for j in range(kdim // 2):
+        band = _np(torch.stack([torch.diagonal(Hc), torch.cat([torch.diagonal(Hc, -1),
+                                                              Hc[:1, 0]])]))
+        d, sub = np.abs(band[0]), band[1, :-1].copy()
+        tst = d[:-1] + d[1:]
+        if np.any(tst == 0):
+            tst = np.where(tst == 0, _np(torch.max(torch.abs(Hc))), tst)
+        small = np.abs(sub) <= eps * tst
+        if small.any():
+            sub[small] = 0
+            rows = torch.from_numpy(ii[small]).to(H.device)
+            Hc[rows + 1, rows] = 0.0
+        hi = int(np.min(np.where(sub == 0, ii, kdim - 1))) if kdim > 1 else 0
+        if (2 * j + 1) < (kdim - n) and pure and hi >= 2:
+            ia = order[min(max(2 * j, 0), kdim - 1)]
+            ib = order[min(max(2 * j + 1, 0), kdim - 1)]
+            s = wr[ia] + wr[ib]
+            t = wr[ia] * wr[ib] - wi[ia] * wi[ib]
+            steps += _chase(Hc, 0, hi, s, t, Z)
+            active_sweeps += 1
+    return Hc, Z, torch.tensor([active_sweeps, steps], dtype=torch.int32, device=H.device)
+
+
+def _schur_plain(H, k_eff, with_z: bool, split: bool):
+    """The plain version of the ``hessenberg_schur`` kernel: embedding,
+    Hessenberg reduction, Francis sweeps, optionally the real-block split,
+    and the eigenvalues.  Returns ``(T, Z, wr, wi, accepted, ok, work)``
+    with ``Z`` None unless ``with_z``; ``ok`` a 0-d bool tensor, ``work``
+    an int32 tensor ``[sweeps, chase steps]``."""
+    n = H.shape[0]
+    Hm, active = _embed(H, k_eff)
+    Z = _eye(n, H) if with_z else None
+    Hh, Z = _to_hessenberg(Hm, Z)
+    T, Z, acc, ok, work = _schur_core(Hh.contiguous(), Z)
+    if split and Z is not None:
+        T, Z, acc = _split_real_blocks(T, Z, acc)
+    wr, wi = _extract_eigvals(T, acc)
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    wr = torch.where(active, wr, zero)
+    wi = torch.where(active, wi, zero)
+    return (T, Z, wr, wi, acc, torch.tensor(ok, device=H.device),
+            torch.tensor(work, dtype=torch.int32, device=H.device))
+
+
+# -- the public functions ------------------------------------------------------
+
+def _keff(k_eff, n, device):
+    if k_eff is None:
+        return n
+    return k_eff.to(device) if isinstance(k_eff, torch.Tensor) else int(k_eff)
+
+
+def hessenberg_eigvals(H, k_eff=None):
+    """Eigenvalues of a real upper-Hessenberg (or any real square) matrix
+    on its device -> ``(wr, wi, ok)``: real and imaginary parts aligned with
+    the buffer's positions (entries at ``>= k_eff`` are inactive and report
+    0) and the convergence flag, a 0-d bool tensor.  ``k_eff`` may be a 0-d
+    tensor on the device and defaults to the full buffer.  One launch of the
+    ``hessenberg_schur`` kernel on a CUDA tensor."""
+    from ..ops import hessenberg as kernels
+
+    _real_only(H, "hessenberg_eigvals")
+    _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(H, _keff(k_eff, H.shape[0], H.device))
+    return wr, wi, ok
+
+
+def schur_real(H, k_eff=None):
+    """Real Schur decomposition ``H = Z T Z^T`` on the device: Householder
+    reduction, Francis QR with accumulated transforms and the real-pair
+    block split (the device counterpart of the host ``schur`` of the
+    Krylov-Schur restart, BaseKrylov.fypp:807).  Returns
+    ``(T, Z, wr, wi, ok)``: every 2x2 block of ``T`` a conjugate pair,
+    ``(wr, wi)`` aligned with ``T``'s diagonal.  With ``k_eff`` the active
+    block is embedded as in :func:`hessenberg_eigvals` (``Z`` is then the
+    identity on the inactive part).  One kernel launch on a CUDA tensor."""
+    from ..ops import hessenberg as kernels
+
+    _real_only(H, "schur_real")
+    T, Z, wr, wi, _, ok, _ = kernels.hessenberg_schur(
+        H, _keff(k_eff, H.shape[0], H.device), with_z=True, split=True)
+    return T, Z, wr, wi, ok
+
+
+def _householder_qr_complete(M):
+    """``Q`` of the complete QR of the small ``(m, q)`` matrix ``M`` by
+    Householder reflectors in LAPACK's convention (``dgeqrf``'s ``dlarfg``
+    and ``dorgqr``), in plain tensor operations."""
+    m, q = M.shape
+    R = M.clone()
+    zero = torch.zeros((), dtype=M.dtype, device=M.device)
+    vs, taus = [], []
+    for j in range(min(q, m - 1)):
+        x = R[j:, j]
+        alpha = x[0]
+        xnorm = torch.linalg.vector_norm(x[1:])
+        h = torch.sqrt(alpha * alpha + xnorm * xnorm)
+        beta = torch.where(alpha >= 0, -h, h)
+        live = xnorm != 0
+        tau = torch.where(live, (beta - alpha) / torch.where(live, beta, torch.ones_like(beta)),
+                          zero)
+        scale = torch.where(live, 1.0 / torch.where(live, alpha - beta, torch.ones_like(beta)),
+                            zero)
+        v = torch.cat([torch.ones(1, dtype=M.dtype, device=M.device), x[1:] * scale])
+        R[j:, j:] = R[j:, j:] - tau * torch.outer(v, v @ R[j:, j:])
+        vs.append(v)
+        taus.append(tau)
+    Q = _eye(m, M)
+    for j in reversed(range(len(vs))):
+        Q[j:, :] = Q[j:, :] - taus[j] * torch.outer(vs[j], vs[j] @ Q[j:, :])
+    return Q
+
+
+def _swap_q(W, n1: int, n2: int):
+    """Direct-swap orthogonal transform for adjacent diagonal blocks of
+    sizes ``(n1, n2)`` (Bai and Demmel, LAPACK ``dlaexc``): solve
+    ``A11 X - X A22 = -A12``, then ``Q`` from the complete QR of
+    ``[X; I]``; ``Q^T W Q`` has the ``A22`` block leading.  Returns a 4x4
+    matrix, the identity beyond ``n1 + n2``."""
+    m = n1 + n2
+    dt = W.dtype
+    eps = torch.finfo(W.dtype).eps
+    A11, A12, A22 = W[:n1, :n1], W[:n1, n1:m], W[n1:m, n1:m]
+    K = (torch.kron(_eye(n2, W), A11) - torch.kron(A22.T.contiguous(), _eye(n1, W)))
+    rhs = -A12.T.reshape(-1)
+    # singular iff the blocks share an eigenvalue: the ridge keeps the
+    # solve finite and the caller's residual test rejects the swap
+    reg = eps * (torch.max(torch.abs(K)) + 1.0)
+    x, _ = torch.linalg.solve_ex(K + reg * _eye(n1 * n2, W), rhs)
+    X = x.reshape(n2, n1).T
+    Mq = torch.cat([X, _eye(n2, W)], dim=0)
+    Qf = torch.eye(4, dtype=dt, device=W.device)
+    Qf[:m, :m] = _householder_qr_complete(Mq)
+    return Qf
+
+
+def _ordschur_core(T, Z, sel, rej_factor: float = 50.0):
+    """Reorder a real Schur form so the ``sel``-flagged diagonal positions
+    lead (LAPACK TRSEN/dtrexc: bubble each selected block up by adjacent
+    orthogonal swaps).  ``sel`` must be pair-consistent and every 2x2 block
+    a conjugate pair.  A swap whose annihilated coupling exceeds
+    ``rej_factor * eps * ||T||`` is not applied and the loop stops
+    (``ok`` False); what was applied is an exact orthogonal similarity.
+
+    Each pass computes the next swap's position and block sizes on the
+    device and reads them, with the failure flag, in one host read; the
+    swap itself (its tiny Sylvester solve and QR, the test and the masked
+    update) stays on the device."""
+    n = T.shape[0]
+    dev, dt = T.device, T.dtype
+    eps = torch.finfo(T.dtype).eps
+    P = n + 3  # pad so that every 4x4 window stays in range
+    Tp = torch.zeros((P, P), dtype=dt, device=dev)
+    Tp[:n, :n] = T
+    Zp = torch.zeros((Z.shape[0], P), dtype=dt, device=dev)
+    Zp[:, :n] = Z
+    idx = torch.arange(n, device=dev)
+    max_swaps = n * n + 4
+    r4 = torch.arange(4, device=dev)
+
+    def find(Tp, sel):
+        sub = Tp[idx + 1, idx]
+        prev = torch.cat([torch.zeros(1, dtype=dt, device=dev), sub[:-1]])
+        start = (idx == 0) | (prev == 0)
+        nxt = idx + 1 + (sub != 0).long()
+        cand = start & (nxt < n) & ~sel & sel[torch.clamp(nxt, 0, n - 1)]
+        return torch.min(torch.where(cand, idx, torch.full_like(idx, n)))
+
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    cnt = 0
+    while True:
+        i_t = find(Tp, sel)
+        ic = torch.clamp(i_t, 0, n - 1)
+        n1_t = 1 + (take_at(Tp[1:, :-1].diagonal(), ic) != 0).long()
+        j_t = torch.clamp(ic + n1_t, 0, n - 1)
+        n2_t = 1 + (take_at(Tp[1:, :-1].diagonal(), j_t) != 0).long()
+        i, n1, n2, f = (int(v) for v in host_read(torch.stack(
+            [i_t.long(), n1_t, n2_t, failed.long()])))
+        count_event("ordschur_reads")
+        if not (i < n and not f and cnt < max_swaps):
+            break
+        m = n1 + n2
+        W = Tp[i:i + 4, i:i + 4]
+        Q = _swap_q(W, n1, n2)
+        Wt = Q.T @ W @ Q
+        lowleft = (r4[:, None] >= n2) & (r4[:, None] < m) & (r4[None, :] < n2)
+        resid = torch.max(torch.where(lowleft, torch.abs(Wt), torch.zeros_like(Wt)))
+        bad = resid > rej_factor * eps * (torch.max(torch.abs(Tp)) + 1.0)
+        Tn = Tp.clone()
+        Tn[i:i + 4, :] = Q.T @ Tn[i:i + 4, :]
+        Tn[:, i:i + 4] = Tn[:, i:i + 4] @ Q
+        Zn = Zp.clone()
+        Zn[:, i:i + 4] = Zn[:, i:i + 4] @ Q
+        # exact zeros below the new block diagonal inside the window: the
+        # block of size n2 leads, the block of size n1 follows
+        for r in range(1, 4):
+            for cc in range(r):
+                keep = (n2 == 2 and r == 1 and cc == 0) or (n1 == 2 and r == n2 + 1 and cc == n2)
+                if r < m and not keep:
+                    Tn[i + r, i + cc] = 0.0
+        selP = torch.where((idx >= i) & (idx < i + m), idx < i + n2, sel)
+        Tp = torch.where(bad, Tp, Tn)
+        Zp = torch.where(bad, Zp, Zn)
+        sel = torch.where(bad, sel, selP)
+        failed = failed | bad
+        cnt += 1
+    done = find(Tp, sel) >= n
+    return Tp[:n, :n], Zp[:, :n], sel, done & ~failed
+
+
+def ordschur_device(T, Z, select_mask):
+    """Reorder the real Schur factorization ``(T, Z)`` so the eigenvalues
+    at the ``select_mask``-flagged positions lead (reference: ``ordschur``,
+    TRSEN, Utils.fypp:37-60, used by ``krylov_schur``,
+    BaseKrylov.fypp:813).  The mask is made pair-consistent (a flag on
+    either position of a 2x2 block selects the block).  Returns
+    ``(T', Z', sel', ok)``: ``sel'`` the reordered mask, ``ok`` (a 0-d bool
+    tensor) False if a block swap was rejected, the output then a valid but
+    partially reordered form.  Plain torch on the device, with one counted
+    host read a block swap."""
+    _real_only(T, "ordschur_device")
+    n = T.shape[0]
+    sel = torch.as_tensor(select_mask, device=T.device).to(torch.bool)
+    if n < 2:
+        return T, Z, sel, torch.ones((), dtype=torch.bool, device=T.device)
+    coupled = torch.diagonal(T, -1) != 0
+    pad = torch.zeros(1, dtype=torch.bool, device=T.device)
+    up = torch.cat([coupled & sel[1:], pad])
+    down = torch.cat([pad, coupled & sel[:-1]])
+    return _ordschur_core(T, Z, sel | up | down)
+
+
+def _filter_shifts(H_sq, n_target):
+    """The shift bookkeeping of :func:`francis_filter`, on the device:
+    ``(wr, wi, shift_order, n, pure, ok)``, the eigenvalues, the order the
+    sweeps take them in, the adjusted keep count, whether sweeps apply, and
+    the eigensolve's flag."""
+    kdim = H_sq.shape[0]
+    dev = H_sq.device
+    hess_in = torch.all(torch.abs(torch.tril(H_sq, -2)) == 0)
+    wr, wi, ok = hessenberg_eigvals(H_sq)
+    mod = wr * wr + wi * wi
+    idx = torch.arange(kdim, device=dev)
+    # descending modulus, ties broken by the pair's base index, +wi first
+    # within a pair: a conjugate pair shares every key, so it stays adjacent
+    pairbase = idx - (wi < 0).long()
+    order = _lexsort([-wi, pairbase, -mod])
+
+    def straddles(nv):
+        a = order[torch.clamp(nv - 1, 0, kdim - 1)]
+        b = order[torch.clamp(nv, 0, kdim - 1)]
+        return (wi[a] != 0) & (wr[a] == wr[b]) & (wi[a] == -wi[b])
+
+    n_t = torch.as_tensor(n_target, device=dev).long().reshape(())
+    bad = straddles(idx) | ((kdim - idx) % 2 == 1)
+    stop = (idx >= n_t) & (~bad | (idx >= kdim - 2))
+    n = torch.where(stop.any(), torch.argmax(stop.int()), n_t)
+    n = torch.clamp(n, 1, kdim - 2)
+    pure = ~straddles(n) & hess_in
+    rank = torch.zeros(kdim, dtype=torch.long, device=dev).scatter_(0, order, idx)
+    is_real = (wi == 0).long()
+    key = torch.where(rank >= n, is_real * kdim + rank, 3 * kdim + rank)
+    return wr, wi, _stable_argsort(key), n, pure, ok
+
+
+def francis_filter(H_sq, n_target):
+    """The exact-shift IRAM filter of a Krylov restart, on the device.
+
+    Applies ``(kdim - n) / 2`` Francis double-shift sweeps to the square
+    Hessenberg ``H_sq``, the shifts taken pairwise from the smallest-modulus
+    eigenvalues (the unwanted part of the spectrum).  ``n_target`` (an int
+    or a 0-d tensor) is moved up to the first keep count that neither
+    splits a conjugate pair at the kept/unwanted boundary nor leaves an odd
+    unwanted count, then clamped to ``[1, kdim - 2]``; this is the JAX
+    package's fixed-point loop as one vectorized search.  On an input that
+    is not Hessenberg (the Krylov-Schur arrow form), or a straddle left at
+    the clamp, no sweep is applied (a pure truncation, always exact).
+
+    Returns ``(Hf, Z, n, ok)``: ``Hf = Z^T H Z``, the accumulated transform,
+    the keep count (a 0-d int64 tensor) and the flag (eigensolve converged
+    and sweeps applied).  Two kernel launches on a CUDA tensor: the
+    eigenvalues, then the sweeps."""
+    from ..ops import hessenberg as kernels
+
+    _real_only(H_sq, "francis_filter")
+    wr, wi, shift_order, n, pure, ok = _filter_shifts(H_sq, n_target)
+    Hf, Z, _ = kernels.francis_filter_sweeps(H_sq, wr, wi, shift_order, n, pure)
+    return Hf, Z, n, ok & pure
+
+
+def _eigvec_rhs(n, dt, device):
+    """Fixed right-hand side of the inverse iteration (a dense
+    incommensurate pattern, never orthogonal to the null direction by
+    accident)."""
+    i = torch.arange(2 * n, device=device).to(dt)
+    b = torch.sin(1.7 * i + 0.3) + 0.25
+    return b / torch.linalg.vector_norm(b)
+
+
+def hessenberg_eigvecs(H, wr, wi, k_eff=None):
+    """Eigenvectors by one inverse-iteration solve per eigenvalue (LAPACK
+    ``dhsein``'s method), batched over all eigenvalues: for
+    ``wr[j] + i wi[j]`` the realified system
+    ``[[H - wr I, wi I], [-wi I, H - wr I]] x = b`` with a diagonal ridge
+    ``ulp ||H||``, duplicates separated by ``4 ulp ||H||`` each as dhsein
+    does.  Returns ``(Vr, Vi)``, columns normalized, rows ``>= k_eff``
+    zero.  ``torch.linalg.solve_ex`` checks no error on the host."""
+    n = H.shape[0]
+    dt, dev = H.dtype, H.device
+    Hm, active = _embed(H, _keff(k_eff, n, dev))
+    eps = torch.finfo(H.dtype).eps
+    norm = torch.max(torch.abs(Hm)) + 1.0
+    eps3 = eps * norm
+    sep = 4.0 * eps3
+    close = (torch.abs(wr[None, :] - wr[:, None]) + torch.abs(wi[None, :] - wi[:, None])) <= sep
+    earlier = torch.tril(close, diagonal=-1)
+    wr = wr + earlier.sum(dim=1).to(dt) * sep
+    eye = _eye(n, H)
+    A = Hm[None] - wr[:, None, None] * eye
+    Wi = wi[:, None, None] * eye
+    M = torch.cat([torch.cat([A, Wi], dim=2), torch.cat([-Wi, A], dim=2)], dim=1)
+    M = M + eps3 * _eye(2 * n, H)
+    b = _eigvec_rhs(n, dt, dev)
+    x, _ = torch.linalg.solve_ex(M, b.expand(n, 2 * n))
+    mask = active.to(dt)
+    xr, xi = x[:, :n] * mask, x[:, n:] * mask
+    nrm = torch.sqrt(torch.sum(xr * xr + xi * xi, dim=1))
+    pos = nrm > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, nrm, torch.ones_like(nrm)),
+                      torch.zeros_like(nrm))
+    return (xr * inv[:, None]).T, (xi * inv[:, None]).T
+
+
+def hessenberg_ritz(H_ext, k_eff, tol, nev=None, p: int = 1):
+    """The Ritz analysis of one ``eigs`` check on the device, with no host
+    round-trip: the projected eigensolve of the ``(kdim + p, kdim)`` Arnoldi
+    buffer's active ``k_eff x k_eff`` block (``k_eff`` an int or a 0-d
+    tensor), its eigenvectors, residuals and converged count.
+
+    Returns ``(wr, wi, res, Vr, Vi, n_conv, ok)`` in modulus-descending
+    order (a stable sort, as the host path's ``argsort(-|w|)``); inactive
+    slots carry ``res = +inf``.  Residuals are ``|beta| |last eigenvector
+    component|`` with ``beta = H_ext[k_eff, k_eff-1]`` for ``p = 1``
+    (IterativeSolvers.fypp:1069-1083), ``||B y_last||`` with the coupling
+    block ``B = H_ext[k:k+p, k-p:k]`` for ``p > 1``.  ``n_conv`` (0-d int32)
+    counts converged residuals among the LEADING ``nev`` entries (the JAX
+    package's documented deviation; ``nev = None``: the whole spectrum)."""
+    kdim = H_ext.shape[1]
+    dev, dt = H_ext.device, H_ext.dtype
+    H = H_ext[:kdim, :kdim]
+    k_t = (k_eff.to(dev) if isinstance(k_eff, torch.Tensor)
+           else torch.full((), int(k_eff), device=dev)).long().reshape(())
+    wr, wi, ok = hessenberg_eigvals(H, k_t)
+    Vr, Vi = hessenberg_eigvecs(H, wr, wi, k_t)
+    idx = torch.arange(kdim, device=dev)
+    active = idx < k_t
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    if p == 1:
+        km1 = torch.clamp(k_t - 1, min=0)
+        beta = torch.abs(take_at(H_ext, k_t * kdim + km1))
+        last = torch.sqrt(Vr.index_select(0, km1.reshape(1))[0] ** 2
+                          + Vi.index_select(0, km1.reshape(1))[0] ** 2)
+        res = torch.where(active & ok, beta * last, inf)
+    else:
+        kmp = torch.clamp(k_t - p, min=0)
+        rows = k_t + torch.arange(p, device=dev)
+        cols = kmp + torch.arange(p, device=dev)
+        B = H_ext.index_select(0, rows).index_select(1, cols)
+        Vr_l = Vr.index_select(0, cols)
+        Vi_l = Vi.index_select(0, cols)
+        res = torch.sqrt(torch.sum((B @ Vr_l) ** 2 + (B @ Vi_l) ** 2, dim=0))
+        res = torch.where(active & ok, res, inf)
+    order = _stable_argsort(-(wr * wr + wi * wi))
+    wr, wi, res = wr[order], wi[order], res[order]
+    Vr, Vi = Vr[:, order], Vi[:, order]
+    lead = idx < (kdim if nev is None else nev)
+    n_conv = torch.sum(lead & torch.isfinite(res) & (res < tol)).to(torch.int32)
+    return wr, wi, res, Vr, Vi, n_conv, ok

@@ -17,7 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["GMRESOptions", "CGOptions", "EigsOptions", "SVDSOptions", "KexpmOptions",
-           "NewtonOptions", "SolverMetadata", "NewtonMetadata", "check_host_projected"]
+           "NewtonOptions", "SolverMetadata", "NewtonMetadata", "check_projected"]
 
 
 @dataclass(frozen=True)
@@ -58,15 +58,22 @@ class EigsOptions:
     ``torch.distributed.checkpoint``; the solver's ``resume_from=`` argument
     restores it from either (:mod:`.checkpoint`).
 
-    Only what the host projected path reads is implemented; the solvers
-    raise :class:`NotImplementedError` on the rest rather than ignore it:
+    ``projected`` picks where the k x k projected problem of each check is
+    solved:
 
-    * ``projected``: ``"auto"`` and ``"host"`` both mean the host path (a
-      dense ``eig``/``eigh`` of the projected matrix per check);
-      ``"device"``, the fused on-device sweep, waits for ROADMAP M10.
-    * ``write_intermediate``/``outpost``: ``eigs`` writes the Ritz values
-      and residuals of each check to ``outpost``; the JAX ``eighs`` does not
-      read them, and the port's ``eighs`` raises on ``write_intermediate``.
+    * ``"host"``: read to the host for a dense numpy ``eig``/``eigh``/``svd``
+      (the JAX package's host path);
+    * ``"device"``: the fused device sweep of :mod:`..utils.hessenberg`, the
+      Francis-QR kernel on a card, with device restarts (exact-shift IRAM,
+      the device Krylov-Schur restart, device thick restarts); complex
+      dtypes take the host path, as in the JAX package;
+    * ``"auto"`` (default): the host path.  The JAX package's ``"auto"``
+      chooses the device path only on a TPU, where every host check was a
+      relay round-trip; off a TPU it is the host path, and so it is here.
+
+    ``write_intermediate``/``outpost``: ``eigs`` writes the Ritz values and
+    residuals of each check to ``outpost``; the JAX ``eighs`` does not read
+    them, and the port's ``eighs`` raises on ``write_intermediate``.
     """
 
     kdim: int | None = None       # None -> 4 * nev
@@ -90,16 +97,13 @@ class SVDSOptions:
     projected: str = "auto"
 
 
-def check_host_projected(name: str, opts) -> None:
-    """Raise on a ``projected`` choice of ``opts`` (:class:`EigsOptions` or
-    :class:`SVDSOptions`) that the host projected path of ``eigs``,
-    ``eighs`` and ``svds`` does not implement."""
-    if opts.projected == "device":
-        raise NotImplementedError(
-            f"{name}: projected='device' (the fused on-device sweep) is not ported yet "
-            "(ROADMAP M10). Use 'host' or 'auto'.")
-    if opts.projected not in ("auto", "host"):
-        raise ValueError(f"{name}: unknown projected={opts.projected!r}")
+def check_projected(name: str, opts) -> None:
+    """Raise ``ValueError`` on a ``projected`` choice of ``opts``
+    (:class:`EigsOptions` or :class:`SVDSOptions`) other than ``"auto"``,
+    ``"host"`` and ``"device"``."""
+    if opts.projected not in ("auto", "host", "device"):
+        raise ValueError(f"{name}: unknown projected={opts.projected!r} "
+                         "(expected 'auto', 'host' or 'device')")
 
 
 @dataclass(frozen=True)

@@ -38,6 +38,7 @@ __all__ = [
     "count_applications",
     "host_read",
     "count_collective",
+    "count_event",
     "reset_counters",
     "get_counter",
     "counters_summary",
@@ -262,6 +263,18 @@ def count_collective(kind: str) -> None:
     for the sharded operators' halo exchanges, gathers and adjoint sums
     (:mod:`..parallel`)."""
     _counters[kind] += 1
+
+
+def count_event(name: str, n: int = 1) -> None:
+    """Record ``n`` events under the counter ``name``.  The device projected
+    path counts with it: ``"qr_host_redos"`` (a check whose device QR ran
+    out of its sweep budget and was redone on the host), ``"library_syncs"``
+    (a ``torch.linalg.eigh``/``svd`` on a CUDA tensor, which waits for the
+    device to check its result), ``"ritz_checks"`` (the device checks),
+    ``"ordschur_reads"`` (the host reads of the device Schur reordering,
+    one a block swap and one to finish) and the restarts by kind,
+    ``"restarts.<solver>.<kind>"``."""
+    _counters[name] += int(n)
 
 
 def reset_counters() -> None:

@@ -184,7 +184,8 @@ def test_block_eigs_through_the_stencil_operator_matches_jax():
 def test_block_eigs_guards_match_jax(tmp_path):
     """Block mode is real-only and refuses checkpoints, in both packages
     (tests/test_block_eigs.py:231-241, ROADMAP F5); the port also refuses
-    ``resume_from`` and, as everywhere, ``projected="device"``."""
+    ``resume_from``.  ``projected="device"`` runs the device block driver,
+    the JAX package's only block driver, to the JAX driver's values."""
     N = 16
     jop = JToeplitz(N, 2.0, -1.0, 1.0, dtype=jnp.float64)
     op = port_operator(jop)
@@ -198,9 +199,13 @@ def test_block_eigs_guards_match_jax(tmp_path):
             run(2, x0=arr(x), blksize=2, options=mod.EigsOptions(**ck))
     with pytest.raises(NotImplementedError):
         lt.eigs(op, 2, x0=torch.from_numpy(x), blksize=2, resume_from=str(tmp_path / "x.npz"))
-    with pytest.raises(NotImplementedError):
-        lt.eigs(op, 2, x0=torch.from_numpy(x), blksize=2,
-                options=lt.EigsOptions(projected="device"))
+    w, _, _, info, _ = lt.eigs(op, 2, x0=torch.from_numpy(x), kdim=12, tolerance=1e-9,
+                               blksize=2, options=lt.EigsOptions(projected="device", maxiter=60))
+    jw, _, _, jinfo, _ = lk.eigs(jop, 2, x0=jnp.asarray(x), kdim=12, tolerance=1e-9, blksize=2,
+                                 options=lk.EigsOptions(projected="device", maxiter=60))
+    assert info == jinfo == 2
+    d = np.abs(w[:, None] - np.asarray(jw)[None, :])
+    assert max(d.min(axis=0).max(), d.min(axis=1).max()) < 1e-7
 
 
 # -- the restart ----------------------------------------------------------------

@@ -1,0 +1,472 @@
+"""The port's device projected eigensolve (lightkrylov_tpu_torch.utils.hessenberg
+and its kernels' wrappers, lightkrylov_tpu_torch.ops.hessenberg) against the
+JAX package's lightkrylov_tpu.utils.hessenberg, LAPACK, and, on a GPU, the
+CUDA kernels against their plain versions.
+
+The counterparts of tests/test_hessenberg.py's unit cases: the same seeded
+numpy matrices go through the JAX function (jitted, on the CPU) and the
+port's (whose wrappers take the plain version on a CPU tensor).  Eigenvalues
+are compared as multisets.  Tolerances: the JAX package's own LAPACK gates
+of tests/test_hessenberg.py (1e-11 of the spectrum's scale in float64, 1e-4
+in float32) for eigenvalues, ``rtol`` of lightkrylov_tpu/constants.py
+(3.2e-8 in float64) for what the two packages compute along different but
+equally exact paths (residuals, kept Ritz values), and 1e-12 (float64) for
+factorization identities ``Z T Z^T = H`` and ``Z^T Z = I``.
+
+The tests marked ``cuda`` compare each CUDA kernel with its plain version and
+skip where there is no GPU; they import no JAX, so on a machine with a GPU and
+no JAX they run with ``python -m pytest --noconftest -m cuda
+tests/test_torch_hessenberg.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment
+
+import lightkrylov_tpu_torch as lt
+from lightkrylov_tpu_torch.ops import hessenberg as kernels
+from lightkrylov_tpu_torch.utils import hessenberg as H
+
+torch.set_num_threads(2)
+
+RTOL64 = 3.162277660168379e-08  # lightkrylov_tpu.constants.rtol(float64)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """These tests ask for the CPU: the package's default device is the card."""
+    prev = lt.constants.default_device()
+    lt.constants.set_default_device("cpu")
+    yield
+    lt.constants.set_default_device(prev)
+
+
+@pytest.fixture
+def J():
+    """The JAX package's hessenberg module (imported here, so that the
+    ``cuda`` tests need no JAX)."""
+    from lightkrylov_tpu.utils import hessenberg
+
+    return hessenberg
+
+
+@pytest.fixture
+def jnp():
+    import jax.numpy
+
+    return jax.numpy
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(42)
+
+
+def _w(wr, wi):
+    return np.asarray(wr, np.float64) + 1j * np.asarray(wi, np.float64)
+
+
+def _match(a, b):
+    """Largest distance between two multisets of complex numbers, matched
+    one to one."""
+    a, b = np.asarray(a), np.asarray(b)
+    if len(a) == 0:
+        return 0.0
+    cost = np.abs(a[:, None] - b[None, :])
+    r, c = linear_sum_assignment(cost)
+    return float(cost[r, c].max())
+
+
+# -- hessenberg_eigvals -------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 17, 40])
+def test_eigvals_match_jax_and_lapack(n, rng, J, jnp):
+    A = np.triu(rng.standard_normal((n, n)), -1)
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    jwr, jwi, jok = J.hessenberg_eigvals(jnp.asarray(A))
+    assert bool(ok) and bool(jok)
+    w, w_ref = _w(wr, wi), np.linalg.eigvals(A)
+    scale = max(1.0, np.abs(w_ref).max())
+    assert _match(w, w_ref) < 1e-11 * scale
+    assert _match(w, _w(jwr, jwi)) < 1e-11 * scale
+
+
+def test_eigvals_f32(rng, J, jnp):
+    A = np.triu(rng.standard_normal((24, 24)).astype(np.float32), -1)
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    assert bool(ok) and wr.dtype == torch.float32
+    w_ref = np.linalg.eigvals(A.astype(np.float64))
+    assert _match(_w(wr, wi), w_ref) < 1e-4 * np.abs(w_ref).max()
+    jwr, jwi, _ = J.hessenberg_eigvals(jnp.asarray(A))
+    assert _match(_w(wr, wi), _w(jwr, jwi)) < 1e-4 * np.abs(w_ref).max()
+
+
+def test_eigvals_non_hessenberg_input(rng):
+    """A dense input (the Krylov-Schur arrow form is one) goes through the
+    Householder reduction first."""
+    A = rng.standard_normal((20, 20))
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    w_ref = np.linalg.eigvals(A)
+    assert bool(ok)
+    assert _match(_w(wr, wi), w_ref) < 1e-11 * np.abs(w_ref).max()
+
+
+def test_eigvals_dynamic_keff(rng, J, jnp):
+    """``k_eff`` as an int and as a 0-d tensor: the active block's spectrum,
+    inactive slots exactly zero, as the JAX function reports them."""
+    n = 24
+    A = np.triu(rng.standard_normal((n, n)), -1)
+    for k in (1, 2, 7, 15, 24):
+        for kk in (k, torch.tensor(k)):
+            wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A), kk)
+            w_ref = np.linalg.eigvals(A[:k, :k])
+            assert bool(ok)
+            assert _match(_w(wr, wi)[:k], w_ref) < 1e-11 * max(1.0, np.abs(w_ref).max())
+            assert np.all(wr.numpy()[k:] == 0) and np.all(wi.numpy()[k:] == 0)
+        jwr, _, _ = J.hessenberg_eigvals(jnp.asarray(A), k)
+        assert np.all(np.asarray(jwr)[k:] == 0)
+
+
+def test_complex_input_raises():
+    A = torch.eye(4, dtype=torch.complex128)
+    for fn in (H.hessenberg_eigvals, H.schur_real):
+        with pytest.raises(TypeError, match="real-only"):
+            fn(A)
+
+
+# -- eigenvectors and the Ritz check ------------------------------------------
+
+def test_eigvecs_inverse_iteration(rng, J, jnp):
+    n = 30
+    A = np.triu(rng.standard_normal((n, n)), -1)
+    wr, wi, _ = H.hessenberg_eigvals(torch.from_numpy(A))
+    Vr, Vi = H.hessenberg_eigvecs(torch.from_numpy(A), wr, wi)
+    V, w = Vr.numpy() + 1j * Vi.numpy(), _w(wr, wi)
+    for j in range(n):
+        assert np.linalg.norm(A @ V[:, j] - w[j] * V[:, j]) < 1e-10
+        assert abs(np.linalg.norm(V[:, j]) - 1.0) < 1e-12
+    # the JAX function's vectors span the same eigenvectors (up to a phase)
+    jVr, jVi = J.hessenberg_eigvecs(jnp.asarray(A), jnp.asarray(wr.numpy()),
+                                    jnp.asarray(wi.numpy()))
+    jV = np.asarray(jVr) + 1j * np.asarray(jVi)
+    overlap = np.abs(np.sum(np.conj(jV) * V, axis=0))
+    assert np.all(np.abs(overlap - 1.0) < RTOL64)
+
+
+@pytest.mark.parametrize("k_eff", [3, 9, 20])
+def test_ritz_matches_jax_and_host(k_eff, rng, J, jnp):
+    """A check's Ritz values, residuals and converged count equal the JAX
+    device check's and the host path's ``eig``; the order is modulus-
+    descending."""
+    kdim, tol = 20, 0.5
+    He = np.zeros((kdim + 1, kdim))
+    He[:k_eff + 1, :k_eff] = np.triu(rng.standard_normal((k_eff + 1, k_eff)), -1)
+    wr, wi, res, Vr, Vi, n_conv, ok = H.hessenberg_ritz(torch.from_numpy(He), k_eff, tol)
+    jwr, jwi, jres, _, _, jn, jok = J.hessenberg_ritz(jnp.asarray(He), k_eff, tol)
+    assert bool(ok) and bool(jok)
+    w_d, r_d = _w(wr, wi)[:k_eff], res.numpy()[:k_eff]
+    w_h, V_h = np.linalg.eig(He[:k_eff, :k_eff])
+    r_h = abs(He[k_eff, k_eff - 1]) * np.abs(V_h[-1, :])
+    assert _match(w_d, w_h) < 1e-10
+    assert np.max(np.abs(np.sort(r_d) - np.sort(r_h))) < 1e-10
+    assert _match(w_d, _w(jwr, jwi)[:k_eff]) < 1e-10
+    assert np.max(np.abs(np.sort(r_d) - np.sort(np.asarray(jres)[:k_eff]))) < RTOL64
+    assert int(n_conv) == int(jn) == int(np.sum(r_h < tol))
+    assert np.all(np.diff(np.abs(w_d)) <= 1e-12)
+    assert np.all(np.isinf(res.numpy()[k_eff:]))
+
+
+def test_ritz_invariant_subspace(rng):
+    """beta = 0: every active residual is exactly zero."""
+    kdim, k_eff = 10, 6
+    He = np.zeros((kdim + 1, kdim))
+    He[:k_eff, :k_eff] = np.triu(rng.standard_normal((k_eff, k_eff)), -1)
+    _, _, res, _, _, n_conv, ok = H.hessenberg_ritz(torch.from_numpy(He), torch.tensor(k_eff),
+                                                    1e-12)
+    assert bool(ok)
+    assert np.all(res.numpy()[:k_eff] == 0) and int(n_conv) == k_eff
+
+
+def test_ritz_block_residuals_match_jax(rng, J, jnp):
+    """``p = 2``: the block residual ``||B y_last||`` of a band-Hessenberg
+    buffer, against the JAX check and the host formula."""
+    kdim, p, k_eff, tol = 12, 2, 10, 0.3
+    He = np.zeros((kdim + p, kdim))
+    He[:k_eff + p, :k_eff] = np.triu(rng.standard_normal((k_eff + p, k_eff)), -p)
+    wr, wi, res, _, _, n_conv, ok = H.hessenberg_ritz(torch.from_numpy(He), k_eff, tol, nev=4,
+                                                      p=p)
+    jwr, jwi, jres, _, _, jn, _ = J.hessenberg_ritz(jnp.asarray(He), k_eff, tol, nev=4, p=p)
+    w_h, V_h = np.linalg.eig(He[:k_eff, :k_eff])
+    r_h = np.linalg.norm(He[k_eff:k_eff + p, k_eff - p:k_eff] @ V_h[-p:, :], axis=0)
+    assert bool(ok)
+    assert _match(_w(wr, wi)[:k_eff], w_h) < 1e-10
+    assert np.max(np.abs(np.sort(res.numpy()[:k_eff]) - np.sort(r_h))) < 1e-10
+    assert np.max(np.abs(np.sort(res.numpy()[:k_eff])
+                         - np.sort(np.asarray(jres)[:k_eff]))) < RTOL64
+    assert int(n_conv) == int(jn)
+
+
+# -- Schur form, reordering, the IRAM filter ----------------------------------
+
+@pytest.mark.parametrize("n", [2, 5, 12, 24, 40])
+def test_schur_real_factorization(n, rng, J, jnp):
+    """``H = Z T Z^T`` with ``Z`` orthogonal, ``T`` quasi-triangular with
+    every 2x2 block a conjugate pair, and the JAX function's eigenvalues."""
+    A = rng.standard_normal((n, n))
+    T, Z, wr, wi, ok = H.schur_real(torch.from_numpy(A))
+    T, Z = T.numpy(), Z.numpy()
+    assert bool(ok)
+    assert np.linalg.norm(Z @ T @ Z.T - A) < 1e-12 * max(1, np.linalg.norm(A))
+    assert np.linalg.norm(Z.T @ Z - np.eye(n)) < 1e-12
+    assert np.all(np.abs(np.tril(T, -2)) == 0)
+    for i in np.flatnonzero(np.diag(T, -1)):
+        blk = T[i:i + 2, i:i + 2]
+        assert ((blk[0, 0] - blk[1, 1]) / 2) ** 2 + blk[0, 1] * blk[1, 0] < 0
+    _, _, jwr, jwi, _ = J.schur_real(jnp.asarray(A))
+    scale = max(1.0, np.abs(np.linalg.eigvals(A)).max())
+    assert _match(_w(wr, wi), _w(jwr, jwi)) < 1e-10 * scale
+
+
+def test_ordschur_device_matches_jax(rng, J, jnp):
+    """The selected eigenvalues lead (TRSEN, Utils.fypp:37-60), the
+    factorization stays exact, the mask is made pair-consistent, the JAX
+    function keeps the same count and spectrum, and each block swap costs
+    one counted host read."""
+    for n in (6, 13, 24):
+        A = rng.standard_normal((n, n))
+        T, Z, wr, wi, _ = H.schur_real(torch.from_numpy(A))
+        jT, jZ, _, _, _ = J.schur_real(jnp.asarray(A))
+        for _ in range(3):
+            mask = rng.random(n) < 0.4
+            lt.timer.reset_counters()
+            T2, Z2, sel2, ok2 = H.ordschur_device(T, Z, torch.from_numpy(mask))
+            reads = lt.timer.get_counter("host_reads")
+            jT2, _, jsel2, jok2 = J.ordschur_device(jT, jZ, jnp.asarray(mask))
+            T2, Z2, sel2 = T2.numpy(), Z2.numpy(), sel2.numpy()
+            ns = int(sel2.sum())
+            assert bool(ok2) and bool(jok2)
+            assert ns == int(np.asarray(jsel2).sum())
+            assert np.all(sel2[:ns]) and not np.any(sel2[ns:])
+            assert np.linalg.norm(Z2 @ T2 @ Z2.T - A) < 1e-12 * np.linalg.norm(A)
+            assert np.linalg.norm(Z2.T @ Z2 - np.eye(n)) < 1e-12
+            if ns:
+                assert _match(np.linalg.eigvals(T2[:ns, :ns]),
+                              np.linalg.eigvals(np.asarray(jT2)[:ns, :ns])) < 1e-9
+            assert reads >= 1
+
+
+@pytest.mark.parametrize("kdim", [16, 24])
+def test_francis_filter_matches_jax(kdim, rng, J, jnp):
+    """The exact-shift filter: the same keep count and flag as the JAX
+    function, ``Hf = Z^T H Z`` with ``Z`` orthogonal, and the kept block's
+    spectrum the ``n`` largest-modulus eigenvalues (the JAX function's
+    kept block's too)."""
+    A = np.triu(rng.standard_normal((kdim, kdim)), -1)
+    Hf, Z, n, ok = H.francis_filter(torch.from_numpy(A), kdim // 2)
+    jHf, _, jn, jok = J.francis_filter(jnp.asarray(A), kdim // 2)
+    n, Hf, Z = int(n), Hf.numpy(), Z.numpy()
+    assert n == int(jn) and bool(ok) == bool(jok) is True
+    assert np.linalg.norm(Z.T @ A @ Z - Hf) < 1e-12 * np.linalg.norm(A)
+    assert np.linalg.norm(Z.T @ Z - np.eye(kdim)) < 1e-12
+    w = np.linalg.eigvals(A)
+    lead = w[np.argsort(-np.abs(w))][:n]
+    assert _match(np.linalg.eigvals(Hf[:n, :n]), lead) < 1e-8
+    assert _match(np.linalg.eigvals(np.asarray(jHf)[:n, :n]), lead) < 1e-8
+
+
+def test_francis_filter_arrow_input_applies_no_sweep(rng):
+    """On a matrix that is not Hessenberg the filter applies no sweep (a pure
+    truncation) and reports ``ok = False``."""
+    A = np.triu(rng.standard_normal((12, 12)), -1)
+    A[8, 2] = 0.5
+    Hf, Z, n, ok = H.francis_filter(torch.from_numpy(A), 6)
+    assert not bool(ok)
+    assert np.array_equal(Z.numpy(), np.eye(12)) and np.array_equal(Hf.numpy(), A)
+
+
+# -- the kernels' wrappers on the CPU ------------------------------------------
+
+def test_wrappers_take_the_plain_version_on_the_cpu(rng):
+    """On a CPU tensor each wrapper computes its plain version and counts no
+    launch."""
+    A = torch.from_numpy(np.triu(rng.standard_normal((9, 9)), -1))
+    before = (kernels.hessenberg_schur.LAUNCHES, kernels.francis_filter_sweeps.LAUNCHES)
+    got = kernels.hessenberg_schur(A, 7, with_z=True, split=True)
+    want = kernels.hessenberg_schur_reference(A, 7, True, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    wr, wi = got[2], got[3]
+    order = torch.argsort(-(wr * wr + wi * wi), stable=True)
+    Hf, Z, work = kernels.francis_filter_sweeps(A, wr, wi, order, 4, True)
+    Hf2, Z2, work2 = kernels.francis_filter_sweeps_reference(A, wr, wi, order, torch.tensor(4),
+                                                             torch.tensor(True))
+    assert torch.equal(Hf, Hf2) and torch.equal(Z, Z2) and torch.equal(work, work2)
+    assert 0 < int(work[0]) <= int(work[1])
+    assert before == (kernels.hessenberg_schur.LAUNCHES, kernels.francis_filter_sweeps.LAUNCHES)
+
+
+def test_schur_budget_flag_and_sweep_count(rng):
+    """``ok`` and the work of the plain Schur core: a converged run spends
+    fewer than the 30 n budget and at most 13 chase steps a sweep; the 2x2
+    blocks it accepts are reported."""
+    A = torch.from_numpy(rng.standard_normal((15, 15)))
+    T, Z, wr, wi, acc, ok, work = kernels.hessenberg_schur(A)
+    sweeps, steps = (int(v) for v in work)
+    n_pairs = int((wi.numpy() > 0).sum())
+    assert bool(ok) and 0 < sweeps < 30 * 15 and 0 < steps <= 13 * sweeps and Z is None
+    assert int(acc.sum()) >= n_pairs  # real-pair blocks are accepted too
+    T, Z, wr, wi, acc, ok, _ = kernels.hessenberg_schur(A, with_z=True, split=True)
+    assert bool(ok) and int(acc.sum()) == n_pairs  # split: conjugate pairs only
+
+
+# -- ROADMAP F3 ---------------------------------------------------------------
+
+def test_f3_mask_transfer_matches_jax(J, jnp):
+    """F3, copied from the JAX package (krylov_schur.py:176-181): each Schur
+    position takes the flag of its nearest selection entry by value, and the
+    zero-filled tail of ``sel_wr``/``sel_wi`` (flags False) is a candidate.
+    An eigenvalue of 1e-15 whose checked value reads 3e-15 is nearer to the
+    tail's 0 than to its own entry, so it is deselected although the
+    selector kept it: both packages keep 3, not 4."""
+    from lightkrylov_tpu.krylov.krylov_schur import krylov_schur_device as j_ksd
+    from lightkrylov_tpu_torch.krylov.krylov_schur import krylov_schur_device
+
+    kdim, N = 6, 10
+    rng = np.random.default_rng(7)
+    Q, _ = np.linalg.qr(rng.standard_normal((N, N)))
+    X = np.zeros((kdim + 1, N))
+    X[:kdim + 1] = Q[:kdim + 1]
+    Hm = np.zeros((kdim + 1, kdim))
+    Hm[:kdim, :kdim] = np.diag([3.0, 2.0, 1.0, 1e-15, 0.5, 0.25]) + np.triu(
+        0.1 * rng.standard_normal((kdim, kdim)), 1)
+    Hm[kdim, kdim - 1] = 0.1
+    sel_wr = np.array([3.0, 2.0, 1.0, 0.5, 0.25, 3e-15, 0.0, 0.0])  # tail zero-filled
+    sel_wi = np.zeros(8)
+    mask = np.array([True, True, True, False, False, True, False, False])
+    _, Hn, n, ok = krylov_schur_device(torch.from_numpy(X), torch.from_numpy(Hm),
+                                       torch.from_numpy(sel_wr), torch.from_numpy(sel_wi),
+                                       torch.from_numpy(mask))
+    _, jHn, jn, jok = j_ksd(jnp.asarray(X), jnp.asarray(Hm), jnp.asarray(sel_wr),
+                            jnp.asarray(sel_wi), jnp.asarray(mask))
+    assert int(n) == int(jn) == 3 and bool(ok) and bool(jok)
+    kept = np.sort(np.linalg.eigvals(Hn.numpy()[:3, :3]).real)
+    assert np.allclose(kept, [1.0, 2.0, 3.0], atol=1e-12)
+    assert np.allclose(np.sort(np.linalg.eigvals(np.asarray(jHn)[:3, :3]).real), kept,
+                       atol=1e-12)
+
+
+# -- the CUDA kernels (need a GPU) --------------------------------------------
+
+KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}  # of ||H||_F, as chip_smoke.py
+SCHUR_ORTH = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms, as chip_smoke.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [3, 17, 40, 64, 200])
+def test_cuda_schur_kernel_matches_plain(cuda, dtype, n):
+    A = np.triu(np.random.default_rng(n).standard_normal((n, n)), -1)
+    Ht = torch.from_numpy(A).to(cuda, dtype)
+    before = kernels.hessenberg_schur.LAUNCHES
+    T, Z, wr, wi, acc, ok, sweeps = kernels.hessenberg_schur(Ht, n - 1, with_z=True, split=True)
+    torch.cuda.synchronize()
+    assert kernels.hessenberg_schur.LAUNCHES == before + 1
+    _, _, pwr, pwi, _, pok, _ = kernels.hessenberg_schur_reference(Ht, n - 1, True, True)
+    norm = float(np.linalg.norm(A))
+    assert bool(ok) and bool(pok)
+    assert _match(_w(wr.cpu(), wi.cpu()), _w(pwr.cpu(), pwi.cpu())) < KERNEL_TOL[dtype] * norm
+    He = np.zeros_like(A)
+    He[:n - 1, :n - 1] = A[:n - 1, :n - 1]
+    Hm = H._embed(torch.from_numpy(He), n - 1)[0].numpy()
+    T, Z = T.double().cpu().numpy(), Z.double().cpu().numpy()
+    assert np.linalg.norm(Z @ T @ Z.T - Hm, 2) < SCHUR_ORTH[dtype] * np.linalg.norm(Hm, 2)
+    assert np.linalg.norm(Z.T @ Z - np.eye(n), 2) < SCHUR_ORTH[dtype]
+
+
+def _arnoldi_hessenberg(kdim, seed, n=256):
+    """The square Arnoldi Hessenberg of a matrix with a known, well-separated
+    complex spectrum (chip_smoke.py's input for the filter): the exact-shift
+    filter is forward-unstable on a random non-normal Hessenberg, so kernel
+    and plain version agree there only up to that instability."""
+    rng = np.random.default_rng(seed)
+    D = np.zeros((n, n))
+    for j in range(n // 2):
+        r, th = 2.5 * 0.85 ** j, 0.3 + 2.1 * j
+        a, b = r * np.cos(th), r * np.sin(th)
+        D[2 * j:2 * j + 2, 2 * j:2 * j + 2] = [[a, b], [-b, a]]
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    A = Q @ D @ Q.T
+    V = np.zeros((n, kdim + 1))
+    H = np.zeros((kdim + 1, kdim))
+    v = rng.standard_normal(n)
+    V[:, 0] = v / np.linalg.norm(v)
+    for k in range(kdim):
+        w = A @ V[:, k]
+        for _ in range(2):
+            h = V[:, :k + 1].T @ w
+            w -= V[:, :k + 1] @ h
+            H[:k + 1, k] += h
+        H[k + 1, k] = np.linalg.norm(w)
+        V[:, k + 1] = w / H[k + 1, k]
+    return H[:kdim, :kdim]
+
+
+FILTER_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F, as chip_smoke.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_filter_kernel_matches_plain(cuda, dtype):
+    kdim = 40
+    A = _arnoldi_hessenberg(kdim, 1)
+    Ht = torch.from_numpy(A).to(cuda, dtype)
+    wr, wi, order, n, pure, ok = H._filter_shifts(Ht, kdim // 2)
+    before = kernels.francis_filter_sweeps.LAUNCHES
+    Hf, Z, work = kernels.francis_filter_sweeps(Ht, wr, wi, order, n, pure)
+    torch.cuda.synchronize()
+    assert kernels.francis_filter_sweeps.LAUNCHES == before + 1
+    Hp, _, pwork = kernels.francis_filter_sweeps_reference(Ht, wr, wi, order, n, pure)
+    n = int(n)
+    assert bool(ok & pure) and int(work[0]) == int(pwork[0]) > 0
+    Hd = Ht.double().cpu().numpy()
+    norm = np.linalg.norm(Hd)
+    Hf, Z = Hf.double().cpu().numpy(), Z.double().cpu().numpy()
+    assert np.linalg.norm(Z.T @ Hd @ Z - Hf, 2) < SCHUR_ORTH[dtype] * np.linalg.norm(Hd, 2)
+    assert np.linalg.norm(Z.T @ Z - np.eye(kdim), 2) < SCHUR_ORTH[dtype]
+    kept = np.linalg.eigvals(Hf[:n, :n])
+    assert _match(kept, np.linalg.eigvals(Hp.double().cpu().numpy()[:n, :n])) < \
+        FILTER_TOL[dtype] * norm
+    w = np.linalg.eigvals(Hd)
+    assert _match(kept, w[np.argsort(-np.abs(w))][:n]) < FILTER_TOL[dtype] * norm
+
+
+@pytest.mark.cuda
+def test_cuda_ritz_check_makes_no_host_read(cuda):
+    """A check of ``hessenberg_ritz`` at kdim 40 under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    He = np.triu(np.random.default_rng(2).standard_normal((41, 40)), -1)
+    Ht = torch.from_numpy(He).to(cuda, torch.float32)
+    H.hessenberg_ritz(Ht, 40, 1e-6, 16)
+    torch.cuda.synchronize()
+    k = torch.full((), 37, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        H.hessenberg_ritz(Ht, k, 1e-6, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_unsupported_tensors(cuda):
+    with pytest.raises(TypeError):
+        kernels.hessenberg_schur(torch.eye(4, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        kernels.hessenberg_schur(torch.ones(4, 5, device=cuda))
