@@ -140,10 +140,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 33. the device projected path (csrc/hessenberg.cu): (a) hessenberg_schur
     (embedding, Hessenberg reduction, Francis sweeps, Z, real-block split)
     against its plain version and numpy's eig on seeded Hessenberg matrices
-    at n = 3-200 (200 is above the f64 shared-memory limit of 168), the
-    Krylov-Schur arrow form, exact conjugate pairs and k_eff < n, f32 and
-    f64, eigenvalues within 1e-5 / 1e-11 of ||H||_F, ||Z T Z^T - H|| and
-    ||Z^T Z - I|| within 1e-5 / 1e-12; francis_filter_sweeps against its
+    at n = 3-200 (each change of warp count, 31-33 and 64-65; Z in shared
+    memory on both sides of its limit, 119/120 in f64 and 169/170 in f32; H
+    in global memory from 170 in f64), the Krylov-Schur arrow form, exact
+    conjugate pairs, k_eff < n, a zero diagonal (the zero-neighbour
+    safeguard) and the cyclic shift (the exceptional shift), f32 and f64,
+    eigenvalues within 1e-5 / 1e-11 of ||H||_F, ||Z T Z^T - H|| and
+    ||Z^T Z - I|| within 1e-5 / 1e-12, and in f64 at n <= 128 the plain
+    version's sweeps and chase steps exactly; francis_filter_sweeps against its
     plain version on Arnoldi Hessenbergs at kdim 16, 40, 64; one
     hessenberg_ritz check at kdim 40 under set_sync_debug_mode("error");
     (b) gl512 under projected="device" (the phase's main path, the kernels'
@@ -155,9 +159,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     and 29b; (d) the non-normal eigs f64 through Block-ELL with IRAM
     restarts, then with a custom selector through the device Schur restart
     (its ordschur host reads printed), by true residual; (g) a check, each
-    kernel alone and the plain Schur core at kdim 32, 40, 64, 128, f32 and
-    f64, with sweeps and chase steps, beside the host path's read plus
-    numpy eig and torch.linalg.eigvals on the card.
+    kernel alone (the Schur kernel with and without Z) and the plain Schur
+    core at kdim 30, 32, 40, 64, 128, f32 and f64, with sweeps, chase steps,
+    us a chase step and the bound, beside the host path's read plus numpy
+    eig and torch.linalg.eigvals on the card; the wrappers' host us a call
+    beside clone's, and the Schur wrapper's launches in one call (its
+    kernel alone, by torch.profiler).
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -170,6 +177,7 @@ import queue
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import traceback
@@ -238,11 +246,16 @@ RANK_TIMEOUT_S = 300
 BATCH_PS = (2, 4)
 R5_N, R5_NEV, R5_KDIM, R5_TOL = 64, 4, 12, 5e-5
 # phase 33: the device projected path
-SCHUR_N = (3, 17, 40, 64, 128, 200)
+SCHUR_N = (3, 17, 31, 32, 33, 40, 64, 65, 119, 120, 128, 169, 170, 200)
+# in f64 up to this n the kernel takes the plain version's sweeps and chase
+# steps: it copies the order in which cuBLAS, as torch 2.11.0+cu128 picks its
+# kernels on the H100, accumulates the plain version's 2x2 and 3x3 products
+SCHUR_SAME_WORK_N = 128
 SCHUR_EIG_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}   # of ||H||_F
 SCHUR_ORTH_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms
 FILTER_EIG_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F
-RITZ_KDIMS = (32, 40, 64, 128)
+RITZ_KDIMS = (30, 32, 40, 64, 128)
+HOST_US_CALLS = 50
 MAIN_KDIM = 40  # gl512's, the main path's shape
 # peak non-tensor-core rates of one H100 SXM at 700 W (NVIDIA's data sheet):
 # float32 67 TFLOP/s, float64 34 TFLOP/s
@@ -2088,7 +2101,8 @@ def arnoldi_hessenberg(kdim, seed, n=512):
 
 def schur_inputs():
     """(label, matrix, k_eff): seeded Hessenberg matrices at SCHUR_N, the
-    Krylov-Schur arrow form, exact conjugate pairs, and k_eff < n."""
+    Krylov-Schur arrow form, exact conjugate pairs, k_eff < n, a zero
+    diagonal and the cyclic shift, on which the Wilkinson shifts stall."""
     rng = np.random.default_rng(33)
     cases = [(f"hess{n}", np.triu(rng.standard_normal((n, n)), -1), n) for n in SCHUR_N]
     m, n = 20, 40
@@ -2103,6 +2117,13 @@ def schur_inputs():
     Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
     cases.append(("pairs40", Q @ D @ Q.T, n))
     cases.append(("keff50of64", np.triu(rng.standard_normal((64, 64)), -1), 50))
+    zero_diag = np.triu(rng.standard_normal((24, 24)), -1)
+    np.fill_diagonal(zero_diag, 0.0)
+    cases.append(("zerodiag24", zero_diag, 24))
+    cyclic = np.zeros((4, 4))
+    cyclic[np.arange(1, 4), np.arange(3)] = 1.0
+    cyclic[0, 3] = 1.0
+    cases.append(("cyclic4", cyclic, 4))
     return cases
 
 
@@ -2158,11 +2179,13 @@ def hessenberg_kernels(dev, tag):
             orth = float(np.linalg.norm(Zn.T @ Zn - np.eye(len(Zn)), 2))
             row = dict(case=label, dtype=str(dtype), n=int(H.shape[0]), k_eff=k, ok=bool(ok),
                        sweeps=int(work[0]), steps=int(work[1]), plain_sweeps=int(pwork[0]),
-                       eig_vs_plain=d_plain, eig_vs_numpy=d_np, factorization=fact,
+                       plain_steps=int(pwork[1]), eig_vs_plain=d_plain, eig_vs_numpy=d_np,
+                       factorization=fact,
                        orthogonality=orth, max_abs_err=d_plain * norm, plain_s=plain_s)
             out["schur"].append(row)
             print(f"hessenberg_schur {label} {dtype}: ok {bool(ok)}, {row['sweeps']} sweeps "
-                  f"({row['steps']} chase steps; plain {row['plain_sweeps']}), eigenvalues vs "
+                  f"({row['steps']} chase steps; plain {row['plain_sweeps']}, "
+                  f"{row['plain_steps']}), eigenvalues vs "
                   f"plain {d_plain:.2e} and vs numpy {d_np:.2e} of ||H||_F, ||ZTZ^T-H||/||H|| "
                   f"{fact:.2e}, ||Z^TZ-I|| {orth:.2e}; plain {plain_s:.2f} s on the card")
             check(bool(ok) and bool(pok), f"hessenberg_schur {label} {dtype}: sweep budget out")
@@ -2173,6 +2196,13 @@ def hessenberg_kernels(dev, tag):
             check(fact <= otol and orth <= otol,
                   f"hessenberg_schur {label} {dtype}: factorization {fact:.2e}, orthogonality "
                   f"{orth:.2e} (gate {otol})")
+            if dtype == torch.float64 and H.shape[0] <= SCHUR_SAME_WORK_N:
+                check([row["sweeps"], row["steps"]] == [row["plain_sweeps"], row["plain_steps"]],
+                      f"hessenberg_schur {label} f64: sweeps and chase steps "
+                      f"{[row['sweeps'], row['steps']]}, plain "
+                      f"{[row['plain_sweeps'], row['plain_steps']]} (the kernel copies the "
+                      f"accumulation order of cuBLAS's small products as torch 2.11.0+cu128 "
+                      f"picks them; this is torch {torch.__version__}, CUDA {torch.version.cuda})")
         for kdim in (16, MAIN_KDIM, 64):
             Hs = arnoldi_hessenberg(kdim, seed=kdim)[:kdim, :kdim]
             Ht = torch.from_numpy(Hs).to(dev, dtype)
@@ -2234,6 +2264,8 @@ def hessenberg_times(dev, tag):
             Hs = He[:kdim, :kdim].contiguous()
             ritz_ms = median_ms(lambda i: hess.hessenberg_ritz(He, kdim, 1e-6, 16), runs=10)
             schur_ms = median_ms(lambda i: hess_ops.hessenberg_schur(Hs, kdim), runs=10)
+            schur_z_ms = median_ms(lambda i: hess_ops.hessenberg_schur(Hs, kdim, True, True),
+                                   runs=10)
             _, _, _, _, _, _, work = hess_ops.hessenberg_schur(Hs, kdim)
             wr, wi, order, n, pure, _ = hess._filter_shifts(Hs, kdim // 2)
             filt_ms = median_ms(lambda i: hess_ops.francis_filter_sweeps(Hs, wr, wi, order, n,
@@ -2257,20 +2289,92 @@ def hessenberg_times(dev, tag):
             sweeps, steps = int(work[0]), int(work[1])
             nbytes, flops = schur_work(kdim, steps, False, dtype)
             bound, bound_by = bound_of(nbytes, flops, dtype)
-            fbound, fbound_by = bound_of(*filter_work(kdim, int(fwork[1]), dtype), dtype)
+            zbound, _ = bound_of(*schur_work(kdim, steps, True, dtype), dtype)
+            fsteps = int(fwork[1])
+            fbound, fbound_by = bound_of(*filter_work(kdim, fsteps, dtype), dtype)
             row = dict(ritz_ms=ritz_ms, schur_ms=schur_ms, schur_plain_ms=plain_ms,
-                       sweeps=sweeps, steps=steps, bound_ms=bound, bound_by=bound_by,
-                       filter_ms=filt_ms, filter_plain_ms=fplain_ms, filter_sweeps=int(fwork[0]),
-                       filter_steps=int(fwork[1]), filter_bound_ms=fbound,
+                       sweeps=sweeps, steps=steps, us_a_step=schur_ms * 1e3 / max(steps, 1),
+                       bound_ms=bound, bound_by=bound_by, schur_z_ms=schur_z_ms,
+                       z_bound_ms=zbound, filter_ms=filt_ms, filter_plain_ms=fplain_ms,
+                       filter_sweeps=int(fwork[0]), filter_steps=fsteps,
+                       filter_us_a_step=filt_ms * 1e3 / max(fsteps, 1), filter_bound_ms=fbound,
                        filter_bound_by=fbound_by, host_read_eig_ms=host_ms, eigvals_ms=lib_ms)
             rows[f"{kdim}_{str(dtype)[6:]}"] = row
             print(f"{tag} kdim {kdim} {dtype}: hessenberg_ritz check {ritz_ms:.3f} ms; "
-                  f"hessenberg_schur {schur_ms:.3f} ms ({sweeps} sweeps, {steps} chase steps; "
-                  f"bound {bound * 1e3:.2f} us by {bound_by}), plain {plain_ms:.1f} ms; "
-                  f"francis_filter_sweeps {filt_ms:.3f} ms ({row['filter_sweeps']} sweeps, "
-                  f"{row['filter_steps']} steps), plain {fplain_ms:.1f} ms; host read + numpy "
-                  f"eig {host_ms:.3f} ms; torch.linalg.eigvals {lib_ms:.3f} ms")
+                  f"hessenberg_schur {schur_ms:.3f} ms ({sweeps} sweeps, {steps} chase steps, "
+                  f"{row['us_a_step']:.3f} us a step; bound {bound * 1e3:.3f} us by "
+                  f"{bound_by}), with Z and the split {schur_z_ms:.3f} ms "
+                  f"({schur_z_ms / schur_ms:.2f}x; bound {zbound * 1e3:.3f} us), plain "
+                  f"{plain_ms:.1f} ms; francis_filter_sweeps {filt_ms:.3f} ms "
+                  f"({row['filter_sweeps']} sweeps, {fsteps} steps, "
+                  f"{row['filter_us_a_step']:.3f} us a step; bound {fbound * 1e3:.3f} us), plain "
+                  f"{fplain_ms:.1f} ms; host read + numpy eig {host_ms:.3f} ms; "
+                  f"torch.linalg.eigvals {lib_ms:.3f} ms")
+    rows["wrapper"] = wrapper_cost(dev, tag)
     return rows
+
+
+# one hessenberg_schur call under torch.profiler, in a fresh process: the
+# profiler records the card's kernels only the first time a process uses it
+LAUNCH_PROBE = """
+import json
+import numpy as np
+import torch
+from lightkrylov_tpu_torch.ops import hessenberg as kernels
+n = {n}
+H = torch.from_numpy(np.triu(np.random.default_rng(0).standard_normal((n, n)), -1))
+H = H.to("cuda", torch.float32)
+keff = torch.full((), n, dtype=torch.int32, device="cuda")
+for _ in range(3):
+    kernels.hessenberg_schur(H, keff)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    kernels.hessenberg_schur(H, keff)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def wrapper_cost(dev, tag):
+    """The Schur wrapper's launches in one call with k_eff a 0-d int32 on the
+    card (torch.profiler in a fresh process, which imports the package from
+    this checkout: its kernel and nothing else), and the host us a call of
+    each wrapper, HOST_US_CALLS calls in a row, beside clone's."""
+    He = torch.from_numpy(arnoldi_hessenberg(MAIN_KDIM, seed=MAIN_KDIM)).to(dev, torch.float32)
+    Hs = He[:MAIN_KDIM, :MAIN_KDIM].contiguous()
+    k32 = torch.full((), MAIN_KDIM, dtype=torch.int32, device=dev)
+    wr, wi, order, n, pure, _ = hess._filter_shifts(Hs, MAIN_KDIM // 2)
+    calls = {"hessenberg_schur": lambda: hess_ops.hessenberg_schur(Hs, k32),
+             "francis_filter_sweeps": lambda: hess_ops.francis_filter_sweeps(Hs, wr, wi, order,
+                                                                             n, pure),
+             "clone": lambda: Hs.clone()}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    proc = subprocess.run([sys.executable, "-c", LAUNCH_PROBE.format(n=MAIN_KDIM)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"the launch probe failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    kernels = json.loads(lines[-1]) if proc.returncode == 0 and lines else []
+    print(f"{tag} hessenberg_schur with an int32 k_eff on the card: device activities in "
+          f"one call {kernels}")
+    check(len(kernels) == 1 and "schur_kernel" in kernels[0],
+          f"hessenberg_schur launched {kernels}, not its kernel alone")
+    out = {"schur_call_kernels": kernels}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_US_CALLS):
+            fn()
+        out[f"{name}_host_us"] = (time.perf_counter() - t0) / HOST_US_CALLS * 1e6
+        torch.cuda.synchronize()
+    print(f"{tag} host us a call, {HOST_US_CALLS} in a row: hessenberg_schur "
+          f"{out['hessenberg_schur_host_us']:.1f}, francis_filter_sweeps "
+          f"{out['francis_filter_sweeps_host_us']:.1f}, clone {out['clone_host_us']:.1f}")
+    return out
 
 
 def device_projected_path(dev, tag, results):
@@ -2784,7 +2888,8 @@ def main():
             "by_case": {case: {k: v for k, v in row.items()
                                if k.startswith("filter") == (prefix == "filter")
                                or k in ("host_read_eig_ms", "eigvals_ms")}
-                        for case, row in ht.items()},
+                        for case, row in ht.items() if case != "wrapper"},
+            "wrapper": ht["wrapper"],
         })
     print(json.dumps(kernels))
     print(gpu)

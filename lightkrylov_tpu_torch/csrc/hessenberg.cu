@@ -11,29 +11,63 @@
 //     hessenberg_eigvals (:341) and schur_real (:418) call them;
 //   francis_filter_sweeps: the kdim // 2 sweeps of francis_filter (:687-714).
 //
-// Bound: latency, not bytes.  The work is a chain of a few thousand small
-// dependent steps (a chase step is a 3-element Householder reflector applied
-// to 3 rows and 3 columns of an n x n matrix); the matrix is at most a few
-// hundred KB.  A plain PyTorch translation would read the device at every
-// loop test and launch about ten kernels a chase step.  Here one CTA runs the
-// whole iteration: the matrix lives in shared memory when it fits (n <= 168
-// in f64, n <= 238 in f32; else in the output buffer in global memory), Z
-// always in global memory.  Threads share each row and column update, one
-// element a thread; every thread computes the step's reflector from the same
-// values, so the scalars need no broadcast, and thread 0 alone scans the
-// subdiagonal for deflation, the active window and the shifts between
-// barriers.  A chase step costs two barriers: the row update, then the
-// column update (and Z's).  The entry of column p-1 that a step's row update
-// would write, and the bulge entries it zeroes, are written in the column
-// phase by thread 0, so no thread reads them while they change.
+// Bound: latency, not bytes or operations.  The work is a chain of a few
+// thousand small dependent steps (a chase step is a 3-element Householder
+// reflector applied to 3 rows and 3 columns of an n x n matrix, and needs the
+// previous step's result); the matrix is at most a few hundred KB.  On the
+// H100 a step costs its reflector's sqrt and division and two exchanges
+// through shared memory (a store, a barrier and a load, each some 150-200
+// cycles), so the design keeps every step to those and takes the rest off
+// the chain:
 //
-// The arithmetic follows the JAX code's order: the embedding's dummy
-// diagonal, the 30 n sweep budget, the LAPACK dlahqr-style deflation test
-// with the zero-neighbour safeguard, the exceptional shift every 10 stalled
-// sweeps, and full-slice updates with the annihilated bulge entries set to
-// exactly zero.  Sums in the reduction to Hessenberg form are taken in
-// another order than XLA's, and the compiler may contract products into
-// FMAs, so results agree with the plain version to rounding.
+// - A thread a row or column (ceil(n / 32) warps, at most 8; one warp
+//   synchronises by __syncwarp).  The caller decides the geometry
+//   (ops/hessenberg.py, geometry()) and the launcher checks it.  Every thread
+//   computes the step's reflector from the same values, so the scalars need
+//   no broadcast.
+// - A step's row update covers columns [p-1, n) and its column update rows
+//   [0, min(p+3, hi)]: the entries outside are exact zeros of the Hessenberg
+//   form, whose products the full-slice updates of the JAX code leave zero.
+//   The row update's threads of columns p..p+2 also copy rows p+1 and p+2
+//   of those columns into a 2 x 3 staging block, and every thread holds the
+//   subdiagonal entry H[p+3, p+2], read a step ahead (row p+3's other two
+//   entries there are exact zeros); after the barrier every thread forms
+//   from these the three entries of column p that the next reflector reads,
+//   and that reflector, before the column update, so that the column update
+//   overwrites those rows with no reader left.
+// - H and Z live in shared memory when they fit, H's rows padded to an odd
+//   stride so that a column access is free of bank conflicts, Z transposed
+//   (Z: n <= 119 in f64, 169 in f32; H alone: 169 and 239); else in the
+//   output buffers.  A thread keeps its row of Z in the three columns a
+//   step touches in registers, loading one entry a step ahead and storing
+//   one.
+// - One warp scans the subdiagonal each sweep: a ballot a chunk of 32 finds
+//   the open test, the zero-neighbour test, the deflated entries, hi and lo,
+//   in O(n / 32) steps; the zero-neighbour max |H| is a shuffle reduction.
+//   The same warp forms the chase's first vector and publishes it with the
+//   window, so that no thread of the chase reads the entries that its first
+//   row update writes.
+// - The reduction to Hessenberg form applies each column's reflector only
+//   where its vector u is nonzero: rows and columns [j+1, m], m the last
+//   nonzero row of column j (a ballot), since u's other entries are exact
+//   zeros.  On an Arnoldi Hessenberg m = j+1, so a column costs O(n) and
+//   three CTA barriers.
+//
+// The arithmetic is the JAX code's as the plain version computes it on the
+// card, operation for operation: the embedding's dummy diagonal, every
+// column's reflector of the reduction (sign flips included), the 30 n sweep
+// budget, the LAPACK dlahqr-style deflation test with the zero-neighbour
+// safeguard, the Wilkinson and exceptional shifts, the closing Givens
+// rotation, the annihilated bulge entries set to exactly zero, the block
+// split and the eigenvalues.  Scalar formulas round each operation as numpy
+// does and the small products accumulate in the order that cuBLAS, as torch
+// 2.11.0+cu128 dispatches them, takes on the H100 (see dot3 below), so in
+// f64 at n <= 128 the kernel takes the same sweeps and chase steps as the
+// plain version (chip_smoke.py phase 33 (a) and the cuda tests hold it to
+// that); only sums over a dense column in the reduction are taken in another
+// order.  That order is the library's choice, not the plain version's code:
+// another torch or cuBLAS build may pick other kernels for those products,
+// and then the counts may part while the results stay within the tolerances.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (lightkrylov_tpu_torch/ops/_build.py).  The C entries
@@ -44,10 +78,12 @@
 
 namespace {
 
-constexpr int HS_MAX_THREADS = 256;
-// dynamic shared memory a CTA may take: the H100's 227 KB less 512 bytes
-// for the kernels' static scalars
-constexpr int HS_SMEM_BYTES = 232448 - 512;
+constexpr int HS_MAX_WARPS = 8;
+// shared memory a CTA may take on sm_90, and what the dynamic part leaves
+// for the kernels' static scalars (ops/hessenberg.py holds the same numbers)
+constexpr int HS_SMEM_LIMIT = 232448;
+constexpr int HS_SMEM_RESERVED = 512;
+constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T eps_of();
 template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
@@ -58,316 +94,487 @@ template <typename T> __device__ __forceinline__ T maxnan(T a, T b) {
   return (b > a || b != b) ? b : a;
 }
 
-// Sum / max of one value a thread over the block; every thread gets the
-// result.  red holds 33 values.
-template <typename T> __device__ T block_sum(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T s = T(0);
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += red[w];
-    red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
 }
 
+template <typename T> __device__ __forceinline__ T warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = maxnan(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// The plain version's arithmetic, operation for operation.  Its scalars are
+// numpy's and its elementwise passes torch's: each product and sum rounded
+// on its own (rmul, radd, rsub, which the compiler may not fuse).  Its small
+// products on the card (P @ rows, cols @ P, G^T @ rows, cols @ G^T) go to
+// cuBLAS, which (torch 2.11.0+cu128 on the H100, read on the card) accumulates
+// them in order with fused multiply-adds (dot3, dot2), but for two of the
+// 2 x 2 rotations: G @ rows (the closing Givens on rows) rounds each product
+// (rdot2) in f32 and in f64 at even n, and cols @ G^T does so in f32 up to
+// n = 16 (fused_rows, fused_cols).  These copy that build's kernel choice.
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T dot3(T a0, T a1, T a2, T b0, T b1, T b2) {
+  return fma(a2, b2, fma(a1, b1, rmul(a0, b0)));
+}
+
+template <typename T> __device__ __forceinline__ T dot2(T a0, T a1, T b0, T b1) {
+  return fma(a1, b1, rmul(a0, b0));
+}
+
+template <typename T> __device__ __forceinline__ T rdot2(T a0, T a1, T b0, T b1) {
+  return radd(rmul(a0, b0), rmul(a1, b1));
+}
+
+template <typename T> __device__ __forceinline__ bool fused_rows(int n) {
+  return sizeof(T) == 8 && (n & 1);
+}
+
+template <typename T> __device__ __forceinline__ bool fused_cols(int n) {
+  return sizeof(T) == 8 || n > 16;
+}
+
+// barrier of the CTA, a __syncwarp for one warp
+__device__ __forceinline__ void cta_sync() {
+  if (blockDim.x == 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// an integer argument: read from device memory (bytes 8, 4 or 1) or given
+__device__ __forceinline__ long long int_arg(const void* p, int bytes, long long val) {
+  if (bytes == 8) return *static_cast<const long long*>(p);
+  if (bytes == 4) return *static_cast<const int*>(p);
+  if (bytes == 1) return *static_cast<const unsigned char*>(p);
+  return val;
+}
+
+// max over the CTA of one value a thread; every thread gets it
 template <typename T> __device__ T block_max(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v = maxnan(v, __shfl_down_sync(0xffffffffu, v, o));
+  v = warp_max(v);
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    T m = T(0);
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = maxnan(m, red[w]);
-    red[32] = m;
-  }
-  __syncthreads();
-  return red[32];
+  T m = T(0);
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = maxnan(m, red[w]);
+  return m;
 }
 
-template <typename T> __device__ T block_absmax(const T* A, long long count, T* red) {
+// max |H| over the matrix, by one warp
+template <typename T> __device__ T warp_absmax(const T* H, int ld, int n) {
   T m = T(0);
-  for (long long e = threadIdx.x; e < count; e += blockDim.x) m = maxnan(m, fabs(A[e]));
-  return block_max(m, red);
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < n; ++i)
+    for (int j = lane; j < n; j += 32) m = maxnan(m, fabs(H[i * ld + j]));
+  return warp_max(m);
 }
 
 // P = I - 2 v v^T / (v^T v) annihilating (y, z) in (x, y, z); the identity
 // when the vector already is (x, 0, 0) (hessenberg.py:69-82)
 template <typename T>
 __device__ __forceinline__ void householder3(T x, T y, T z, T P[9]) {
-  const T s = sqrt(x * x + y * y + z * z);
+  const T s = sqrt(radd(radd(rmul(x, x), rmul(y, y)), rmul(z, z)));
   const T alpha = -(x >= T(0) ? s : -s);
-  const T v0 = x - alpha;
-  const T vn2 = v0 * v0 + y * y + z * z;
+  const T v0 = rsub(x, alpha);
+  const T vn2 = radd(radd(rmul(v0, v0), rmul(y, y)), rmul(z, z));
   const T inv = vn2 > T(0) ? T(2) / vn2 : T(0);
   const T v[3] = {v0, y, z};
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) P[r * 3 + c] = (r == c ? T(1) : T(0)) - inv * (v[r] * v[c]);
+    for (int c = 0; c < 3; ++c)
+      P[r * 3 + c] = rsub(r == c ? T(1) : T(0), rmul(inv, rmul(v[r], v[c])));
+}
+
+// The first column of (H - s1 I)(H - s2 I) on the window from row lo, for
+// the shift sum s and product t: the chase's first vector (hessenberg.py:114-122)
+template <typename T>
+__device__ __forceinline__ void first_vector(const T* H, int ldh, int lo, T s, T t, T& x, T& y,
+                                             T& z) {
+  const T h00 = H[lo * ldh + lo], h01 = H[lo * ldh + lo + 1];
+  const T h10 = H[(lo + 1) * ldh + lo], h11 = H[(lo + 1) * ldh + lo + 1];
+  const T h21 = H[(lo + 2) * ldh + lo + 1];
+  x = radd(rsub(radd(rmul(h00, h00), rmul(h01, h10)), rmul(s, h00)), t);
+  y = rmul(h10, rsub(radd(h00, h11), s));
+  z = rmul(h10, h21);
 }
 
 // One Francis double-shift bulge chase on the window [lo, hi] (size >= 3)
-// with shift sum s and product t, then the closing Givens rotation
-// (hessenberg.py:85-163).  Every thread calls it, after a barrier since the
-// last write to H; it ends with a barrier.  Z (n x n) may be null.
+// from the first vector (x, y, z), then the closing Givens rotation
+// (hessenberg.py:85-163), by the whole CTA.  Called after a barrier since
+// the last write to H; ends with one.  H has row stride ldh; Zt, Z
+// transposed (may be null), ldz; stage, 6 entries of shared memory.  Thread
+// g keeps Z's row g in columns p..p+2 in registers from step to step: a
+// step loads one entry, a step ahead, and stores one.  Between two barriers
+// a thread reads only entries of H that no other thread writes there.
 template <typename T>
-__device__ void chase(T* H, T* Z, int n, int lo, int hi, T s, T t) {
-  if (n < 3) return;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const T h00 = H[lo * n + lo], h01 = H[lo * n + lo + 1], h10 = H[(lo + 1) * n + lo];
-  const T h11 = H[(lo + 1) * n + lo + 1], h21 = H[(lo + 2) * n + lo + 1];
-  const T x0 = h00 * h00 + h01 * h10 - s * h00 + t;
-  const T y0 = h10 * (h00 + h11 - s);
-  const T z0 = h10 * h21;
-  __syncthreads();  // the first step's row update writes these entries
-  int p = lo < 0 ? 0 : (lo > n - 3 ? n - 3 : lo);
-  for (; p <= hi - 2; ++p) {
-    const bool first = p == lo;
-    T x = x0, y = y0, z = z0;
-    if (!first) {
-      x = H[p * n + p - 1];
-      y = H[(p + 1) * n + p - 1];
-      z = H[(p + 2) * n + p - 1];
-    }
-    T P[9];
-    householder3(x, y, z, P);
-    T* r0p = H + p * n;
-    T* r1p = r0p + n;
-    T* r2p = r1p + n;
-    for (int c = tid; c < n; c += nt) {
-      if (!first && c == p - 1) continue;  // written below, in the column phase
-      const T r0 = r0p[c], r1 = r1p[c], r2 = r2p[c];
-      r0p[c] = P[0] * r0 + P[1] * r1 + P[2] * r2;
-      r1p[c] = P[3] * r0 + P[4] * r1 + P[5] * r2;
-      r2p[c] = P[6] * r0 + P[7] * r1 + P[8] * r2;
-    }
-    __syncthreads();
-    for (int r = tid; r < n; r += nt) {
-      T* row = H + r * n + p;
-      const T c0 = row[0], c1 = row[1], c2 = row[2];
-      row[0] = c0 * P[0] + c1 * P[3] + c2 * P[6];
-      row[1] = c0 * P[1] + c1 * P[4] + c2 * P[7];
-      row[2] = c0 * P[2] + c1 * P[5] + c2 * P[8];
-      if (Z) {
-        T* zr = Z + r * n + p;
-        const T d0 = zr[0], d1 = zr[1], d2 = zr[2];
-        zr[0] = d0 * P[0] + d1 * P[3] + d2 * P[6];
-        zr[1] = d0 * P[1] + d1 * P[4] + d2 * P[7];
-        zr[2] = d0 * P[2] + d1 * P[5] + d2 * P[8];
+__device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, int n, int lo,
+                      int hi, T x, T y, T z, T* __restrict__ stage) {
+  const int g = threadIdx.x, G = blockDim.x;
+  T P[9];
+  householder3(x, y, z, P);
+  const bool zown = Zt != nullptr && g < n;
+  // H[p+3, p+2] for the step p to come; the chase leaves it as it is until
+  // step p's column update
+  T sub3 = lo + 1 <= hi - 2 ? H[(lo + 3) * ldh + lo + 2] : T(0);
+  T z0 = T(0), z1 = T(0), z2 = T(0);
+  if (zown) {
+    z0 = Zt[lo * ldz + g];
+    z1 = Zt[(lo + 1) * ldz + g];
+    z2 = Zt[(lo + 2) * ldz + g];
+  }
+  for (int p = lo;; ++p) {
+    const bool more = p + 1 <= hi - 2;
+    const T z3 = zown && more ? Zt[(p + 3) * ldz + g] : T(0);
+    T* r0p = H + p * ldh;
+    T* r1p = r0p + ldh;
+    T* r2p = r1p + ldh;
+    // rows p..p+2 <- P rows, over columns [p-1, n); the bulge column p-1
+    // keeps its reflected head and exact zeros below it.  Rows p+1 and p+2
+    // of columns p..p+2 go to the staging block too.
+    for (int c = (p > 0 ? p - 1 : 0) + g; c < n; c += G) {
+      const T a0 = r0p[c], a1 = r1p[c], a2 = r2p[c];
+      const bool bulge = p > lo && c == p - 1;
+      const T b1 = bulge ? T(0) : dot3(P[3], P[4], P[5], a0, a1, a2);
+      const T b2 = bulge ? T(0) : dot3(P[6], P[7], P[8], a0, a1, a2);
+      r0p[c] = dot3(P[0], P[1], P[2], a0, a1, a2);
+      r1p[c] = b1;
+      r2p[c] = b2;
+      const unsigned sc = c - p;
+      if (sc < 3u) {
+        stage[sc] = b1;
+        stage[3 + sc] = b2;
       }
     }
-    if (!first && tid == 0) {
-      // the bulge column: its reflected head, and exact zeros below it
-      r0p[p - 1] = P[0] * x + P[1] * y + P[2] * z;
-      r1p[p - 1] = T(0);
-      r2p[p - 1] = T(0);
+    cta_sync();
+    // column p of rows p+1..p+3 after this step's column update: the next
+    // reflector's vector (the closing rotation's, after the last step); in
+    // row p+3 only H[p+3, p+2] is nonzero
+    x = dot3(stage[0], stage[1], stage[2], P[0], P[3], P[6]);
+    y = dot3(stage[3], stage[4], stage[5], P[0], P[3], P[6]);
+    z = more ? rmul(sub3, P[6]) : T(0);
+    sub3 = p + 2 <= hi - 2 ? H[(p + 4) * ldh + p + 3] : T(0);
+    // columns p..p+2 <- columns P, over rows [0, min(p+3, hi)], and Z's
+    // over all rows; a thread's first row beside the next reflector
+    const int rend = p + 3 < hi ? p + 3 : hi;
+    const bool own = g <= rend;
+    T* e = H + g * ldh + p;
+    T c0 = T(0), c1 = T(0), c2 = T(0);
+    if (own) {
+      c0 = e[0];
+      c1 = e[1];
+      c2 = e[2];
     }
-    __syncthreads();
+    T Pn[9];
+    householder3(x, y, z, Pn);
+    if (own) {
+      e[0] = dot3(c0, c1, c2, P[0], P[3], P[6]);
+      e[1] = dot3(c0, c1, c2, P[1], P[4], P[7]);
+      e[2] = dot3(c0, c1, c2, P[2], P[5], P[8]);
+    }
+    if (zown) {
+      const T n0 = dot3(z0, z1, z2, P[0], P[3], P[6]);
+      const T n1 = dot3(z0, z1, z2, P[1], P[4], P[7]);
+      const T n2 = dot3(z0, z1, z2, P[2], P[5], P[8]);
+      Zt[p * ldz + g] = n0;
+      z0 = n1;
+      z1 = n2;
+      z2 = z3;
+    }
+    for (int r = g + G; r <= rend; r += G) {
+      T* f = H + r * ldh + p;
+      const T d0 = f[0], d1 = f[1], d2 = f[2];
+      f[0] = dot3(d0, d1, d2, P[0], P[3], P[6]);
+      f[1] = dot3(d0, d1, d2, P[1], P[4], P[7]);
+      f[2] = dot3(d0, d1, d2, P[2], P[5], P[8]);
+    }
+    if (Zt)
+      for (int r = g + G; r < n; r += G) {
+        T* f = Zt + p * ldz + r;
+        const T d0 = f[0], d1 = f[ldz], d2 = f[2 * ldz];
+        f[0] = dot3(d0, d1, d2, P[0], P[3], P[6]);
+        f[ldz] = dot3(d0, d1, d2, P[1], P[4], P[7]);
+        f[2 * ldz] = dot3(d0, d1, d2, P[2], P[5], P[8]);
+      }
+    cta_sync();
+    if (!more) break;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) P[i] = Pn[i];
   }
-  // closing Givens on rows/columns (hi-1, hi), zeroing H[hi, hi-2]
-  const T x = H[(hi - 1) * n + hi - 2], y = H[hi * n + hi - 2];
-  const T r = sqrt(x * x + y * y);
+  // closing Givens on rows/columns (hi-1, hi), zeroing H[hi, hi-2]; (x, y)
+  // is column hi-2 of those rows
+  const T r = sqrt(radd(rmul(x, x), rmul(y, y)));
   const T c = r > T(0) ? x / r : T(1);
   const T sn = r > T(0) ? y / r : T(0);
-  T* ra = H + (hi - 1) * n;
-  T* rb = ra + n;
-  for (int col = tid; col < n; col += nt) {
-    if (col == hi - 2) continue;
-    const T a = ra[col], b = rb[col];
-    ra[col] = c * a + sn * b;
-    rb[col] = -sn * a + c * b;
+  T* ra = H + (hi - 1) * ldh;
+  T* rb = ra + ldh;
+  const bool fr = fused_rows<T>(n), fc = fused_cols<T>(n);
+  for (int col = hi - 2 + g; col < n; col += G) {
+    const T u = ra[col], v = rb[col];
+    ra[col] = fr ? dot2(c, sn, u, v) : rdot2(c, sn, u, v);
+    rb[col] = col == hi - 2 ? T(0) : (fr ? dot2(-sn, c, u, v) : rdot2(-sn, c, u, v));
   }
-  __syncthreads();
-  for (int row = tid; row < n; row += nt) {
-    T* e = H + row * n + hi - 1;
-    const T a = e[0], b = e[1];
-    e[0] = a * c + b * sn;
-    e[1] = a * -sn + b * c;
-    if (Z) {
-      T* ze = Z + row * n + hi - 1;
-      const T za = ze[0], zb = ze[1];
-      ze[0] = za * c + zb * sn;
-      ze[1] = za * -sn + zb * c;
+  cta_sync();
+  for (int row = g; row <= hi; row += G) {
+    T* e = H + row * ldh + hi - 1;
+    const T u = e[0], v = e[1];
+    e[0] = fc ? dot2(u, v, c, sn) : rdot2(u, v, c, sn);
+    e[1] = fc ? dot2(u, v, -sn, c) : rdot2(u, v, -sn, c);
+  }
+  if (zown) {
+    Zt[(hi - 1) * ldz + g] = fc ? dot2(z0, z1, c, sn) : rdot2(z0, z1, c, sn);
+    Zt[hi * ldz + g] = fc ? dot2(z0, z1, -sn, c) : rdot2(z0, z1, -sn, c);
+  }
+  if (Zt)
+    for (int row = g + G; row < n; row += G) {
+      T* e = Zt + (hi - 1) * ldz + row;
+      const T u = e[0], v = e[ldz];
+      e[0] = fc ? dot2(u, v, c, sn) : rdot2(u, v, c, sn);
+      e[ldz] = fc ? dot2(u, v, -sn, c) : rdot2(u, v, -sn, c);
     }
-  }
-  if (tid == 0) {
-    ra[hi - 2] = c * x + sn * y;
-    rb[hi - 2] = T(0);
-  }
-  __syncthreads();
+  cta_sync();
 }
 
-template <typename T> __host__ __device__ constexpr long long smem_need(int n) {
-  return (static_cast<long long>(n) * n + 4LL * n) * static_cast<long long>(sizeof(T)) + 4LL * n;
-}
+// The sweep decision that warp 0 makes and every thread reads, double
+// buffered by sweep parity: lo, hi, action (1 chase, 0 none, -1 stop) and
+// the chase's first vector (x, y, z)
+template <typename T> struct Decision {
+  int lo, hi, action;
+  T x, y, z;
+};
 
+// the n x n matrix A (row stride ld) into out, transposed or not
 template <typename T>
-__global__ void __launch_bounds__(HS_MAX_THREADS)
-schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, int* acc_out,
-             int* status, const int* keff_ptr, int n, int with_z, int split, int h_in_smem) {
+__device__ void copy_out(const T* A, int ld, T* out, int n, bool transpose) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int i = warp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) out[i * n + j] = transpose ? A[j * ld + i] : A[i * ld + j];
+}
+
+// Z from its transpose in place, in the output buffer
+template <typename T> __device__ void transpose_in_place(T* A, int n) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int i = warp; i < n; i += nw)
+    for (int j = i + 1 + lane; j < n; j += 32) {
+      const T a = A[i * n + j];
+      A[i * n + j] = A[j * n + i];
+      A[j * n + i] = a;
+    }
+}
+
+template <typename T, bool HS, bool ZS>
+__global__ void __launch_bounds__(HS_MAX_WARPS * 32)
+schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* acc_out,
+             bool* ok_out, int* work, const void* keff_ptr, int keff_bytes, long long keff_val,
+             int n, int with_z, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[33];
-  __shared__ T sc[2];
-  __shared__ int si[8];
-  T* H = h_in_smem ? reinterpret_cast<T*>(smem_raw) : Tout;
-  T* vec = h_in_smem ? H + static_cast<long long>(n) * n : reinterpret_cast<T*>(smem_raw);
-  T* u = vec;
-  T* w = vec + n;
-  T* v = vec + 2 * n;
-  T* zv = vec + 3 * n;
-  int* acc = reinterpret_cast<int*>(vec + 4 * n);
-  T* Z = with_z ? Zout : nullptr;
+  __shared__ T red[HS_MAX_WARPS];
+  __shared__ T col_inv;
+  __shared__ int col_end;
+  __shared__ Decision<T> dec[2];
+  __shared__ T stage[6];
+  const int ldh = HS ? (n | 1) : n, ldz = ZS ? (n | 1) : n;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* H = Tout;
+  T* Zm = Zout;
+  if constexpr (HS) {
+    H = base;
+    base += n * ldh;
+  }
+  if constexpr (ZS) {
+    Zm = base;
+    base += n * ldz;
+  }
+  T* u = base;
+  int* acc = reinterpret_cast<int*>(u + n);
+  T* Z = with_z ? Zm : nullptr;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int k = *keff_ptr;
-  const long long nn = static_cast<long long>(n) * n;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int k = static_cast<int>(int_arg(keff_ptr, keff_bytes, keff_val));
 
   // _embed: zero the inactive block, plant the dummy diagonal
   T m = T(0);
-  for (long long e = tid; e < nn; e += nt) {
-    const int i = static_cast<int>(e / n), j = static_cast<int>(e % n);
-    if (i < k && j < k) m = maxnan(m, fabs(Hin[e]));
-  }
-  const T norm = block_max(m, red) + T(1);
-  for (long long e = tid; e < nn; e += nt) {
-    const int i = static_cast<int>(e / n), j = static_cast<int>(e % n);
-    T val = (i < k && j < k) ? Hin[e] : T(0);
-    if (i == j && i >= k) val = norm * (T(2) + T(i) / T(n));
-    H[e] = val;
-    if (Z) Z[e] = i == j ? T(1) : T(0);
-  }
+  for (int i = warp; i < k && i < n; i += nw)
+    for (int j = lane; j < k && j < n; j += 32) m = maxnan(m, fabs(Hin[i * n + j]));
+  const T norm = radd(block_max(m, red), T(1));
+  for (int i = warp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) {
+      T val = (i < k && j < k) ? Hin[i * n + j] : T(0);
+      if (i == j && i >= k) val = rmul(norm, radd(T(2), T(i) / T(n)));
+      H[i * ldh + j] = val;
+      if (Z) Z[i * ldz + j] = i == j ? T(1) : T(0);
+    }
   for (int i = tid; i < n; i += nt) acc[i] = 0;
   __syncthreads();
 
-  // _to_hessenberg: one Householder reflector a column
+  // _to_hessenberg: one Householder reflector a column, applied where its
+  // vector u is nonzero, rows and columns [j+1, m]
   for (int j = 0; j + 2 < n; ++j) {
-    T part = T(0);
-    for (int i = j + 1 + tid; i < n; i += nt) part += H[i * n + j] * H[i * n + j];
-    const T s = sqrt(block_sum(part, red));
-    const T x0 = H[(j + 1) * n + j];
-    const T alpha = -(x0 >= T(0) ? s : -s);
-    for (int i = tid; i < n; i += nt)
-      u[i] = i > j ? H[i * n + j] - (i == j + 1 ? alpha : T(0)) : T(0);
-    __syncthreads();
-    T p2 = T(0);
-    for (int i = j + 1 + tid; i < n; i += nt) p2 += u[i] * u[i];
-    const T un2 = block_sum(p2, red);
-    const T inv = un2 > T(0) ? T(2) / un2 : T(0);
-    for (int c = tid; c < n; c += nt) {  // w = u^T H
-      T a = T(0);
-      for (int i = j + 1; i < n; ++i) a += u[i] * H[i * n + c];
-      w[c] = a;
+    if (warp == 0) {
+      int mrow = j + 1;
+      for (int i0 = j + 2; i0 < n; i0 += 32) {
+        const int i = i0 + lane;
+        const unsigned b = __ballot_sync(FULL, i < n && H[i * ldh + j] != T(0));
+        if (b) mrow = i0 + 31 - __clz(b);
+      }
+      // one nonzero (a Hessenberg column): its square is the whole sum
+      const bool one = mrow == j + 1;
+      const T x0 = H[(j + 1) * ldh + j];
+      T part = T(0);
+      for (int i = j + 1 + lane; i <= mrow; i += 32)
+        part = radd(part, rmul(H[i * ldh + j], H[i * ldh + j]));
+      const T s = sqrt(one ? rmul(x0, x0) : warp_sum(part));
+      const T alpha = -(x0 >= T(0) ? s : -s);
+      T p2 = T(0);
+      for (int i = j + 1 + lane; i <= mrow; i += 32) {
+        const T ui = i == j + 1 ? rsub(x0, alpha) : H[i * ldh + j];
+        u[i] = ui;
+        p2 = radd(p2, rmul(ui, ui));
+      }
+      const T u0 = rsub(x0, alpha);
+      const T un2 = one ? rmul(u0, u0) : warp_sum(p2);
+      if (lane == 0) {
+        col_inv = un2 > T(0) ? T(2) / un2 : T(0);
+        col_end = mrow;
+      }
     }
     __syncthreads();
-    for (long long e = tid; e < static_cast<long long>(n - j - 1) * n; e += nt) {
-      const int i = j + 1 + static_cast<int>(e / n), c = static_cast<int>(e % n);
-      H[i * n + c] -= inv * (u[i] * w[c]);
+    const T inv = col_inv;
+    const int mrow = col_end;
+    for (int c = tid; c < n; c += nt) {  // w = u^T H, then H -= inv u w^T
+      T w = T(0);
+      for (int i = j + 1; i <= mrow; ++i) w = fma(u[i], H[i * ldh + c], w);
+      for (int i = j + 1; i <= mrow; ++i)
+        H[i * ldh + c] = rsub(H[i * ldh + c], rmul(inv, rmul(u[i], w)));
     }
     __syncthreads();
-    for (int r = tid; r < n; r += nt) {  // v = H u, zv = Z u
-      T a = T(0), b = T(0);
-      for (int c = j + 1; c < n; ++c) a += H[r * n + c] * u[c];
-      if (Z)
-        for (int c = j + 1; c < n; ++c) b += Z[r * n + c] * u[c];
-      v[r] = a;
-      zv[r] = b;
+    for (int r = tid; r < n; r += nt) {  // v = H u, H -= inv v u^T; Z's
+      T* row = H + r * ldh;
+      T v = T(0);
+      for (int c = j + 1; c <= mrow; ++c) v = fma(row[c], u[c], v);
+      for (int c = j + 1; c <= mrow; ++c) row[c] = rsub(row[c], rmul(inv, rmul(v, u[c])));
+      if (Z) {  // Z is kept transposed
+        T zv = T(0);
+        for (int c = j + 1; c <= mrow; ++c) zv = fma(Z[c * ldz + r], u[c], zv);
+        for (int c = j + 1; c <= mrow; ++c)
+          Z[c * ldz + r] = rsub(Z[c * ldz + r], rmul(inv, rmul(zv, u[c])));
+      }
+      if (r >= j + 2 && r <= mrow) row[j] = T(0);
     }
-    __syncthreads();
-    const int width = n - j - 1;
-    for (long long e = tid; e < static_cast<long long>(n) * width; e += nt) {
-      const int r = static_cast<int>(e / width), c = j + 1 + static_cast<int>(e % width);
-      H[r * n + c] -= inv * (v[r] * u[c]);
-      if (Z) Z[r * n + c] -= inv * (zv[r] * u[c]);
-    }
-    __syncthreads();
-    for (int i = j + 2 + tid; i < n; i += nt) H[i * n + j] = T(0);
     __syncthreads();
   }
 
-  // _schur_core
-  int ok = 1, sweeps = 0, steps = 0;  // steps: chase steps, thread 0's
+  // _schur_core, by the CTA; warp 0 decides each sweep
+  bool ok = true;
+  int sweeps = 0, steps = 0;  // warp 0's
   if (n >= 2) {
     const T eps = eps_of<T>();
     const int max_sweeps = 30 * n;
-    int last_hi = -1, stall = 0;  // thread 0's
-    while (true) {
-      __syncthreads();
-      if (tid == 0) {
-        bool open = false;
-        for (int i = 0; i + 1 < n && !open; ++i) open = H[(i + 1) * n + i] != T(0) && !acc[i];
-        si[0] = open && sweeps < max_sweeps;
-        bool need = false;
-        for (int i = 0; si[0] && i + 1 < n && !need; ++i)
-          need = fabs(H[i * n + i]) + fabs(H[(i + 1) * n + i + 1]) == T(0);
-        si[1] = need;
-      }
-      __syncthreads();
-      if (!si[0]) break;
-      const T hmax = si[1] ? block_absmax(H, nn, red) : T(0);
-      if (tid == 0) {
-        int hi_c = -1;
-        for (int i = 0; i + 1 < n; ++i) {
-          T tst = fabs(H[i * n + i]) + fabs(H[(i + 1) * n + i + 1]);
-          if (tst == T(0)) tst = hmax;
-          T& sub = H[(i + 1) * n + i];
-          if (fabs(sub) <= eps * tst) sub = T(0);
-          if (sub != T(0) && !acc[i]) hi_c = i;
-        }
-        const int hi = hi_c + 1;
-        int lo = 0;
-        for (int i = 0; i < hi_c; ++i)
-          if (H[(i + 1) * n + i] == T(0)) lo = i + 1;
-        stall = hi == last_hi ? stall + 1 : 0;
-        int action = 0;
-        if (hi_c >= 0 && hi - lo >= 2) {
-          const T a11 = H[(hi - 1) * n + hi - 1], a12 = H[(hi - 1) * n + hi];
-          const T a21 = H[hi * n + hi - 1], a22 = H[hi * n + hi];
-          T s = a11 + a22, t = a11 * a22 - a12 * a21;
-          if (stall > 0 && stall % 10 == 0) {
-            const T sexc = fabs(a21) + fabs(H[(hi - 1) * n + (hi - 2 > 0 ? hi - 2 : 0)]);
-            const T wexc = a22 + T(0.75) * sexc;
-            s = T(2) * wexc;
-            t = wexc * wexc;
+    int last_hi = -1, stall = 0;
+    for (int sweep = 0;; ++sweep) {
+      Decision<T>& d = dec[sweep & 1];
+      if (warp == 0) {
+        bool open = false, need = false;
+        for (int i0 = 0; i0 + 1 < n; i0 += 32) {
+          const int i = i0 + lane;
+          bool o = false, z = false;
+          if (i + 1 < n) {
+            o = H[(i + 1) * ldh + i] != T(0) && !acc[i];
+            z = fabs(H[i * ldh + i]) + fabs(H[(i + 1) * ldh + i + 1]) == T(0);
           }
-          sc[0] = s;
-          sc[1] = t;
-          si[2] = lo;
-          si[3] = hi;
-          action = 1;
-          steps += hi - lo - 1;
-        } else if (hi_c >= 0) {
-          acc[hi_c] = 1;
+          open |= __ballot_sync(FULL, o) != 0;
+          need |= __ballot_sync(FULL, z) != 0;
         }
-        si[4] = action;
-        last_hi = hi;
-        ++sweeps;
+        int action = -1, lo = 0, hi_c = -1;
+        if (open && sweeps < max_sweeps) {
+          const T hmax = need ? warp_absmax(H, ldh, n) : T(0);
+          int zlast = -1;  // the last zero subdiagonal below the chunk
+          for (int i0 = 0; i0 + 1 < n; i0 += 32) {
+            const int i = i0 + lane;
+            bool o = false, zero = false;
+            if (i + 1 < n) {
+              T tst = fabs(H[i * ldh + i]) + fabs(H[(i + 1) * ldh + i + 1]);
+              if (tst == T(0)) tst = hmax;
+              T& sub = H[(i + 1) * ldh + i];
+              T sv = sub;
+              if (fabs(sv) <= rmul(eps, tst)) {
+                sub = T(0);
+                sv = T(0);
+              }
+              zero = sv == T(0);
+              o = !zero && !acc[i];
+            }
+            const unsigned mo = __ballot_sync(FULL, o), mz = __ballot_sync(FULL, zero);
+            if (mo) {
+              const int h = 31 - __clz(mo);
+              hi_c = i0 + h;
+              const unsigned below = mz & ((1u << h) - 1u);
+              lo = below ? i0 + 32 - __clz(below) : zlast + 1;
+            }
+            if (mz) zlast = i0 + 31 - __clz(mz);
+          }
+          __syncwarp();  // the deflated entries, before the shifts read them
+          const int hi = hi_c + 1;
+          stall = hi == last_hi ? stall + 1 : 0;
+          action = 0;
+          if (hi_c >= 0 && hi - lo >= 2) {
+            const T a11 = H[(hi - 1) * ldh + hi - 1], a12 = H[(hi - 1) * ldh + hi];
+            const T a21 = H[hi * ldh + hi - 1], a22 = H[hi * ldh + hi];
+            T s = radd(a11, a22), t = rsub(rmul(a11, a22), rmul(a12, a21));
+            if (stall > 0 && stall % 10 == 0) {
+              const T sexc = radd(fabs(a21), fabs(H[(hi - 1) * ldh + hi - 2]));
+              const T wexc = radd(a22, rmul(T(0.75), sexc));
+              s = rmul(T(2), wexc);
+              t = rmul(wexc, wexc);
+            }
+            action = 1;
+            steps += hi - lo - 1;
+            if (lane == 0) first_vector(H, ldh, lo, s, t, d.x, d.y, d.z);
+          } else if (hi_c >= 0 && lane == 0) {
+            acc[hi_c] = 1;
+          }
+          last_hi = hi;
+          ++sweeps;
+        } else {
+          ok = !open;
+        }
+        if (lane == 0) {
+          d.lo = lo;
+          d.hi = hi_c + 1;
+          d.action = action;
+        }
       }
-      __syncthreads();
-      if (si[4] == 1) chase(H, Z, n, si[2], si[3], sc[0], sc[1]);
+      cta_sync();
+      const int action = d.action;
+      if (action < 0) break;
+      if (action == 1) chase(H, ldh, Z, ldz, n, d.lo, d.hi, d.x, d.y, d.z, stage);
     }
-    if (tid == 0)
-      for (int i = 0; i + 1 < n; ++i)
-        if (H[(i + 1) * n + i] != T(0) && !acc[i]) ok = 0;
   }
+  __syncthreads();
 
   // _split_real_blocks: real-pair 2x2 blocks into two 1x1 blocks
   if (split && Z && n >= 2) {
     for (int i = 0; i + 1 < n; ++i) {
-      __syncthreads();
-      const T a = H[i * n + i], b = H[i * n + i + 1];
-      const T c = H[(i + 1) * n + i], d = H[(i + 1) * n + i + 1];
-      const T mm = T(0.5) * (a + d);
-      const T disc = T(0.25) * ((a - d) * (a - d)) + b * c;
-      if (!(acc[i] && disc >= T(0))) continue;
+      if (!acc[i]) continue;
+      const T a = H[i * ldh + i], b = H[i * ldh + i + 1];
+      const T c = H[(i + 1) * ldh + i], d = H[(i + 1) * ldh + i + 1];
+      const T mm = rmul(T(0.5), radd(a, d));
+      const T disc = radd(rmul(T(0.25), rmul(rsub(a, d), rsub(a, d))), rmul(b, c));
+      if (!(disc >= T(0))) continue;
       const T sq = sqrt(fabs(disc));
-      const T lam = mm + (mm >= T(0) ? sq : -sq);
-      const T v1a = b, v1b = lam - a, v2a = lam - d, v2b = c;
-      const bool one = v1a * v1a + v1b * v1b >= v2a * v2a + v2b * v2b;
+      const T lam = radd(mm, mm >= T(0) ? sq : -sq);
+      const T v1a = b, v1b = rsub(lam, a), v2a = rsub(lam, d), v2b = c;
+      const bool one = rdot2(v1a, v1b, v1a, v1b) >= rdot2(v2a, v2b, v2a, v2b);
       T va = one ? v1a : v2a, vb = one ? v1b : v2b;
-      const T nrm = sqrt(va * va + vb * vb);
+      const T nrm = sqrt(rdot2(va, vb, va, vb));
       if (nrm > T(0)) {
         va = va / nrm;
         vb = vb / nrm;
@@ -375,50 +582,50 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, int* acc
         va = T(1);
         vb = T(0);
       }
-      __syncthreads();
+      __syncthreads();  // every thread has read the block
       for (int col = tid; col < n; col += nt) {  // G^T rows, G = [[va, -vb], [vb, va]]
-        const T r0 = H[i * n + col], r1 = H[(i + 1) * n + col];
-        H[i * n + col] = va * r0 + vb * r1;
-        H[(i + 1) * n + col] = -vb * r0 + va * r1;
+        const T r0 = H[i * ldh + col], r1 = H[(i + 1) * ldh + col];
+        H[i * ldh + col] = dot2(va, vb, r0, r1);
+        H[(i + 1) * ldh + col] = dot2(-vb, va, r0, r1);
       }
       __syncthreads();
       for (int row = tid; row < n; row += nt) {  // columns G, and Z's
-        T* e = H + row * n + i;
+        T* e = H + row * ldh + i;
         const T c0 = e[0], c1 = e[1];
-        e[0] = c0 * va + c1 * vb;
-        e[1] = c0 * -vb + c1 * va;
-        T* ze = Z + row * n + i;
-        const T z0 = ze[0], z1 = ze[1];
-        ze[0] = z0 * va + z1 * vb;
-        ze[1] = z0 * -vb + z1 * va;
+        e[0] = dot2(c0, c1, va, vb);
+        e[1] = dot2(c0, c1, -vb, va);
+        T* ze = Z + i * ldz + row;
+        const T z0 = ze[0], z1 = ze[ldz];
+        ze[0] = dot2(z0, z1, va, vb);
+        ze[ldz] = dot2(z0, z1, -vb, va);
       }
       __syncthreads();
       if (tid == 0) {
-        H[(i + 1) * n + i] = T(0);
+        H[(i + 1) * ldh + i] = T(0);
         acc[i] = 0;
       }
+      __syncthreads();
     }
   }
-  __syncthreads();
 
   // _extract_eigvals, masked to the active block
   for (int i = tid; i < n; i += nt) {
     const bool ps = i + 1 < n && acc[i];
     const bool sec = i > 0 && acc[i - 1];
-    T wri = H[i * n + i], wii = T(0);
+    T wri = H[i * ldh + i], wii = T(0);
     if (ps || sec) {
       const int b0 = ps ? i : i - 1;
-      const T a = H[b0 * n + b0], b = H[b0 * n + b0 + 1];
-      const T c = H[(b0 + 1) * n + b0], d = H[(b0 + 1) * n + b0 + 1];
-      const T mm = T(0.5) * (a + d);
-      const T disc = T(0.25) * ((a - d) * (a - d)) + b * c;
+      const T a = H[b0 * ldh + b0], b = H[b0 * ldh + b0 + 1];
+      const T c = H[(b0 + 1) * ldh + b0], d = H[(b0 + 1) * ldh + b0 + 1];
+      const T mm = rmul(T(0.5), radd(a, d));
+      const T disc = radd(rmul(T(0.25), rmul(rsub(a, d), rsub(a, d))), rmul(b, c));
       const T sq = sqrt(fabs(disc));
       const bool real = disc >= T(0);
       if (ps) {
-        wri = real ? mm + sq : mm;
+        wri = real ? radd(mm, sq) : mm;
         wii = real ? T(0) : sq;
       } else {
-        wri = real ? mm - sq : mm;
+        wri = real ? rsub(mm, sq) : mm;
         wii = real ? T(0) : -sq;
       }
     }
@@ -428,87 +635,125 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, int* acc
     }
     wr[i] = wri;
     wi[i] = wii;
-    if (i + 1 < n) acc_out[i] = acc[i];
+    if (i + 1 < n) acc_out[i] = acc[i] != 0;
   }
-  if (h_in_smem)
-    for (long long e = tid; e < nn; e += nt) Tout[e] = H[e];
+  if constexpr (HS) copy_out(H, ldh, Tout, n, false);
+  if (Z) {
+    if constexpr (ZS)
+      copy_out(Z, ldz, Zout, n, true);
+    else
+      transpose_in_place(Zout, n);
+  }
   if (tid == 0) {
-    status[0] = ok;
-    status[1] = sweeps;
-    status[2] = steps;
+    *ok_out = ok;
+    work[0] = sweeps;
+    work[1] = steps;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(HS_MAX_THREADS)
+template <typename T, bool HS, bool ZS>
+__global__ void __launch_bounds__(HS_MAX_WARPS * 32)
 filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__ wr,
-              const T* __restrict__ wi, const int* __restrict__ order, const int* nkeep_ptr,
-              const int* pure_ptr, int* status, int n, int h_in_smem) {
+              const T* __restrict__ wi, const long long* __restrict__ order,
+              const void* nkeep_ptr, int nkeep_bytes, long long nkeep_val, const void* pure_ptr,
+              int pure_bytes, long long pure_val, int* work, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[33];
-  __shared__ T sc[2];
-  __shared__ int si[8];
-  T* H = h_in_smem ? reinterpret_cast<T*>(smem_raw) : Hout;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long nn = static_cast<long long>(n) * n;
-  for (long long e = tid; e < nn; e += nt) {
-    H[e] = Hin[e];
-    Zout[e] = (e / n == e % n) ? T(1) : T(0);
+  __shared__ Decision<T> dec[2];
+  __shared__ T stage[6];
+  const int ldh = HS ? (n | 1) : n, ldz = ZS ? (n | 1) : n;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* H = Hout;
+  T* Z = Zout;
+  if constexpr (HS) {
+    H = base;
+    base += n * ldh;
   }
-  const int nkeep = *nkeep_ptr;
-  const bool pure = *pure_ptr != 0;
-  const T eps = eps_of<T>();
-  int active = 0, steps = 0;  // thread 0's
-  for (int j = 0; j < n / 2; ++j) {
-    __syncthreads();
-    if (tid == 0) {
-      bool need = false;
-      for (int i = 0; i + 1 < n && !need; ++i)
-        need = fabs(H[i * n + i]) + fabs(H[(i + 1) * n + i + 1]) == T(0);
-      si[1] = need;
+  if constexpr (ZS) Z = base;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
+  for (int i = warp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) {
+      H[i * ldh + j] = Hin[i * n + j];
+      Z[i * ldz + j] = i == j ? T(1) : T(0);
     }
-    __syncthreads();
-    const T hmax = si[1] ? block_absmax(H, nn, red) : T(0);
-    if (tid == 0) {
-      // explicit deflation, then the top-connected block ends at row hi
-      int hi = n - 1;
-      for (int i = 0; i + 1 < n; ++i) {
-        T tst = fabs(H[i * n + i]) + fabs(H[(i + 1) * n + i + 1]);
-        if (tst == T(0)) tst = hmax;
-        T& sub = H[(i + 1) * n + i];
-        if (fabs(sub) <= eps * tst) sub = T(0);
-        if (sub == T(0) && hi == n - 1) hi = i;
+  const long long nkeep = int_arg(nkeep_ptr, nkeep_bytes, nkeep_val);
+  const bool pure = int_arg(pure_ptr, pure_bytes, pure_val) != 0;
+  __syncthreads();
+  int active = 0, steps = 0;  // warp 0's
+  {
+    const T eps = eps_of<T>();
+    for (int j = 0; j < n / 2; ++j) {
+      Decision<T>& d = dec[j & 1];
+      if (warp == 0) {
+        bool need = false;
+        for (int i0 = 0; i0 + 1 < n; i0 += 32) {
+          const int i = i0 + lane;
+          const bool z = i + 1 < n &&
+                         fabs(H[i * ldh + i]) + fabs(H[(i + 1) * ldh + i + 1]) == T(0);
+          need |= __ballot_sync(FULL, z) != 0;
+        }
+        const T hmax = need ? warp_absmax(H, ldh, n) : T(0);
+        // explicit deflation, then the top-connected block ends at row hi
+        int hi = n - 1;
+        for (int i0 = 0; i0 + 1 < n; i0 += 32) {
+          const int i = i0 + lane;
+          bool zero = false;
+          if (i + 1 < n) {
+            T tst = fabs(H[i * ldh + i]) + fabs(H[(i + 1) * ldh + i + 1]);
+            if (tst == T(0)) tst = hmax;
+            T& sub = H[(i + 1) * ldh + i];
+            if (fabs(sub) <= rmul(eps, tst)) sub = T(0);
+            zero = sub == T(0);
+          }
+          const unsigned mz = __ballot_sync(FULL, zero);
+          if (mz && hi == n - 1) hi = i0 + __ffs(mz) - 1;
+        }
+        __syncwarp();  // the deflated entries, before the first vector reads them
+        const bool act = (2 * j + 1) < (n - nkeep) && pure && hi >= 2;
+        if (act) {
+          ++active;
+          steps += hi - 1;
+          if (lane == 0) {
+            const int ja = 2 * j < n - 1 ? 2 * j : n - 1;
+            const int jb = 2 * j + 1 < n - 1 ? 2 * j + 1 : n - 1;
+            const long long ia = order[ja], ib = order[jb];
+            const T s = radd(wr[ia], wr[ib]);
+            const T t = rsub(rmul(wr[ia], wr[ib]), rmul(wi[ia], wi[ib]));
+            first_vector(H, ldh, 0, s, t, d.x, d.y, d.z);
+          }
+        }
+        if (lane == 0) {
+          d.hi = hi;
+          d.action = act ? 1 : 0;
+        }
       }
-      const bool act = (2 * j + 1) < (n - nkeep) && pure && hi >= 2;
-      if (act) {
-        const int ja = 2 * j < n - 1 ? 2 * j : n - 1;
-        const int jb = 2 * j + 1 < n - 1 ? 2 * j + 1 : n - 1;
-        const int ia = order[ja], ib = order[jb];
-        sc[0] = wr[ia] + wr[ib];
-        sc[1] = wr[ia] * wr[ib] - wi[ia] * wi[ib];
-        si[3] = hi;
-        ++active;
-        steps += hi - 1;
-      }
-      si[4] = act;
+      cta_sync();
+      if (d.action == 1) chase(H, ldh, Z, ldz, n, 0, d.hi, d.x, d.y, d.z, stage);
     }
-    __syncthreads();
-    if (si[4]) chase(H, Zout, n, 0, si[3], sc[0], sc[1]);
   }
   __syncthreads();
-  if (h_in_smem)
-    for (long long e = tid; e < nn; e += nt) Hout[e] = H[e];
+  if constexpr (HS) copy_out(H, ldh, Hout, n, false);
+  if constexpr (ZS)
+    copy_out(Z, ldz, Zout, n, true);
+  else
+    transpose_in_place(Zout, n);
   if (tid == 0) {
-    status[0] = active;
-    status[1] = steps;
+    work[0] = active;
+    work[1] = steps;
   }
 }
 
-template <typename T> bool fits_smem(int n) { return smem_need<T>(n) <= HS_SMEM_BYTES; }
+// Shared memory the kernel needs for a geometry: H and Z where they live
+// there (rows of odd stride), and for the Schur kernel the reflector vector
+// and the accepted flags.  ops/hessenberg.py geometry() computes the same.
+long long smem_need(int n, int elt, bool schur, bool h_smem, bool z_smem) {
+  const long long mat = 1LL * n * (n | 1) * elt;
+  return (h_smem ? mat : 0) + (z_smem ? mat : 0) + (schur ? 1LL * n * elt + 4LL * n : 0);
+}
 
-int threads_for(int n) {
-  const int t = (n + 31) / 32 * 32;
-  return t < 32 ? 32 : (t > HS_MAX_THREADS ? HS_MAX_THREADS : t);
+bool geometry_ok(int n, int elt, bool schur, int warps, int h_smem, int z_smem, int smem) {
+  return n >= 1 && warps >= 1 && warps <= HS_MAX_WARPS &&
+         (!z_smem || h_smem) && smem >= smem_need(n, elt, schur, h_smem, z_smem) &&
+         smem <= HS_SMEM_LIMIT - HS_SMEM_RESERVED;
 }
 
 // the dynamic shared-memory attribute, set once a kernel and device
@@ -518,50 +763,97 @@ template <typename K> cudaError_t allow_smem(K kernel, bool* done) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HS_SMEM_BYTES);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             HS_SMEM_LIMIT - HS_SMEM_RESERVED);
   if (err == cudaSuccess) done[dev] = true;
   return err;
 }
 
-template <typename T>
-int launch_schur(const void* H, void* Tm, void* Z, void* wr, void* wi, void* acc, void* status,
-                 const void* keff, int n, int with_z, int split, void* stream) {
-  if (n < 1 || !H || !Tm || !wr || !wi || !status || !keff || (with_z && !Z) ||
-      (n > 1 && !acc))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, bool HS, bool ZS>
+cudaError_t launch_schur_as(const void* H, void* Tm, void* Z, void* wr, void* wi, void* acc,
+                            void* ok, void* work, const void* keff, int keff_bytes,
+                            long long keff_val, int n, int with_z, int split, int warps,
+                            int smem, cudaStream_t stream) {
   static bool done[64] = {};
-  cudaError_t err = allow_smem(schur_kernel<T>, done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool in_smem = fits_smem<T>(n);
-  const long long smem = in_smem ? smem_need<T>(n) : smem_need<T>(n) - 1LL * n * n * sizeof(T);
-  if (smem > HS_SMEM_BYTES) return static_cast<int>(cudaErrorInvalidValue);
-  schur_kernel<T><<<1, threads_for(n), static_cast<size_t>(smem),
-                    static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err = allow_smem(schur_kernel<T, HS, ZS>, done);
+  if (err != cudaSuccess) return err;
+  schur_kernel<T, HS, ZS><<<1, warps * 32, static_cast<size_t>(smem), stream>>>(
       static_cast<const T*>(H), static_cast<T*>(Tm), static_cast<T*>(Z), static_cast<T*>(wr),
-      static_cast<T*>(wi), static_cast<int*>(acc), static_cast<int*>(status),
-      static_cast<const int*>(keff), n, with_z, split, in_smem ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<T*>(wi), static_cast<bool*>(acc), static_cast<bool*>(ok),
+      static_cast<int*>(work), keff, keff_bytes, keff_val, n, with_z, split);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_schur(const void* H, void* Tm, void* Z, void* wr, void* wi, void* acc, void* ok,
+                 void* work, const void* keff, int keff_bytes, long long keff_val, int n,
+                 int with_z, int split, int warps, int h_smem, int z_smem, int smem,
+                 void* stream) {
+  const bool bytes_ok = keff_bytes == 0 || ((keff_bytes == 1 || keff_bytes == 4 ||
+                                             keff_bytes == 8) && keff);
+  if (!H || !Tm || !wr || !wi || !ok || !work || !bytes_ok || (with_z && !Z) ||
+      (n > 1 && !acc) || (z_smem && !with_z) ||
+      !geometry_ok(n, sizeof(T), true, warps, h_smem, z_smem, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (z_smem)
+    err = launch_schur_as<T, true, true>(H, Tm, Z, wr, wi, acc, ok, work, keff, keff_bytes,
+                                         keff_val, n, with_z, split, warps, smem, s);
+  else if (h_smem)
+    err = launch_schur_as<T, true, false>(H, Tm, Z, wr, wi, acc, ok, work, keff, keff_bytes,
+                                          keff_val, n, with_z, split, warps, smem, s);
+  else
+    err = launch_schur_as<T, false, false>(H, Tm, Z, wr, wi, acc, ok, work, keff, keff_bytes,
+                                           keff_val, n, with_z, split, warps, smem, s);
+  return static_cast<int>(err);
+}
+
+template <typename T, bool HS, bool ZS>
+cudaError_t launch_filter_as(const void* H, void* Hf, void* Z, const void* wr, const void* wi,
+                             const void* order, const void* nkeep, int nkeep_bytes,
+                             long long nkeep_val, const void* pure, int pure_bytes,
+                             long long pure_val, void* work, int n, int warps, int smem,
+                             cudaStream_t stream) {
+  static bool done[64] = {};
+  cudaError_t err = allow_smem(filter_kernel<T, HS, ZS>, done);
+  if (err != cudaSuccess) return err;
+  filter_kernel<T, HS, ZS><<<1, warps * 32, static_cast<size_t>(smem), stream>>>(
+      static_cast<const T*>(H), static_cast<T*>(Hf), static_cast<T*>(Z),
+      static_cast<const T*>(wr), static_cast<const T*>(wi),
+      static_cast<const long long*>(order), nkeep, nkeep_bytes, nkeep_val, pure, pure_bytes,
+      pure_val, static_cast<int*>(work), n);
+  return cudaGetLastError();
+}
+
+bool int_arg_ok(const void* p, int bytes) {
+  return bytes == 0 || ((bytes == 1 || bytes == 4 || bytes == 8) && p);
 }
 
 template <typename T>
 int launch_filter(const void* H, void* Hf, void* Z, const void* wr, const void* wi,
-                  const void* order, const void* nkeep, const void* pure, void* status, int n,
-                  void* stream) {
-  if (n < 1 || !H || !Hf || !Z || !wr || !wi || !order || !nkeep || !pure || !status)
+                  const void* order, const void* nkeep, int nkeep_bytes, long long nkeep_val,
+                  const void* pure, int pure_bytes, long long pure_val, void* work, int n,
+                  int warps, int h_smem, int z_smem, int smem, void* stream) {
+  if (!H || !Hf || !Z || !wr || !wi || !order || !work || !int_arg_ok(nkeep, nkeep_bytes) ||
+      !int_arg_ok(pure, pure_bytes) ||
+      !geometry_ok(n, sizeof(T), false, warps, h_smem, z_smem, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool done[64] = {};
-  cudaError_t err = allow_smem(filter_kernel<T>, done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool in_smem = fits_smem<T>(n);
-  // the filter needs no vectors: H alone, when it fits
-  const long long smem = in_smem ? 1LL * n * n * sizeof(T) : 0;
-  filter_kernel<T><<<1, threads_for(n), static_cast<size_t>(smem),
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(H), static_cast<T*>(Hf), static_cast<T*>(Z),
-      static_cast<const T*>(wr), static_cast<const T*>(wi), static_cast<const int*>(order),
-      static_cast<const int*>(nkeep), static_cast<const int*>(pure), static_cast<int*>(status),
-      n, in_smem ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (z_smem)
+    err = launch_filter_as<T, true, true>(H, Hf, Z, wr, wi, order, nkeep, nkeep_bytes,
+                                          nkeep_val, pure, pure_bytes, pure_val, work, n, warps,
+                                          smem, s);
+  else if (h_smem)
+    err = launch_filter_as<T, true, false>(H, Hf, Z, wr, wi, order, nkeep, nkeep_bytes,
+                                           nkeep_val, pure, pure_bytes, pure_val, work, n,
+                                           warps, smem, s);
+  else
+    err = launch_filter_as<T, false, false>(H, Hf, Z, wr, wi, order, nkeep, nkeep_bytes,
+                                            nkeep_val, pure, pure_bytes, pure_val, work, n,
+                                            warps, smem, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -569,27 +861,39 @@ int launch_filter(const void* H, void* Hf, void* Z, const void* wr, const void* 
 extern "C" {
 
 int lk_hessenberg_schur_f32(const void* H, void* T, void* Z, void* wr, void* wi, void* acc,
-                            void* status, const void* keff, int n, int with_z, int split,
-                            void* stream) {
-  return launch_schur<float>(H, T, Z, wr, wi, acc, status, keff, n, with_z, split, stream);
+                            void* ok, void* work, const void* keff, int keff_bytes,
+                            long long keff_val, int n, int with_z, int split, int warps,
+                            int h_smem, int z_smem, int smem_bytes, void* stream) {
+  return launch_schur<float>(H, T, Z, wr, wi, acc, ok, work, keff, keff_bytes, keff_val, n,
+                             with_z, split, warps, h_smem, z_smem, smem_bytes, stream);
 }
 
 int lk_hessenberg_schur_f64(const void* H, void* T, void* Z, void* wr, void* wi, void* acc,
-                            void* status, const void* keff, int n, int with_z, int split,
-                            void* stream) {
-  return launch_schur<double>(H, T, Z, wr, wi, acc, status, keff, n, with_z, split, stream);
+                            void* ok, void* work, const void* keff, int keff_bytes,
+                            long long keff_val, int n, int with_z, int split, int warps,
+                            int h_smem, int z_smem, int smem_bytes, void* stream) {
+  return launch_schur<double>(H, T, Z, wr, wi, acc, ok, work, keff, keff_bytes, keff_val, n,
+                              with_z, split, warps, h_smem, z_smem, smem_bytes, stream);
 }
 
 int lk_francis_sweeps_f32(const void* H, void* Hf, void* Z, const void* wr, const void* wi,
-                          const void* order, const void* nkeep, const void* pure, void* status,
-                          int n, void* stream) {
-  return launch_filter<float>(H, Hf, Z, wr, wi, order, nkeep, pure, status, n, stream);
+                          const void* order, const void* nkeep, int nkeep_bytes,
+                          long long nkeep_val, const void* pure, int pure_bytes,
+                          long long pure_val, void* work, int n, int warps, int h_smem,
+                          int z_smem, int smem_bytes, void* stream) {
+  return launch_filter<float>(H, Hf, Z, wr, wi, order, nkeep, nkeep_bytes, nkeep_val, pure,
+                              pure_bytes, pure_val, work, n, warps, h_smem, z_smem,
+                              smem_bytes, stream);
 }
 
 int lk_francis_sweeps_f64(const void* H, void* Hf, void* Z, const void* wr, const void* wi,
-                          const void* order, const void* nkeep, const void* pure, void* status,
-                          int n, void* stream) {
-  return launch_filter<double>(H, Hf, Z, wr, wi, order, nkeep, pure, status, n, stream);
+                          const void* order, const void* nkeep, int nkeep_bytes,
+                          long long nkeep_val, const void* pure, int pure_bytes,
+                          long long pure_val, void* work, int n, int warps, int h_smem,
+                          int z_smem, int smem_bytes, void* stream) {
+  return launch_filter<double>(H, Hf, Z, wr, wi, order, nkeep, nkeep_bytes, nkeep_val, pure,
+                               pure_bytes, pure_val, work, n, warps, h_smem,
+                               z_smem, smem_bytes, stream);
 }
 
 }  // extern "C"

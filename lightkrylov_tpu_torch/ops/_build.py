@@ -159,11 +159,15 @@ def load() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         for name in ("lk_hessenberg_schur_f32", "lk_hessenberg_schur_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong]
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         for name in ("lk_francis_sweeps_f32", "lk_francis_sweeps_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
+                                                    ctypes.c_void_p, ctypes.c_int,
+                                                    ctypes.c_longlong, ctypes.c_void_p]
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.lk_error_string.argtypes = [ctypes.c_int]
         lib.lk_error_string.restype = ctypes.c_char_p

@@ -363,32 +363,149 @@ def test_f3_mask_transfer_matches_jax(J, jnp):
                        atol=1e-12)
 
 
+# -- the launch geometry (pure Python) ----------------------------------------
+
+_BUDGET = kernels.SMEM_LIMIT - kernels.SMEM_RESERVED
+
+
+@pytest.mark.parametrize("n, itemsize, with_z, h_smem, z_smem", [
+    (119, 8, True, True, True), (120, 8, True, True, False),
+    (169, 4, True, True, True), (170, 4, True, True, False),
+    (169, 8, False, True, False), (170, 8, False, False, False),
+    (239, 4, False, True, False), (240, 4, False, False, False),
+    (200, 8, True, False, False), (40, 8, True, True, True), (30, 8, True, True, True)])
+def test_geometry_places_h_and_z_by_the_shared_memory_limit(n, itemsize, with_z, h_smem,
+                                                            z_smem):
+    """Each matrix in shared memory exactly when its padded rows (stride
+    ``n | 1``) fit beside the Schur kernel's vectors in the 232,448 bytes a
+    CTA may have, less the kernels' static scalars."""
+    assert kernels.SMEM_LIMIT == 232448
+    g = kernels.geometry(n, itemsize, with_z)
+    assert (g.h_smem, g.z_smem) == (h_smem, z_smem)
+    mat = n * (n | 1) * itemsize
+    vec = n * itemsize + 4 * n
+    assert g.smem_bytes == vec + mat * (h_smem + z_smem) <= _BUDGET
+    if not h_smem:
+        assert mat + vec > _BUDGET
+    elif with_z and not z_smem:
+        assert 2 * mat + vec > _BUDGET
+
+
+@pytest.mark.parametrize("n, itemsize, h_smem, z_smem", [
+    (119, 8, True, True), (120, 8, True, False), (169, 8, True, False), (170, 8, False, False),
+    (169, 4, True, True), (170, 4, True, False)])
+def test_geometry_of_the_filter(n, itemsize, h_smem, z_smem):
+    """The filter keeps no vectors: ``H`` and ``Z`` alone."""
+    g = kernels.geometry(n, itemsize, True, schur=False)
+    assert (g.h_smem, g.z_smem) == (h_smem, z_smem)
+    assert g.smem_bytes == n * (n | 1) * itemsize * (h_smem + z_smem) <= _BUDGET
+
+
+@pytest.mark.parametrize("n, warps", [
+    (1, 1), (3, 1), (31, 1), (32, 1), (33, 2), (64, 2), (65, 3), (128, 4), (200, 7), (256, 8),
+    (400, 8)])
+def test_geometry_warps(n, warps):
+    """A thread a row or column, at most 8 warps."""
+    assert kernels.geometry(n, 8, True).warps == warps
+
+
 # -- the CUDA kernels (need a GPU) --------------------------------------------
 
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}  # of ||H||_F, as chip_smoke.py
 SCHUR_ORTH = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms, as chip_smoke.py
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [3, 17, 40, 64, 200])
-def test_cuda_schur_kernel_matches_plain(cuda, dtype, n):
-    A = np.triu(np.random.default_rng(n).standard_normal((n, n)), -1)
+# n: the warp counts' edges (31-33, 64-65), Z in shared memory on both sides
+# of its limit (119/120 in f64, 169/170 in f32), H alone on both sides of its
+# f64 limit (169/170), and H in global memory (200 in f64)
+KERNEL_NS = [3, 17, 31, 32, 33, 40, 64, 65, 119, 120, 169, 170, 200]
+
+
+def _hold_schur_to_plain(cuda, dtype, A, k, with_z=True):
+    """One launch of the Schur kernel on ``A`` against its plain version:
+    eigenvalues within ``KERNEL_TOL`` of ``||A||_F``, the factorization and
+    ``Z``'s orthogonality (with ``Z``), and in f64 at n <= 128 the same
+    ``[sweeps, chase steps]`` as the plain version's."""
+    n = A.shape[0]
     Ht = torch.from_numpy(A).to(cuda, dtype)
     before = kernels.hessenberg_schur.LAUNCHES
-    T, Z, wr, wi, acc, ok, sweeps = kernels.hessenberg_schur(Ht, n - 1, with_z=True, split=True)
+    T, Z, wr, wi, acc, ok, work = kernels.hessenberg_schur(Ht, k, with_z=with_z, split=with_z)
     torch.cuda.synchronize()
     assert kernels.hessenberg_schur.LAUNCHES == before + 1
-    _, _, pwr, pwi, _, pok, _ = kernels.hessenberg_schur_reference(Ht, n - 1, True, True)
+    assert acc.dtype == ok.dtype == torch.bool and work.dtype == torch.int32
+    _, _, pwr, pwi, _, pok, pwork = kernels.hessenberg_schur_reference(Ht, k, with_z, with_z)
     norm = float(np.linalg.norm(A))
     assert bool(ok) and bool(pok)
     assert _match(_w(wr.cpu(), wi.cpu()), _w(pwr.cpu(), pwi.cpu())) < KERNEL_TOL[dtype] * norm
+    if dtype == torch.float64 and n <= 128:
+        assert work.tolist() == pwork.tolist(), (
+            "the kernel copies the accumulation order of cuBLAS's small products as torch "
+            f"2.11.0+cu128 picks them; this is torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}")
+    if not with_z:
+        return
     He = np.zeros_like(A)
-    He[:n - 1, :n - 1] = A[:n - 1, :n - 1]
-    Hm = H._embed(torch.from_numpy(He), n - 1)[0].numpy()
+    He[:k, :k] = A[:k, :k]
+    Hm = H._embed(torch.from_numpy(He), k)[0].numpy()
     T, Z = T.double().cpu().numpy(), Z.double().cpu().numpy()
     assert np.linalg.norm(Z @ T @ Z.T - Hm, 2) < SCHUR_ORTH[dtype] * np.linalg.norm(Hm, 2)
     assert np.linalg.norm(Z.T @ Z - np.eye(n), 2) < SCHUR_ORTH[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", KERNEL_NS)
+def test_cuda_schur_kernel_matches_plain(cuda, dtype, n):
+    A = np.triu(np.random.default_rng(n).standard_normal((n, n)), -1)
+    _hold_schur_to_plain(cuda, dtype, A, n - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [33, 65, 120])
+def test_cuda_schur_kernel_eigenvalues_only(cuda, dtype, n):
+    """Without ``Z`` the kernel keeps ``H`` alone in shared memory."""
+    A = np.triu(np.random.default_rng(n + 1).standard_normal((n, n)), -1)
+    _hold_schur_to_plain(cuda, dtype, A, n, with_z=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_schur_kernel_zero_diagonal(cuda, dtype):
+    """A zero diagonal: the deflation test's zero-neighbour safeguard reads
+    max |H| in the first sweeps."""
+    A = np.triu(np.random.default_rng(5).standard_normal((24, 24)), -1)
+    np.fill_diagonal(A, 0.0)
+    _hold_schur_to_plain(cuda, dtype, A, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_schur_kernel_exceptional_shift(cuda, dtype):
+    """The cyclic shift, on which the Wilkinson shifts stall: it converges
+    only through the exceptional shift of every tenth stalled sweep."""
+    A = np.zeros((4, 4))
+    A[np.arange(1, 4), np.arange(3)] = 1.0
+    A[0, 3] = 1.0
+    work = H._schur_plain(torch.from_numpy(A), 4, False, False)[6]
+    assert int(work[0]) > 10
+    _hold_schur_to_plain(cuda, dtype, A, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_schur_kernel_keff_tensors(cuda, dtype):
+    """``k_eff < n`` given as an int32 and an int64 tensor on the card, which
+    the kernel reads where it lies."""
+    A = np.triu(np.random.default_rng(9).standard_normal((40, 40)), -1)
+    Ht = torch.from_numpy(A).to(cuda, dtype)
+    want = kernels.hessenberg_schur(Ht, 29)
+    for kt in (torch.tensor(29, dtype=torch.int32, device=cuda),
+               torch.tensor(29, dtype=torch.int64, device=cuda)):
+        got = kernels.hessenberg_schur(Ht, kt)
+        for a, b in zip(got, want):
+            if a is not None:
+                assert torch.equal(a, b)
 
 
 def _arnoldi_hessenberg(kdim, seed, n=256):
