@@ -53,21 +53,24 @@
 //   zeros.  On an Arnoldi Hessenberg m = j+1, so a column costs O(n) and
 //   three CTA barriers.
 //
-// The arithmetic is the JAX code's as the plain version computes it on the
-// card, operation for operation: the embedding's dummy diagonal, every
-// column's reflector of the reduction (sign flips included), the 30 n sweep
-// budget, the LAPACK dlahqr-style deflation test with the zero-neighbour
-// safeguard, the Wilkinson and exceptional shifts, the closing Givens
-// rotation, the annihilated bulge entries set to exactly zero, the block
-// split and the eigenvalues.  Scalar formulas round each operation as numpy
-// does and the small products accumulate in the order that cuBLAS, as torch
-// 2.11.0+cu128 dispatches them, takes on the H100 (see dot3 below), so in
-// f64 at n <= 128 the kernel takes the same sweeps and chase steps as the
-// plain version (chip_smoke.py phase 33 (a) and the cuda tests hold it to
-// that); only sums over a dense column in the reduction are taken in another
-// order.  That order is the library's choice, not the plain version's code:
-// another torch or cuBLAS build may pick other kernels for those products,
-// and then the counts may part while the results stay within the tolerances.
+// The arithmetic is the JAX code's as the plain version computes it,
+// operation for operation: the embedding's dummy diagonal, every column's
+// reflector of the reduction (sign flips included), the 30 n sweep budget,
+// the LAPACK dlahqr-style deflation test with the zero-neighbour safeguard,
+// the Wilkinson and exceptional shifts, the closing Givens rotation, the
+// annihilated bulge entries set to exactly zero, the block split and the
+// eigenvalues.  One departure from the JAX code, in both: a reflector's or
+// a rotation's vector too small to square (its sum of squares below
+// (sqrt(tiny) / eps)^2) is scaled by an exact power of two first
+// (pow2_exp), which leaves every other vector's arithmetic as it was.  Scalar formulas round each operation as numpy
+// does, and the small products of the chase, the closing rotation and the
+// split are the plain version's ordered sums (utils/hessenberg.py
+// _ordered_rows: sum3 and sum2 below), so on a Hessenberg input the kernel
+// takes the same sweeps and chase steps as the plain version (chip_smoke.py
+// phase 33 (a) and the cuda tests hold it to that).  Only the reduction's sums over a dense column
+// (u^T H, H u, Z u) are taken in another order than the plain version's,
+// which leaves them to the library; on a column that is already Hessenberg
+// they hold one nonzero product, exact in any order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (lightkrylov_tpu_torch/ops/_build.py).  The C entries
@@ -89,6 +92,26 @@ template <typename T> __device__ __forceinline__ T eps_of();
 template <> __device__ __forceinline__ float eps_of<float>() { return FLT_EPSILON; }
 template <> __device__ __forceinline__ double eps_of<double>() { return DBL_EPSILON; }
 
+// sqrt(tiny) / eps: below it the squares of a vector's entries underflow;
+// and its square, which a sum of squares is held to first (the plain
+// version's _underflows), so that the common path pays one comparison
+template <typename T> __device__ __forceinline__ T small_of();
+template <> __device__ __forceinline__ float small_of<float>() { return 0x1p-40f; }
+template <> __device__ __forceinline__ double small_of<double>() { return 0x1p-459; }
+template <typename T> __device__ __forceinline__ T small2_of();
+template <> __device__ __forceinline__ float small2_of<float>() { return 0x1p-80f; }
+template <> __device__ __forceinline__ double small2_of<double>() { return 0x1p-918; }
+
+// The exponent e that a vector is scaled by, 2^-e: that of max |v| when it
+// lies in (0, small_of), else 0.  The scale is exact, and a reflector or a
+// rotation built from the scaled vector is the same (utils/hessenberg.py
+// _pow2_scaled, which says why).
+template <typename T> __device__ __forceinline__ int pow2_exp(T m) {
+  int e = 0;
+  if (m > T(0) && m < small_of<T>()) frexp(m, &e);
+  return e;
+}
+
 // max that propagates NaN, as jnp.max does
 template <typename T> __device__ __forceinline__ T maxnan(T a, T b) {
   return (b > a || b != b) ? b : a;
@@ -106,13 +129,11 @@ template <typename T> __device__ __forceinline__ T warp_max(T v) {
 
 // The plain version's arithmetic, operation for operation.  Its scalars are
 // numpy's and its elementwise passes torch's: each product and sum rounded
-// on its own (rmul, radd, rsub, which the compiler may not fuse).  Its small
-// products on the card (P @ rows, cols @ P, G^T @ rows, cols @ G^T) go to
-// cuBLAS, which (torch 2.11.0+cu128 on the H100, read on the card) accumulates
-// them in order with fused multiply-adds (dot3, dot2), but for two of the
-// 2 x 2 rotations: G @ rows (the closing Givens on rows) rounds each product
-// (rdot2) in f32 and in f64 at even n, and cols @ G^T does so in f32 up to
-// n = 16 (fused_rows, fused_cols).  These copy that build's kernel choice.
+// on its own (rmul, radd, rsub, which the compiler may not fuse into a
+// multiply-add).  Its small products (P @ rows, cols @ P, G @ rows,
+// cols @ G^T, the split's G^T @ rows and cols @ G) are sums in a fixed
+// order, (a0 b0 + a1 b1) + a2 b2 (sum3) and a0 b0 + a1 b1 (sum2), written
+// out in utils/hessenberg.py (_ordered_rows, _ordered_cols).
 __device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
@@ -121,24 +142,32 @@ __device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b)
 __device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
 
 template <typename T>
-__device__ __forceinline__ T dot3(T a0, T a1, T a2, T b0, T b1, T b2) {
-  return fma(a2, b2, fma(a1, b1, rmul(a0, b0)));
+__device__ __forceinline__ T sum3(T a0, T a1, T a2, T b0, T b1, T b2) {
+  return radd(radd(rmul(a0, b0), rmul(a1, b1)), rmul(a2, b2));
 }
 
-template <typename T> __device__ __forceinline__ T dot2(T a0, T a1, T b0, T b1) {
-  return fma(a1, b1, rmul(a0, b0));
-}
-
-template <typename T> __device__ __forceinline__ T rdot2(T a0, T a1, T b0, T b1) {
+template <typename T> __device__ __forceinline__ T sum2(T a0, T a1, T b0, T b1) {
   return radd(rmul(a0, b0), rmul(a1, b1));
 }
 
-template <typename T> __device__ __forceinline__ bool fused_rows(int n) {
-  return sizeof(T) == 8 && (n & 1);
-}
+// The lagging-warp build (-DLK_LAG_WARP=1, ops/_build.py load_lagging(); off
+// in the shipping build, where lag() is empty).  At the start of each
+// stretch between two barriers of a chase step, a sweep's decision, a
+// reduction column and the split, one warp sleeps before its loads and
+// stores; which warp turns with the step and the stretch.  A read of an entry
+// that another warp writes in the same stretch then sees the other value,
+// and the outputs part from the shipping build's: the cuda tests and
+// chip_smoke.py phase 33 hold the two builds' outputs equal bit for bit.
+#ifndef LK_LAG_WARP
+#define LK_LAG_WARP 0
+#endif
+constexpr unsigned LAG_NS = 2000;
 
-template <typename T> __device__ __forceinline__ bool fused_cols(int n) {
-  return sizeof(T) == 8 || n > 16;
+__device__ __forceinline__ void lag(int step, int stretch) {
+#if LK_LAG_WARP
+  if (static_cast<int>(threadIdx.x >> 5) == (step + stretch) % static_cast<int>(blockDim.x >> 5))
+    __nanosleep(LAG_NS);
+#endif
 }
 
 // barrier of the CTA, a __syncwarp for one warp
@@ -181,7 +210,15 @@ template <typename T> __device__ T warp_absmax(const T* H, int ld, int n) {
 // when the vector already is (x, 0, 0) (hessenberg.py:69-82)
 template <typename T>
 __device__ __forceinline__ void householder3(T x, T y, T z, T P[9]) {
-  const T s = sqrt(radd(radd(rmul(x, x), rmul(y, y)), rmul(z, z)));
+  T sq = radd(radd(rmul(x, x), rmul(y, y)), rmul(z, z));
+  if (sq < small2_of<T>()) {
+    const int e = pow2_exp(fmax(fabs(x), fmax(fabs(y), fabs(z))));
+    x = ldexp(x, -e);
+    y = ldexp(y, -e);
+    z = ldexp(z, -e);
+    sq = radd(radd(rmul(x, x), rmul(y, y)), rmul(z, z));
+  }
+  const T s = sqrt(sq);
   const T alpha = -(x >= T(0) ? s : -s);
   const T v0 = rsub(x, alpha);
   const T vn2 = radd(radd(rmul(v0, v0), rmul(y, y)), rmul(z, z));
@@ -232,6 +269,7 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
     z2 = Zt[(lo + 2) * ldz + g];
   }
   for (int p = lo;; ++p) {
+    lag(p, 0);
     const bool more = p + 1 <= hi - 2;
     const T z3 = zown && more ? Zt[(p + 3) * ldz + g] : T(0);
     T* r0p = H + p * ldh;
@@ -243,9 +281,9 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
     for (int c = (p > 0 ? p - 1 : 0) + g; c < n; c += G) {
       const T a0 = r0p[c], a1 = r1p[c], a2 = r2p[c];
       const bool bulge = p > lo && c == p - 1;
-      const T b1 = bulge ? T(0) : dot3(P[3], P[4], P[5], a0, a1, a2);
-      const T b2 = bulge ? T(0) : dot3(P[6], P[7], P[8], a0, a1, a2);
-      r0p[c] = dot3(P[0], P[1], P[2], a0, a1, a2);
+      const T b1 = bulge ? T(0) : sum3(P[3], P[4], P[5], a0, a1, a2);
+      const T b2 = bulge ? T(0) : sum3(P[6], P[7], P[8], a0, a1, a2);
+      r0p[c] = sum3(P[0], P[1], P[2], a0, a1, a2);
       r1p[c] = b1;
       r2p[c] = b2;
       const unsigned sc = c - p;
@@ -255,11 +293,12 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
       }
     }
     cta_sync();
+    lag(p, 1);
     // column p of rows p+1..p+3 after this step's column update: the next
     // reflector's vector (the closing rotation's, after the last step); in
     // row p+3 only H[p+3, p+2] is nonzero
-    x = dot3(stage[0], stage[1], stage[2], P[0], P[3], P[6]);
-    y = dot3(stage[3], stage[4], stage[5], P[0], P[3], P[6]);
+    x = sum3(stage[0], stage[1], stage[2], P[0], P[3], P[6]);
+    y = sum3(stage[3], stage[4], stage[5], P[0], P[3], P[6]);
     z = more ? rmul(sub3, P[6]) : T(0);
     sub3 = p + 2 <= hi - 2 ? H[(p + 4) * ldh + p + 3] : T(0);
     // columns p..p+2 <- columns P, over rows [0, min(p+3, hi)], and Z's
@@ -276,14 +315,14 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
     T Pn[9];
     householder3(x, y, z, Pn);
     if (own) {
-      e[0] = dot3(c0, c1, c2, P[0], P[3], P[6]);
-      e[1] = dot3(c0, c1, c2, P[1], P[4], P[7]);
-      e[2] = dot3(c0, c1, c2, P[2], P[5], P[8]);
+      e[0] = sum3(c0, c1, c2, P[0], P[3], P[6]);
+      e[1] = sum3(c0, c1, c2, P[1], P[4], P[7]);
+      e[2] = sum3(c0, c1, c2, P[2], P[5], P[8]);
     }
     if (zown) {
-      const T n0 = dot3(z0, z1, z2, P[0], P[3], P[6]);
-      const T n1 = dot3(z0, z1, z2, P[1], P[4], P[7]);
-      const T n2 = dot3(z0, z1, z2, P[2], P[5], P[8]);
+      const T n0 = sum3(z0, z1, z2, P[0], P[3], P[6]);
+      const T n1 = sum3(z0, z1, z2, P[1], P[4], P[7]);
+      const T n2 = sum3(z0, z1, z2, P[2], P[5], P[8]);
       Zt[p * ldz + g] = n0;
       z0 = n1;
       z1 = n2;
@@ -292,17 +331,17 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
     for (int r = g + G; r <= rend; r += G) {
       T* f = H + r * ldh + p;
       const T d0 = f[0], d1 = f[1], d2 = f[2];
-      f[0] = dot3(d0, d1, d2, P[0], P[3], P[6]);
-      f[1] = dot3(d0, d1, d2, P[1], P[4], P[7]);
-      f[2] = dot3(d0, d1, d2, P[2], P[5], P[8]);
+      f[0] = sum3(d0, d1, d2, P[0], P[3], P[6]);
+      f[1] = sum3(d0, d1, d2, P[1], P[4], P[7]);
+      f[2] = sum3(d0, d1, d2, P[2], P[5], P[8]);
     }
     if (Zt)
       for (int r = g + G; r < n; r += G) {
         T* f = Zt + p * ldz + r;
         const T d0 = f[0], d1 = f[ldz], d2 = f[2 * ldz];
-        f[0] = dot3(d0, d1, d2, P[0], P[3], P[6]);
-        f[ldz] = dot3(d0, d1, d2, P[1], P[4], P[7]);
-        f[2 * ldz] = dot3(d0, d1, d2, P[2], P[5], P[8]);
+        f[0] = sum3(d0, d1, d2, P[0], P[3], P[6]);
+        f[ldz] = sum3(d0, d1, d2, P[1], P[4], P[7]);
+        f[2 * ldz] = sum3(d0, d1, d2, P[2], P[5], P[8]);
       }
     cta_sync();
     if (!more) break;
@@ -311,34 +350,42 @@ __device__ void chase(T* __restrict__ H, int ldh, T* __restrict__ Zt, int ldz, i
   }
   // closing Givens on rows/columns (hi-1, hi), zeroing H[hi, hi-2]; (x, y)
   // is column hi-2 of those rows
-  const T r = sqrt(radd(rmul(x, x), rmul(y, y)));
+  lag(hi, 2);
+  T sq = radd(rmul(x, x), rmul(y, y));
+  if (sq < small2_of<T>()) {
+    const int e = pow2_exp(fmax(fabs(x), fabs(y)));
+    x = ldexp(x, -e);
+    y = ldexp(y, -e);
+    sq = radd(rmul(x, x), rmul(y, y));
+  }
+  const T r = sqrt(sq);
   const T c = r > T(0) ? x / r : T(1);
   const T sn = r > T(0) ? y / r : T(0);
   T* ra = H + (hi - 1) * ldh;
   T* rb = ra + ldh;
-  const bool fr = fused_rows<T>(n), fc = fused_cols<T>(n);
   for (int col = hi - 2 + g; col < n; col += G) {
     const T u = ra[col], v = rb[col];
-    ra[col] = fr ? dot2(c, sn, u, v) : rdot2(c, sn, u, v);
-    rb[col] = col == hi - 2 ? T(0) : (fr ? dot2(-sn, c, u, v) : rdot2(-sn, c, u, v));
+    ra[col] = sum2(c, sn, u, v);
+    rb[col] = col == hi - 2 ? T(0) : sum2(-sn, c, u, v);
   }
   cta_sync();
+  lag(hi, 3);
   for (int row = g; row <= hi; row += G) {
     T* e = H + row * ldh + hi - 1;
     const T u = e[0], v = e[1];
-    e[0] = fc ? dot2(u, v, c, sn) : rdot2(u, v, c, sn);
-    e[1] = fc ? dot2(u, v, -sn, c) : rdot2(u, v, -sn, c);
+    e[0] = sum2(u, v, c, sn);
+    e[1] = sum2(u, v, -sn, c);
   }
   if (zown) {
-    Zt[(hi - 1) * ldz + g] = fc ? dot2(z0, z1, c, sn) : rdot2(z0, z1, c, sn);
-    Zt[hi * ldz + g] = fc ? dot2(z0, z1, -sn, c) : rdot2(z0, z1, -sn, c);
+    Zt[(hi - 1) * ldz + g] = sum2(z0, z1, c, sn);
+    Zt[hi * ldz + g] = sum2(z0, z1, -sn, c);
   }
   if (Zt)
     for (int row = g + G; row < n; row += G) {
       T* e = Zt + (hi - 1) * ldz + row;
       const T u = e[0], v = e[ldz];
-      e[0] = fc ? dot2(u, v, c, sn) : rdot2(u, v, c, sn);
-      e[ldz] = fc ? dot2(u, v, -sn, c) : rdot2(u, v, -sn, c);
+      e[0] = sum2(u, v, c, sn);
+      e[ldz] = sum2(u, v, -sn, c);
     }
   cta_sync();
 }
@@ -418,6 +465,7 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
   // _to_hessenberg: one Householder reflector a column, applied where its
   // vector u is nonzero, rows and columns [j+1, m]
   for (int j = 0; j + 2 < n; ++j) {
+    lag(j, 0);
     if (warp == 0) {
       int mrow = j + 1;
       for (int i0 = j + 2; i0 < n; i0 += 32) {
@@ -447,6 +495,7 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
       }
     }
     __syncthreads();
+    lag(j, 1);
     const T inv = col_inv;
     const int mrow = col_end;
     for (int c = tid; c < n; c += nt) {  // w = u^T H, then H -= inv u w^T
@@ -456,6 +505,7 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
         H[i * ldh + c] = rsub(H[i * ldh + c], rmul(inv, rmul(u[i], w)));
     }
     __syncthreads();
+    lag(j, 2);
     for (int r = tid; r < n; r += nt) {  // v = H u, H -= inv v u^T; Z's
       T* row = H + r * ldh;
       T v = T(0);
@@ -480,6 +530,7 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
     const int max_sweeps = 30 * n;
     int last_hi = -1, stall = 0;
     for (int sweep = 0;; ++sweep) {
+      lag(sweep, 0);
       Decision<T>& d = dec[sweep & 1];
       if (warp == 0) {
         bool open = false, need = false;
@@ -553,6 +604,7 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
         }
       }
       cta_sync();
+      lag(sweep, 1);
       const int action = d.action;
       if (action < 0) break;
       if (action == 1) chase(H, ldh, Z, ldz, n, d.lo, d.hi, d.x, d.y, d.z, stage);
@@ -571,10 +623,17 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
       if (!(disc >= T(0))) continue;
       const T sq = sqrt(fabs(disc));
       const T lam = radd(mm, mm >= T(0) ? sq : -sq);
-      const T v1a = b, v1b = rsub(lam, a), v2a = rsub(lam, d), v2b = c;
-      const bool one = rdot2(v1a, v1b, v1a, v1b) >= rdot2(v2a, v2b, v2a, v2b);
+      T v1a = b, v1b = rsub(lam, a), v2a = rsub(lam, d), v2b = c;
+      const int e = pow2_exp(fmax(fmax(fabs(v1a), fabs(v1b)), fmax(fabs(v2a), fabs(v2b))));
+      if (e) {
+        v1a = ldexp(v1a, -e);
+        v1b = ldexp(v1b, -e);
+        v2a = ldexp(v2a, -e);
+        v2b = ldexp(v2b, -e);
+      }
+      const bool one = sum2(v1a, v1b, v1a, v1b) >= sum2(v2a, v2b, v2a, v2b);
       T va = one ? v1a : v2a, vb = one ? v1b : v2b;
-      const T nrm = sqrt(rdot2(va, vb, va, vb));
+      const T nrm = sqrt(sum2(va, vb, va, vb));
       if (nrm > T(0)) {
         va = va / nrm;
         vb = vb / nrm;
@@ -583,21 +642,23 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
         vb = T(0);
       }
       __syncthreads();  // every thread has read the block
+      lag(i, 0);
       for (int col = tid; col < n; col += nt) {  // G^T rows, G = [[va, -vb], [vb, va]]
         const T r0 = H[i * ldh + col], r1 = H[(i + 1) * ldh + col];
-        H[i * ldh + col] = dot2(va, vb, r0, r1);
-        H[(i + 1) * ldh + col] = dot2(-vb, va, r0, r1);
+        H[i * ldh + col] = sum2(va, vb, r0, r1);
+        H[(i + 1) * ldh + col] = sum2(-vb, va, r0, r1);
       }
       __syncthreads();
+      lag(i, 1);
       for (int row = tid; row < n; row += nt) {  // columns G, and Z's
         T* e = H + row * ldh + i;
         const T c0 = e[0], c1 = e[1];
-        e[0] = dot2(c0, c1, va, vb);
-        e[1] = dot2(c0, c1, -vb, va);
+        e[0] = sum2(c0, c1, va, vb);
+        e[1] = sum2(c0, c1, -vb, va);
         T* ze = Z + i * ldz + row;
         const T z0 = ze[0], z1 = ze[ldz];
-        ze[0] = dot2(z0, z1, va, vb);
-        ze[ldz] = dot2(z0, z1, -vb, va);
+        ze[0] = sum2(z0, z1, va, vb);
+        ze[ldz] = sum2(z0, z1, -vb, va);
       }
       __syncthreads();
       if (tid == 0) {
@@ -682,6 +743,7 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
   {
     const T eps = eps_of<T>();
     for (int j = 0; j < n / 2; ++j) {
+      lag(j, 0);
       Decision<T>& d = dec[j & 1];
       if (warp == 0) {
         bool need = false;
@@ -727,6 +789,7 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
         }
       }
       cta_sync();
+      lag(j, 1);
       if (d.action == 1) chase(H, ldh, Z, ldz, n, 0, d.hi, d.x, d.y, d.z, stage);
     }
   }

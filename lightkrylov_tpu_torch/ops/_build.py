@@ -8,6 +8,12 @@ sources, so an edited source is rebuilt: one ``nvcc`` a source, all started
 together, then one link.  It uses nothing but the sources in
 this package and the CUDA toolkit.  A missing compiler or a failed build
 raises :class:`KernelCompileError`; nothing falls back to another path.
+
+:func:`load_lagging` builds and loads, beside it and through a handle of its
+own, the same sources with ``-DLK_LAG_WARP=1``: the Francis-QR kernels of
+``csrc/hessenberg.cu`` with one warp made to lag in every stretch between
+two barriers, whose outputs the tests hold bit-equal to the shipping
+kernels' (a check for ordering hazards between warps).
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KernelCompileError", "find_nvcc", "build", "load", "BUILD_DIR", "SOURCES"]
+__all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "BUILD_DIR",
+           "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu",
@@ -34,8 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: ``NVCC_FLAGS`` less ``-shared``: what compiles one source to an object
 _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
+#: The builds beside the shipping one (``""``), by name: their extra flags
+VARIANTS = {"": (), "lag": ("-DLK_LAG_WARP=1",)}
 
 _lib = None
+_lag_lib = None
 
 
 class KernelCompileError(RuntimeError):
@@ -57,23 +67,24 @@ def find_nvcc() -> str | None:
     return None
 
 
-def _library_path() -> Path:
+def _library_path(variant: str = "") -> Path:
     digest = hashlib.sha256()
     for src in SOURCES:
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"liblk_kernels_{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(NVCC_FLAGS + VARIANTS[variant]).encode())
+    name = f"liblk_kernels_{variant}_" if variant else "liblk_kernels_"
+    return BUILD_DIR / f"{name}{digest.hexdigest()[:16]}.so"
 
 
-def _compile(nvcc: str, sources, path: Path) -> None:
+def _compile(nvcc: str, sources, path: Path, extra=()) -> None:
     """Compile ``sources`` into the shared library ``path``: one ``nvcc -c``
-    a source, all started together, then one link.  The compilers' output,
-    register and shared-memory use included, is kept beside the library as
-    ``<name>.log``."""
+    a source, all started together, with the flags ``extra`` besides, then
+    one link.  The compilers' output, register and shared-memory use
+    included, is kept beside the library as ``<name>.log``."""
     path.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
     objs = [path.with_name(f"{tag}.{i}.o") for i in range(len(sources))]
-    cmds = [[nvcc, *_COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+    cmds = [[nvcc, *_COMPILE_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
@@ -98,10 +109,12 @@ def _compile(nvcc: str, sources, path: Path) -> None:
     os.replace(tmp, path)
 
 
-def build() -> Path:
+def build(variant: str = "") -> Path:
     """Compile the kernels unless a library for the current sources exists;
-    return its path (the compilers' output is in ``<name>.log`` beside it)."""
-    path = _library_path()
+    return its path (the compilers' output is in ``<name>.log`` beside it).
+    ``variant`` names a build of :data:`VARIANTS` (``""``: the shipping
+    one)."""
+    path = _library_path(variant)
     if path.exists():
         return path
     nvcc = find_nvcc()
@@ -110,7 +123,7 @@ def build() -> Path:
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA toolkit is needed to build "
             "the CUDA kernels for a CUDA tensor")
-    _compile(nvcc, SOURCES, path)
+    _compile(nvcc, SOURCES, path, VARIANTS[variant])
     return path
 
 
@@ -118,58 +131,72 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("lk_stencil_f32", "lk_stencil_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                           ctypes.c_double, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for name in ("lk_stencil_batched_f32", "lk_stencil_batched_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                           ctypes.c_double, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for name in ("lk_bell_spmv_f32", "lk_bell_spmv_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for name in ("lk_bell_spmm_f32", "lk_bell_spmm_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.lk_copy_tiles_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lk_copy_ring_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lk_copy_ring_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                 ctypes.POINTER(ctypes.c_int)]
-        lib.lk_reduce_8x128_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-        for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_copy_ring_ctas_per_sm",
-                     "lk_reduce_8x128_f32"):
-            getattr(lib, name).restype = ctypes.c_int
-        for name in ("lk_hessenberg_schur_f32", "lk_hessenberg_schur_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong]
-                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        for name in ("lk_francis_sweeps_f32", "lk_francis_sweeps_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
-                                                    ctypes.c_void_p, ctypes.c_int,
-                                                    ctypes.c_longlong, ctypes.c_void_p]
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        lib.lk_error_string.argtypes = [ctypes.c_int]
-        lib.lk_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(str(build())))
     return _lib
+
+
+def load_lagging() -> ctypes.CDLL:
+    """The lagging-warp build (``-DLK_LAG_WARP=1``) of the same sources,
+    built first if needed, under its own name and handle: the shipping
+    library of :func:`load` is never replaced by it."""
+    global _lag_lib
+    if _lag_lib is None:
+        _lag_lib = _bind(ctypes.CDLL(str(build("lag"))))
+    return _lag_lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and result types on ``lib``."""
+    for name in ("lk_stencil_f32", "lk_stencil_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                       ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("lk_stencil_batched_f32", "lk_stencil_batched_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                       ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("lk_bell_spmv_f32", "lk_bell_spmv_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("lk_bell_spmm_f32", "lk_bell_spmm_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.lk_copy_tiles_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lk_copy_ring_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lk_copy_ring_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.lk_reduce_8x128_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_void_p]
+    for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_copy_ring_ctas_per_sm",
+                 "lk_reduce_8x128_f32"):
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("lk_hessenberg_schur_f32", "lk_hessenberg_schur_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for name in ("lk_francis_sweeps_f32", "lk_francis_sweeps_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
+                                                ctypes.c_void_p, ctypes.c_int,
+                                                ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.lk_error_string.argtypes = [ctypes.c_int]
+    lib.lk_error_string.restype = ctypes.c_char_p
+    return lib

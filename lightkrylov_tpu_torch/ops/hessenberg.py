@@ -29,7 +29,10 @@ tensor is an error, never a quiet switch to another path.  For a CPU tensor
 it runs the plain version, :func:`hessenberg_schur_reference` or
 :func:`francis_filter_sweeps_reference`, built from the pieces of
 :mod:`..utils.hessenberg`.  Each wrapper counts its launches in its
-``LAUNCHES`` attribute.
+``LAUNCHES`` attribute.  :func:`launch_schur` and :func:`launch_filter` are
+the launches themselves, from a library that the caller names (the shipping
+build, or the lagging-warp build of :func:`._build.load_lagging` that the
+tests hold to it), and count nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..utils import hessenberg as _plain
 from . import _build
 
 __all__ = ["Geometry", "francis_filter_sweeps", "francis_filter_sweeps_reference", "geometry",
-           "hessenberg_schur", "hessenberg_schur_reference"]
+           "hessenberg_schur", "hessenberg_schur_reference", "launch_filter", "launch_schur"]
 
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -156,6 +159,16 @@ def hessenberg_schur(H, k_eff=None, with_z: bool = False, split: bool = False):
     or an int32/int64 tensor."""
     if H.device.type == "cpu":
         return hessenberg_schur_reference(H, k_eff, with_z, split)
+    out = launch_schur(_build.load, H, k_eff, with_z, split)
+    hessenberg_schur.LAUNCHES += 1
+    return out
+
+
+def launch_schur(load, H, k_eff=None, with_z: bool = False, split: bool = False):
+    """The launch of :func:`hessenberg_schur` on the CUDA tensor ``H``, from
+    the library that ``load()`` returns (:func:`._build.load` or
+    :func:`._build.load_lagging`), called once the arguments are checked;
+    not counted in ``LAUNCHES``."""
     _check(H, "hessenberg_schur")
     n = H.shape[0]
     dev = H.device
@@ -169,14 +182,13 @@ def hessenberg_schur(H, k_eff=None, with_z: bool = False, split: bool = False):
     acc = torch.empty(max(n - 1, 0), dtype=torch.bool, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     work = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = _build.load()
+    lib = load()
     err = getattr(lib, f"lk_hessenberg_schur_{_NAMES[H.dtype]}")(
         H.data_ptr(), T.data_ptr(), _ptr(Z), wr.data_ptr(), wi.data_ptr(),
         acc.data_ptr() if n > 1 else None, ok.data_ptr(), work.data_ptr(), _ptr(keff), kbytes,
         kval, n, int(with_z), int(split), geo.warps, int(geo.h_smem),
         int(geo.z_smem), geo.smem_bytes, _stream(dev))
     _raise_on(err, lib, "hessenberg_schur")
-    hessenberg_schur.LAUNCHES += 1
     return T, Z, wr, wi, acc, ok, work
 
 
@@ -193,6 +205,15 @@ def francis_filter_sweeps(H, wr, wi, shift_order, n_keep, pure):
     ``shift_order`` is int64 and ``(wr, wi)`` are of ``H``'s dtype."""
     if H.device.type == "cpu":
         return francis_filter_sweeps_reference(H, wr, wi, shift_order, n_keep, pure)
+    out = launch_filter(_build.load, H, wr, wi, shift_order, n_keep, pure)
+    francis_filter_sweeps.LAUNCHES += 1
+    return out
+
+
+def launch_filter(load, H, wr, wi, shift_order, n_keep, pure):
+    """The launch of :func:`francis_filter_sweeps` on the CUDA tensor ``H``,
+    from the library that ``load()`` returns, as :func:`launch_schur`; not
+    counted in ``LAUNCHES``."""
     _check(H, "francis_filter_sweeps")
     n = H.shape[0]
     dev = H.device
@@ -210,14 +231,13 @@ def francis_filter_sweeps(H, wr, wi, shift_order, n_keep, pure):
     Hf = torch.empty_like(H)
     Z = torch.empty_like(H)
     work = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = _build.load()
+    lib = load()
     err = getattr(lib, f"lk_francis_sweeps_{_NAMES[H.dtype]}")(
         H.data_ptr(), Hf.data_ptr(), Z.data_ptr(), wr.data_ptr(), wi.data_ptr(),
         order.data_ptr(), _ptr(nk), nkb, nkv, _ptr(pu), pub, puv, work.data_ptr(), n,
         geo.warps, int(geo.h_smem), int(geo.z_smem), geo.smem_bytes,
         _stream(dev))
     _raise_on(err, lib, "francis_filter_sweeps")
-    francis_filter_sweeps.LAUNCHES += 1
     return Hf, Z, work
 
 

@@ -51,11 +51,10 @@ __all__ = ["eighs"]
 
 
 def _check_options(opts: EigsOptions) -> None:
-    """Raise on every option the host path does not implement."""
+    """Raise on an unknown ``projected`` value.  ``write_intermediate`` and
+    ``outpost`` are accepted and not read: only ``eigs`` writes its checks
+    (as in the JAX package, whose ``eighs`` never reads the flag)."""
     check_projected("eighs", opts)
-    if opts.write_intermediate:
-        raise NotImplementedError(
-            "eighs: write_intermediate is read by eigs, not by eighs (as in the JAX package).")
 
 
 def _thick_restart(X, evals, evecs, beta, n: int):

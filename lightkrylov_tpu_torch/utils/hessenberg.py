@@ -33,7 +33,13 @@ the hand-written kernel of ``csrc/hessenberg.cu`` each, on a CPU tensor the
 plain versions below, whose data-dependent loops are Python loops reading
 the few scalars they branch on.  The arithmetic follows the JAX package's
 order: each chase step applies its 3-row and 3-column updates over the full
-slices and sets the annihilated bulge entries to exactly zero.  What stays
+slices and sets the annihilated bulge entries to exactly zero.  The small
+products of a chase, its closing rotation and the pair split are written as
+elementwise sums in a fixed order (:func:`_ordered_rows`), which the kernel
+repeats operation for operation; only the reduction's products with a dense
+column (``u @ H``, ``H @ u``) keep the library's order.  Square roots are
+numpy's (:func:`_sqrt`), correctly rounded, so the plain versions round
+alike on every device.  What stays
 plain torch on the device: the shift bookkeeping of the filter, the batched
 inverse iteration (``torch.linalg.solve_ex``, which checks no error on the
 host), the stable sorts, and :func:`ordschur_device`, which reads one
@@ -65,6 +71,14 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def _sqrt(x):
+    """``torch.sqrt(x)`` taken by numpy, correctly rounded on every device
+    (one host read), as the kernel's ``sqrt`` is.  A CPU build's vectorized
+    ``torch.sqrt`` need not be: torch 2.11.0's AVX-512 one missed numpy's
+    and the H100's value in the last bit on 0.6-0.8% of random inputs."""
+    return torch.from_numpy(np.asarray(np.sqrt(_np(x)))).to(x.device)
+
+
 def take_at(x, i):
     """The entry of ``x`` at the flat index ``i`` (a 0-d integer tensor on
     ``x``'s device), gathered on the device with no host read."""
@@ -90,13 +104,64 @@ def _lexsort(keys):
 
 # -- the plain versions of the kernel's pieces ---------------------------------
 
+def _ordered_rows(M, R):
+    """``M @ R`` for a small ``M`` (``m x k``) and the ``k``-row ``R``, in a
+    fixed order: row ``r`` is ``(M[r,0] R[0] + M[r,1] R[1]) + M[r,2] R[2]``
+    (and so on, left to right), each product and each sum rounded on its
+    own.  ``csrc/hessenberg.cu`` sums in the same order, so the result does
+    not hang on the order a library picks."""
+    t = M[:, :, None] * R[None, :, :]
+    out = t[:, 0]
+    for k in range(1, M.shape[1]):
+        out = out + t[:, k]
+    return out
+
+
+def _ordered_cols(C, M):
+    """``C @ M`` for the ``k``-column ``C`` and a small ``M``: column ``c`` is
+    ``(C[:,0] M[0,c] + C[:,1] M[1,c]) + C[:,2] M[2,c]``, as
+    :func:`_ordered_rows`."""
+    return _ordered_rows(M.T, C.T).T
+
+
+def _pow2_scaled(*v):
+    """``v`` scaled by the power of two that brings its largest magnitude
+    into [0.5, 1) when that magnitude is below ``sqrt(tiny) / eps`` of the
+    dtype (2^-40 in float32, 2^-459 in float64), where the squares of its
+    entries would underflow and lose digits; else ``v`` as it is.  The scale
+    is exact, and a reflector or a rotation built from ``v`` does not
+    depend on it.  The JAX package scales nothing: on the Hessenberg of an
+    eigs check at kdim 300 in float32 its reflector's ``2 / (v^T v)``
+    overflows (a NaN, then the sweep budget runs out).
+    ``csrc/hessenberg.cu`` (``pow2_exp``) does the same."""
+    m = max(abs(c) for c in v)
+    fi = np.finfo(m.dtype)
+    if not 0 < m < np.sqrt(fi.tiny) / fi.eps:
+        return v
+    e = np.frexp(m)[1]
+    return tuple(np.ldexp(c, -e) for c in v)
+
+
+def _underflows(sq):
+    """Whether a sum of squares lies below ``(sqrt(tiny) / eps)^2`` of its
+    dtype, where its terms lose digits: the vector is then scaled
+    (:func:`_pow2_scaled`) and the sum taken again."""
+    fi = np.finfo(sq.dtype)
+    return sq < fi.tiny / (fi.eps * fi.eps)
+
+
 def _householder3(x, y, z):
     """3-element Householder ``P = I - 2 v v^T / (v^T v)`` annihilating
     ``(y, z)`` in ``(x, y, z)`` (numpy scalars of the working dtype, so the
     arithmetic is the dtype's); identity when the vector already is
-    ``(x, 0, 0)``."""
+    ``(x, 0, 0)``.  A vector too small to square is scaled first
+    (:func:`_underflows`)."""
     dt = x.dtype.type
-    s = np.sqrt(x * x + y * y + z * z)
+    sq = x * x + y * y + z * z
+    if _underflows(sq):
+        x, y, z = _pow2_scaled(x, y, z)
+        sq = x * x + y * y + z * z
+    s = np.sqrt(sq)
     alpha = -(s if x >= 0 else -s)
     v0 = x - alpha
     vnorm2 = v0 * v0 + y * y + z * z
@@ -128,21 +193,25 @@ def _chase(H, lo, hi, s, t, Z=None):
         first = p == lo
         x, y, z = (x0, y0, z0) if first else _np(H[p:p + 3, p - 1])
         P = torch.from_numpy(_householder3(x, y, z)).to(H.device, dt)
-        H[p:p + 3, :] = P @ H[p:p + 3, :]
-        H[:, p:p + 3] = H[:, p:p + 3] @ P
+        H[p:p + 3, :] = _ordered_rows(P, H[p:p + 3, :])
+        H[:, p:p + 3] = _ordered_cols(H[:, p:p + 3], P)
         if Z is not None:
-            Z[:, p:p + 3] = Z[:, p:p + 3] @ P
+            Z[:, p:p + 3] = _ordered_cols(Z[:, p:p + 3], P)
         if not first:
             H[p + 1:p + 3, p - 1] = 0.0
         p += 1
     x, y = _np(H[hi - 1:hi + 1, hi - 2])
-    r = np.sqrt(x * x + y * y)
+    sq = x * x + y * y
+    if _underflows(sq):
+        x, y = _pow2_scaled(x, y)
+        sq = x * x + y * y
+    r = np.sqrt(sq)
     c, sn = (x / r, y / r) if r > 0 else (x.dtype.type(1.0), x.dtype.type(0.0))
     G = torch.from_numpy(np.array([[c, sn], [-sn, c]])).to(H.device, dt)
-    H[hi - 1:hi + 1, :] = G @ H[hi - 1:hi + 1, :]
-    H[:, hi - 1:hi + 1] = H[:, hi - 1:hi + 1] @ G.T
+    H[hi - 1:hi + 1, :] = _ordered_rows(G, H[hi - 1:hi + 1, :])
+    H[:, hi - 1:hi + 1] = _ordered_cols(H[:, hi - 1:hi + 1], G.T)
     if Z is not None:
-        Z[:, hi - 1:hi + 1] = Z[:, hi - 1:hi + 1] @ G.T
+        Z[:, hi - 1:hi + 1] = _ordered_cols(Z[:, hi - 1:hi + 1], G.T)
     H[hi, hi - 2] = 0.0
     return hi - lo - 1
 
@@ -167,7 +236,9 @@ def _embed(H, k_eff):
 def _to_hessenberg(H, Z=None):
     """Householder similarity reduction to upper Hessenberg form (GEHRD's
     role), one vectorized reflector a column; with ``Z``, also ``Z <- Z Q``.
-    Returns ``(H, Z)``."""
+    The products with the reflector's vector sum in the library's order; on
+    a column that is already Hessenberg they hold one nonzero product, exact
+    in any order.  Returns ``(H, Z)``."""
     n = H.shape[0]
     if n < 3:
         return H, Z
@@ -176,7 +247,7 @@ def _to_hessenberg(H, Z=None):
     for j in range(n - 2):
         below = rows > j
         x = torch.where(below, H[:, j], zero)
-        s = torch.sqrt(torch.sum(x * x))
+        s = _sqrt(torch.sum(x * x))
         x0 = H[j + 1, j]
         alpha = -torch.where(x0 >= 0, s, -s)
         u = x - alpha * (rows == j + 1).to(H.dtype)
@@ -264,7 +335,7 @@ def _extract_eigvals(H, accepted):
     dd = torch.cat([d[1:], pad])
     m = 0.5 * (a + dd)
     disc = 0.25 * (a - dd) ** 2 + b * c
-    sq = torch.sqrt(torch.abs(disc))
+    sq = _sqrt(torch.abs(disc))
     real_pair = disc >= 0
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
     wr1 = torch.where(real_pair, m + sq, m)
@@ -297,15 +368,16 @@ def _split_real_blocks(T, Z, accepted):
             continue
         sq = np.sqrt(np.abs(disc))
         lam = m + (sq if m >= 0 else -sq)
-        v1 = np.array([b, lam - a])
-        v2 = np.array([lam - d, c])
+        v1a, v1b, v2a, v2b = _pow2_scaled(b, lam - a, lam - d, c)
+        v1 = np.array([v1a, v1b])
+        v2 = np.array([v2a, v2b])
         v = v1 if np.sum(v1 * v1) >= np.sum(v2 * v2) else v2
         nrm = np.sqrt(np.sum(v * v))
         v = v / nrm if nrm > 0 else np.array([1.0, 0.0], dtype=a.dtype)
         G = torch.from_numpy(np.array([[v[0], -v[1]], [v[1], v[0]]])).to(T.device, T.dtype)
-        T[i:i + 2, :] = G.T @ T[i:i + 2, :]
-        T[:, i:i + 2] = T[:, i:i + 2] @ G
-        Z[:, i:i + 2] = Z[:, i:i + 2] @ G
+        T[i:i + 2, :] = _ordered_rows(G.T, T[i:i + 2, :])
+        T[:, i:i + 2] = _ordered_cols(T[:, i:i + 2], G)
+        Z[:, i:i + 2] = _ordered_cols(Z[:, i:i + 2], G)
         T[i + 1, i] = 0.0
         acc[i] = False
     return T, Z, torch.from_numpy(acc).to(T.device)

@@ -72,8 +72,8 @@ class EigsOptions:
       relay round-trip; off a TPU it is the host path, and so it is here.
 
     ``write_intermediate``/``outpost``: ``eigs`` writes the Ritz values and
-    residuals of each check to ``outpost``; the JAX ``eighs`` does not read
-    them, and the port's ``eighs`` raises on ``write_intermediate``.
+    residuals of each check to ``outpost``; ``eighs`` accepts them and does
+    not read them, as the JAX ``eighs`` does.
     """
 
     kdim: int | None = None       # None -> 4 * nev

@@ -265,13 +265,28 @@ def test_eighs_reads_the_host_once_per_step():
                                              checkpoint_path=str(tmp / "no-dir" / "x.npz")),
                       tolerance=1e-30), FileNotFoundError),
     (lambda tmp: dict(resume_from=str(tmp / "state.npz")), FileNotFoundError),
-    (lambda tmp: dict(options=lt.EigsOptions(write_intermediate=True)), NotImplementedError),
     (lambda tmp: dict(options=lt.EigsOptions(projected="gpu")), ValueError),
-], ids=["checkpoint", "resume", "write-intermediate", "unknown"])
+], ids=["checkpoint", "resume", "unknown"])
 def test_eighs_refuses_what_is_not_ported(kwargs, err, tmp_path):
     op = lt.TridiagToeplitz(20, 2.0, -1.0)
-    with pytest.raises(err, match="M13|read by eigs|unknown|No such file"):
+    with pytest.raises(err, match="M13|unknown|No such file"):
         lt.eighs(op, 2, x0=torch.ones(20, dtype=torch.float64), **kwargs(tmp_path))
+
+
+def test_eighs_write_intermediate_is_accepted_and_not_read(tmp_path):
+    """``write_intermediate`` is read by ``eigs`` only: both packages' ``eighs``
+    accept it, return the same eigenvalues and write no file."""
+    A = _hermitian(40, 31, complex_=False)
+    x0 = _x0(40, 32)
+    out_j, out_t = tmp_path / "jax.txt", tmp_path / "port.txt"
+    ref = lk.eighs(lk.DenseOperator(jnp.asarray(A), is_hermitian=True), 3, x0=jnp.asarray(x0),
+                   kdim=20, options=lk.EigsOptions(write_intermediate=True, outpost=str(out_j)))
+    got = lt.eighs(lt.DenseOperator(torch.from_numpy(A), is_hermitian=True), 3,
+                   x0=torch.from_numpy(x0), kdim=20,
+                   options=lt.EigsOptions(write_intermediate=True, outpost=str(out_t)))
+    assert got[3] == ref[3] and got[4].converged and got[4].n_iter == ref[4].n_iter
+    _close(got[0], ref[0])
+    assert not out_j.exists() and not out_t.exists() and not any(tmp_path.iterdir())
 
 
 def test_eighs_device_path_runs_and_matches_jax():

@@ -216,10 +216,12 @@ def test_ritz_block_residuals_match_jax(rng, J, jnp):
 
 # -- Schur form, reordering, the IRAM filter ----------------------------------
 
-@pytest.mark.parametrize("n", [2, 5, 12, 24, 40])
+@pytest.mark.parametrize("n", [2, 5, 12, 24, 40, 120, 257])
 def test_schur_real_factorization(n, rng, J, jnp):
     """``H = Z T Z^T`` with ``Z`` orthogonal, ``T`` quasi-triangular with
-    every 2x2 block a conjugate pair, and the JAX function's eigenvalues."""
+    every 2x2 block a conjugate pair, and the JAX function's eigenvalues.
+    n = 120 puts the plain version where the kernel's ``Z`` leaves shared
+    memory in float64, n = 257 where a kernel thread owns two rows."""
     A = rng.standard_normal((n, n))
     T, Z, wr, wi, ok = H.schur_real(torch.from_numpy(A))
     T, Z = T.numpy(), Z.numpy()
@@ -327,6 +329,74 @@ def test_schur_budget_flag_and_sweep_count(rng):
     assert bool(ok) and int(acc.sum()) == n_pairs  # split: conjugate pairs only
 
 
+def test_chase_sums_its_small_products_in_a_fixed_order():
+    """The plain chase's small products are ordered elementwise sums, each
+    product and each sum rounded on its own, ``(p0 r0 + p1 r1) + p2 r2`` and
+    ``c u + s v`` (the order ``csrc/hessenberg.cu`` repeats), not a matrix
+    product whose order the library picks: a chase over a window of four
+    rows (two steps and the closing rotation) on a seeded float64 Hessenberg
+    is bit-equal to the same sums in numpy."""
+    n, lo, hi = 7, 1, 4
+    rng = np.random.default_rng(11)
+    A = np.triu(rng.standard_normal((n, n)), -1)
+    s, t = np.float64(0.7), np.float64(-0.4)
+    Ht, Zt = torch.from_numpy(A.copy()), torch.eye(n, dtype=torch.float64)
+    assert H._chase(Ht, lo, hi, s, t, Zt) == hi - lo - 1
+
+    def rows(M, R):  # row r: ((M[r,0] R[0] + M[r,1] R[1]) + M[r,2] R[2])
+        out = M[:, 0:1] * R[0]
+        for k in range(1, M.shape[1]):
+            out = out + M[:, k:k + 1] * R[k]
+        return out
+
+    Hn, Zn = A.copy(), np.eye(n)
+    h00, h01, h10, h11, h21 = Hn[lo, lo], Hn[lo, lo + 1], Hn[lo + 1, lo], Hn[lo + 1, lo + 1], \
+        Hn[lo + 2, lo + 1]
+    x, y, z = h00 * h00 + h01 * h10 - s * h00 + t, h10 * (h00 + h11 - s), h10 * h21
+    for p in range(lo, hi - 1):
+        if p > lo:
+            x, y, z = Hn[p:p + 3, p - 1]
+        P = H._householder3(x, y, z)
+        Hn[p:p + 3, :] = rows(P, Hn[p:p + 3, :])
+        Hn[:, p:p + 3] = rows(P.T, Hn[:, p:p + 3].T).T
+        Zn[:, p:p + 3] = rows(P.T, Zn[:, p:p + 3].T).T
+        if p > lo:
+            Hn[p + 1:p + 3, p - 1] = 0.0
+    x, y = Hn[hi - 1:hi + 1, hi - 2]
+    r = np.sqrt(x * x + y * y)
+    G = np.array([[x / r, y / r], [-y / r, x / r]])
+    Hn[hi - 1:hi + 1, :] = rows(G, Hn[hi - 1:hi + 1, :])
+    Hn[:, hi - 1:hi + 1] = rows(G, Hn[:, hi - 1:hi + 1].T).T
+    Zn[:, hi - 1:hi + 1] = rows(G, Zn[:, hi - 1:hi + 1].T).T
+    Hn[hi, hi - 2] = 0.0
+    assert np.array_equal(Ht.numpy(), Hn) and np.array_equal(Zt.numpy(), Zn)
+
+
+@pytest.mark.parametrize("case", ["f64-tiny", "f32-arnoldi300"])
+def test_schur_scales_vectors_too_small_to_square(case, J, jnp):
+    """A reflector's or rotation's vector whose squares would underflow is
+    scaled by a power of two first (``_pow2_scaled``, and ``pow2_exp`` in the
+    kernel), which leaves every larger vector's arithmetic as it was.  On a
+    float64 Hessenberg of size 2^-300 the first vector of a chase (~2^-600)
+    squares to nothing; on the float32 Hessenberg of an eigs check at kdim
+    300 (entries down to 1e-17) the bottom windows' first vectors do.  The
+    plain Schur core converges to numpy's eigenvalues in both; the JAX
+    package, which scales nothing, runs out of its sweep budget on the
+    second (ROADMAP F10: the port differs on purpose)."""
+    if case == "f64-tiny":
+        A = np.triu(np.random.default_rng(5).standard_normal((24, 24)), -1) * 2.0 ** -300
+        tol = 1e-11
+    else:
+        A = _arnoldi_hessenberg(300, 300, 512).astype(np.float32)
+        tol = 1e-5
+        _, _, jok = J.hessenberg_eigvals(jnp.asarray(A))
+        assert not bool(jok)
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    Ad = A.astype(np.float64)
+    assert bool(ok)
+    assert _match(_w(wr, wi), np.linalg.eigvals(Ad)) < tol * np.linalg.norm(Ad)
+
+
 # -- ROADMAP F3 ---------------------------------------------------------------
 
 def test_f3_mask_transfer_matches_jax(J, jnp):
@@ -373,7 +443,16 @@ _BUDGET = kernels.SMEM_LIMIT - kernels.SMEM_RESERVED
     (169, 4, True, True, True), (170, 4, True, True, False),
     (169, 8, False, True, False), (170, 8, False, False, False),
     (239, 4, False, True, False), (240, 4, False, False, False),
-    (200, 8, True, False, False), (40, 8, True, True, True), (30, 8, True, True, True)])
+    (200, 8, True, False, False), (40, 8, True, True, True), (30, 8, True, True, True),
+    # with Z, f32 and f64, at every edge the kernels' gates run
+    (119, 4, True, True, True), (120, 4, True, True, True),
+    (169, 8, True, True, False), (170, 8, True, False, False),
+    (239, 4, True, True, False), (239, 8, True, False, False),
+    (240, 4, True, False, False), (240, 8, True, False, False),
+    (241, 4, True, False, False), (241, 8, True, False, False),
+    (256, 4, True, False, False), (256, 8, True, False, False),
+    (257, 4, True, False, False), (257, 8, True, False, False),
+    (300, 4, True, False, False), (300, 8, True, False, False)])
 def test_geometry_places_h_and_z_by_the_shared_memory_limit(n, itemsize, with_z, h_smem,
                                                             z_smem):
     """Each matrix in shared memory exactly when its padded rows (stride
@@ -393,20 +472,33 @@ def test_geometry_places_h_and_z_by_the_shared_memory_limit(n, itemsize, with_z,
 
 @pytest.mark.parametrize("n, itemsize, h_smem, z_smem", [
     (119, 8, True, True), (120, 8, True, False), (169, 8, True, False), (170, 8, False, False),
-    (169, 4, True, True), (170, 4, True, False)])
+    (169, 4, True, True), (170, 4, True, False),
+    (119, 4, True, True), (120, 4, True, True), (239, 4, True, False), (240, 4, True, False),
+    (241, 4, False, False), (256, 4, False, False), (257, 4, False, False),
+    (300, 4, False, False), (240, 8, False, False), (257, 8, False, False),
+    (300, 8, False, False)])
 def test_geometry_of_the_filter(n, itemsize, h_smem, z_smem):
-    """The filter keeps no vectors: ``H`` and ``Z`` alone."""
+    """The filter keeps no vectors: ``H`` and ``Z`` alone, so in float32 ``H``
+    stays in shared memory one size further than in the Schur kernel
+    (n = 240)."""
     g = kernels.geometry(n, itemsize, True, schur=False)
     assert (g.h_smem, g.z_smem) == (h_smem, z_smem)
     assert g.smem_bytes == n * (n | 1) * itemsize * (h_smem + z_smem) <= _BUDGET
 
 
-@pytest.mark.parametrize("n, warps", [
-    (1, 1), (3, 1), (31, 1), (32, 1), (33, 2), (64, 2), (65, 3), (128, 4), (200, 7), (256, 8),
-    (400, 8)])
-def test_geometry_warps(n, warps):
-    """A thread a row or column, at most 8 warps."""
-    assert kernels.geometry(n, 8, True).warps == warps
+@pytest.mark.parametrize("n, warps, rows", [
+    (1, 1, 1), (3, 1, 1), (31, 1, 1), (32, 1, 1), (33, 2, 1), (64, 2, 1), (65, 3, 1),
+    (128, 4, 1), (200, 7, 1), (256, 8, 1), (400, 8, 2),
+    (119, 4, 1), (120, 4, 1), (169, 6, 1), (170, 6, 1), (239, 8, 1), (240, 8, 1), (241, 8, 1),
+    (257, 8, 2), (300, 8, 2)])
+def test_geometry_warps(n, warps, rows):
+    """A thread a row or column, at most 8 warps: from n = 257 a thread owns
+    ``rows`` rows or columns (the kernels' ``g + G`` loops)."""
+    for itemsize in (4, 8):
+        for schur in (True, False):
+            g = kernels.geometry(n, itemsize, True, schur=schur)
+            assert g.warps == warps
+            assert -(-n // (32 * g.warps)) == rows
 
 
 # -- the CUDA kernels (need a GPU) --------------------------------------------
@@ -417,15 +509,18 @@ SCHUR_ORTH = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms, as chip_smo
 
 # n: the warp counts' edges (31-33, 64-65), Z in shared memory on both sides
 # of its limit (119/120 in f64, 169/170 in f32), H alone on both sides of its
-# f64 limit (169/170), and H in global memory (200 in f64)
-KERNEL_NS = [3, 17, 31, 32, 33, 40, 64, 65, 119, 120, 169, 170, 200]
+# limit (169/170 in f64, 239/240 in f32), H in global memory (200, 256), and a
+# thread owning two rows or columns (257, 300)
+KERNEL_NS = [3, 17, 31, 32, 33, 40, 64, 65, 119, 120, 169, 170, 200, 239, 240, 256, 257, 300]
 
 
 def _hold_schur_to_plain(cuda, dtype, A, k, with_z=True):
     """One launch of the Schur kernel on ``A`` against its plain version:
-    eigenvalues within ``KERNEL_TOL`` of ``||A||_F``, the factorization and
-    ``Z``'s orthogonality (with ``Z``), and in f64 at n <= 128 the same
-    ``[sweeps, chase steps]`` as the plain version's."""
+    eigenvalues within ``KERNEL_TOL`` of ``||A||_F`` of the plain version's
+    and numpy's, the factorization and ``Z``'s orthogonality (with ``Z``),
+    and on a Hessenberg input the same ``[sweeps, chase steps]`` as the plain
+    version's: both sum each small product in the order the plain version
+    writes."""
     n = A.shape[0]
     Ht = torch.from_numpy(A).to(cuda, dtype)
     before = kernels.hessenberg_schur.LAUNCHES
@@ -436,12 +531,12 @@ def _hold_schur_to_plain(cuda, dtype, A, k, with_z=True):
     _, _, pwr, pwi, _, pok, pwork = kernels.hessenberg_schur_reference(Ht, k, with_z, with_z)
     norm = float(np.linalg.norm(A))
     assert bool(ok) and bool(pok)
-    assert _match(_w(wr.cpu(), wi.cpu()), _w(pwr.cpu(), pwi.cpu())) < KERNEL_TOL[dtype] * norm
-    if dtype == torch.float64 and n <= 128:
-        assert work.tolist() == pwork.tolist(), (
-            "the kernel copies the accumulation order of cuBLAS's small products as torch "
-            f"2.11.0+cu128 picks them; this is torch {torch.__version__}, CUDA "
-            f"{torch.version.cuda}")
+    w = _w(wr.cpu(), wi.cpu())[:k]
+    assert _match(w, _w(pwr.cpu(), pwi.cpu())[:k]) < KERNEL_TOL[dtype] * norm
+    Ad = Ht.double().cpu().numpy()[:k, :k]
+    assert _match(w, np.linalg.eigvals(Ad)) < KERNEL_TOL[dtype] * norm
+    if not np.tril(A, -2).any():
+        assert work.tolist() == pwork.tolist()
     if not with_z:
         return
     He = np.zeros_like(A)
@@ -458,6 +553,15 @@ def _hold_schur_to_plain(cuda, dtype, A, k, with_z=True):
 def test_cuda_schur_kernel_matches_plain(cuda, dtype, n):
     A = np.triu(np.random.default_rng(n).standard_normal((n, n)), -1)
     _hold_schur_to_plain(cuda, dtype, A, n - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [239, 240, 256, 257, 300])
+def test_cuda_schur_kernel_arnoldi_hessenberg(cuda, dtype, n):
+    """The Hessenberg an eigs check sees at large kdim: deflation early and
+    often, beside the random Hessenbergs of KERNEL_NS."""
+    _hold_schur_to_plain(cuda, dtype, _arnoldi_hessenberg(n, n, 512), n)
 
 
 @pytest.mark.cuda
@@ -494,6 +598,17 @@ def test_cuda_schur_kernel_exceptional_shift(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_schur_kernel_tiny_scale(cuda, dtype):
+    """A Hessenberg so small (2^-33 in f32, 2^-300 in f64) that a chase's
+    first vector squares to nothing unscaled: the kernel scales it as the
+    plain version does (``pow2_exp``), and takes the same sweeps."""
+    tiny = 2.0 ** (-33 if dtype == torch.float32 else -300)
+    A = np.triu(np.random.default_rng(5).standard_normal((24, 24)), -1) * tiny
+    _hold_schur_to_plain(cuda, dtype, A, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_schur_kernel_keff_tensors(cuda, dtype):
     """``k_eff < n`` given as an int32 and an int64 tensor on the card, which
     the kernel reads where it lies."""
@@ -508,19 +623,24 @@ def test_cuda_schur_kernel_keff_tensors(cuda, dtype):
                 assert torch.equal(a, b)
 
 
-def _arnoldi_hessenberg(kdim, seed, n=256):
-    """The square Arnoldi Hessenberg of a matrix with a known, well-separated
-    complex spectrum (chip_smoke.py's input for the filter): the exact-shift
-    filter is forward-unstable on a random non-normal Hessenberg, so kernel
-    and plain version agree there only up to that instability."""
+def _arnoldi_hessenberg(kdim, seed, n=256, real=None):
+    """The square Arnoldi Hessenberg of a matrix of order ``n`` with a known,
+    well-separated complex spectrum (chip_smoke.py's input for the filter),
+    with ``real`` one more, real eigenvalue: the exact-shift filter is
+    forward-unstable on a random non-normal Hessenberg, so kernel and plain
+    version agree there only up to that instability."""
     rng = np.random.default_rng(seed)
-    D = np.zeros((n, n))
+    m = n + (real is not None)
+    D = np.zeros((m, m))
     for j in range(n // 2):
         r, th = 2.5 * 0.85 ** j, 0.3 + 2.1 * j
         a, b = r * np.cos(th), r * np.sin(th)
         D[2 * j:2 * j + 2, 2 * j:2 * j + 2] = [[a, b], [-b, a]]
-    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    if real is not None:
+        D[n, n] = real
+    Q, _ = np.linalg.qr(rng.standard_normal((m, m)))
     A = Q @ D @ Q.T
+    n = m
     V = np.zeros((n, kdim + 1))
     H = np.zeros((kdim + 1, kdim))
     v = rng.standard_normal(n)
@@ -539,11 +659,25 @@ def _arnoldi_hessenberg(kdim, seed, n=256):
 FILTER_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F, as chip_smoke.py
 
 
+def _filter_input(kdim, seed):
+    """The filter's input at ``kdim`` (chip_smoke.py filter_hessenberg): an
+    operator of order 512 beyond kdim 128, and for an odd kdim a real
+    dominant eigenvalue, without which every odd keep count splits a
+    conjugate pair and the filter applies no sweep."""
+    return _arnoldi_hessenberg(kdim, seed, 256 if kdim <= 128 else 512,
+                               3.0 if kdim % 2 else None)
+
+
+# the filter's edges: Z leaves shared memory (120 in f64, 170 in f32), H does
+# (170 in f64, 241 in f32), a thread owns two rows (257, 300)
+FILTER_NS = [40, 64, 119, 120, 169, 170, 240, 241, 256, 257, 300]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_filter_kernel_matches_plain(cuda, dtype):
-    kdim = 40
-    A = _arnoldi_hessenberg(kdim, 1)
+@pytest.mark.parametrize("kdim", FILTER_NS)
+def test_cuda_filter_kernel_matches_plain(cuda, dtype, kdim):
+    A = _filter_input(kdim, 1)
     Ht = torch.from_numpy(A).to(cuda, dtype)
     wr, wi, order, n, pure, ok = H._filter_shifts(Ht, kdim // 2)
     before = kernels.francis_filter_sweeps.LAUNCHES
@@ -563,6 +697,54 @@ def test_cuda_filter_kernel_matches_plain(cuda, dtype):
         FILTER_TOL[dtype] * norm
     w = np.linalg.eigvals(Hd)
     assert _match(kept, w[np.argsort(-np.abs(w))][:n]) < FILTER_TOL[dtype] * norm
+
+
+def _bits(t):
+    """``t`` as integers of its width, so that ``torch.equal`` compares bits
+    (``-0.0`` and ``0.0`` differ)."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bit_equal(got, want):
+    return all((a is None and b is None) or torch.equal(_bits(a), _bits(b))
+               for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [33, 40, 65, 120, 200, 257, 300])
+def test_cuda_schur_lagging_warp_build_is_bit_equal(cuda, n, dtype, with_z):
+    """The ``-DLK_LAG_WARP=1`` build of the same source, in which one warp
+    sleeps at the start of every stretch between two barriers, gives the
+    shipping kernel's ``T``, ``Z``, ``wr``, ``wi``, ``acc``, ``ok`` and
+    ``work`` bit for bit: no read depends on which warp gets there first."""
+    from lightkrylov_tpu_torch.ops import _build
+
+    A = np.triu(np.random.default_rng(n + 7).standard_normal((n, n)), -1)
+    Ht = torch.from_numpy(A).to(cuda, dtype)
+    want = kernels.launch_schur(_build.load, Ht, n, with_z, with_z)
+    got = kernels.launch_schur(_build.load_lagging, Ht, n, with_z, with_z)
+    torch.cuda.synchronize()
+    assert bool(want[5]) and _bit_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kdim", [40, 65, 120, 257, 300])
+def test_cuda_filter_lagging_warp_build_is_bit_equal(cuda, kdim, dtype):
+    """The filter's ``Hf``, ``Z`` and ``work`` from the lagging-warp build,
+    bit for bit the shipping kernel's."""
+    from lightkrylov_tpu_torch.ops import _build
+
+    Ht = torch.from_numpy(_filter_input(kdim, 3)).to(cuda, dtype)
+    wr, wi, order, n, pure, _ = H._filter_shifts(Ht, kdim // 2)
+    want = kernels.launch_filter(_build.load, Ht, wr, wi, order, n, pure)
+    got = kernels.launch_filter(_build.load_lagging, Ht, wr, wi, order, n, pure)
+    torch.cuda.synchronize()
+    assert int(want[2][0]) > 0 and _bit_equal(got, want)
 
 
 @pytest.mark.cuda
