@@ -156,7 +156,17 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     f64 / f32); the plain versions of Hessenberg inputs run on the host, in
     PLAIN_WORKERS spawned processes beside the kernels, those of the dense
     inputs on the card; one hessenberg_ritz check at kdim 40 under
-    set_sync_debug_mode("error"); (h) the lagging-warp build of the same
+    set_sync_debug_mode("error"); the Ritz kernel (csrc/ritz.cu, ritz_check:
+    each eigenvalue's inverse iteration, residual, place in the order and
+    the converged count) against its plain version, on the Schur kernel's
+    eigenvalues of Arnoldi buffers at kdim 16-300 (its working matrix
+    leaving shared memory at 120 in f64 and 170 in f32), k_eff < kdim,
+    block bands with p = 2 and 4, the arrow form and a triangle with exact
+    and near duplicates, a +-lambda tie and exact conjugate pairs, f32 and
+    f64: values, order, count and zero rows exactly, eigen-residuals,
+    overlaps, norms and residuals within 1e-5 / 1e-11, its plain versions on
+    the host workers; checks under set_sync_debug_mode("error") for p = 1
+    and 2; (h) the lagging-warp build of the same
     source against the shipping kernels, bit for bit, at n = 40 and 257;
     (b) gl512 under projected="device" (the phase's main path, the kernels'
     launches zeroed before and read after): 16/16 inside the kappa budgets,
@@ -172,9 +182,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     us a chase step and the bound, beside the host path's read plus numpy
     eig and torch.linalg.eigvals on the card; the kernels alone at kdim 240,
     257 and 300 with their geometry (H and Z in shared or global memory,
-    rows a thread); the wrappers' host us a call beside clone's, and the
-    Schur wrapper's launches in one call (its kernel alone, by
-    torch.profiler).
+    rows a thread); the Ritz kernel alone, its plain version and its bound
+    at every kdim of (g), beside torch.linalg.eig on the card; the
+    wrappers' host us a call beside clone's, the Schur wrapper's launches
+    in one call (its kernel alone) and a check's (the Schur kernel, one
+    fill and the Ritz kernel), by torch.profiler.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -280,6 +292,18 @@ SCHUR_EIG_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}   # of ||H||_F
 SCHUR_ORTH_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms
 FILTER_EIG_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F
 RITZ_KDIMS = (30, 32, 40, 64, 128)
+# phase 33 (a): the Ritz kernel against its plain version on Arnoldi buffers
+# at these kdims (its working matrix leaves shared memory at 120 in f64 and
+# 170 in f32, a lane owns two rows from 33) and on special buffers
+RITZ_GATE_KDIMS = (16, 30, 32, 40, 64, 119, 120, 128, 169, 170, 240, 257, 300)
+RITZ_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}
+# ||Hm v - lambda v|| / ||H||_F in f64; in f32 the method's own residual
+# grows with kdim (the JAX package's f32 vectors read 1.3e-5 to 3.5e-5 at
+# kdim 16-128), so there the kernel is held to the plain version's within
+# RITZ_TOL alone
+RITZ_RESID_TOL = {torch.float32: float("inf"), torch.float64: 1e-11}
+RITZ_REPLACES = ("lightkrylov_tpu/utils/hessenberg.py:729",
+                 "lightkrylov_tpu/utils/hessenberg.py:778")
 HOST_US_CALLS = 50
 MAIN_KDIM = 40  # gl512's, the main path's shape
 # peak non-tensor-core rates of one H100 SXM at 700 W (NVIDIA's data sheet):
@@ -2318,16 +2342,159 @@ def filter_checks(dtype, cases, plain, out):
               f"orthogonality {orth:.2e} (gate {otol})")
 
 
+def check_buffer(kind, kdim, p, k):
+    """The ``(kdim + p, kdim)`` buffer of a check (tests/test_torch_hessenberg.py
+    _check_buffer): a block Arnoldi band (``band``), the Krylov-Schur arrow
+    form after a device Schur restart (``arrow``: a triangle, the spike row,
+    then Arnoldi columns), or a triangle whose eigenvalues hold exact
+    duplicates, a pair a last bit apart (inside ``sep``), a real ``+-lambda``
+    tie and exact conjugate pairs (``dups``)."""
+    rng = np.random.default_rng(kdim * 10 + p + k)
+    He = np.zeros((kdim + p, kdim))
+    if kind == "band":
+        He[:k + p, :k] = np.triu(rng.standard_normal((k + p, k)), -p)
+    elif kind == "arrow":
+        m = kdim // 2
+        He[:m, :m] = np.triu(rng.standard_normal((m, m)))
+        He[m, :m] = rng.standard_normal(m)
+        for j in range(m, k):
+            He[:j + 2, j] = rng.standard_normal(j + 2)
+        He[k + 1:, :] = 0.0
+        He[:, k:] = 0.0
+    else:
+        d = rng.standard_normal(k)
+        d[3] = d[1]
+        d[6] = np.nextafter(d[1], np.inf)
+        d[5] = -d[2]
+        T = np.triu(rng.standard_normal((k, k)))
+        np.fill_diagonal(T, d)
+        for i in (8, 11):
+            T[i:i + 2, i:i + 2] = [[d[i], 0.7], [-0.4, d[i]]]
+        He[:k, :k] = T
+        He[k, k - 1] = 0.8
+    return He
+
+
+def ritz_inputs():
+    """(label, H_ext, k_eff, p, nev, tol) of phase 33 (a)'s Ritz cases: the
+    Arnoldi buffers of the spiral operator at RITZ_GATE_KDIMS, two with
+    k_eff < kdim, block bands with p = 2 and 4, the arrow form and the
+    duplicates' triangle, with and without inactive slots."""
+    cases = [(f"arnoldi{n}", arnoldi_hessenberg(n, seed=n), n, 1, 16, 1e-6)
+             for n in RITZ_GATE_KDIMS]
+    cases += [(f"arnoldi{n}_keff{k}", arnoldi_hessenberg(n, seed=n), k, 1, 16, 1e-6)
+              for n, k in ((40, 29), (128, 100))]
+    cases += [(f"{kind}{kdim}_p{p}_keff{k}", check_buffer(kind, kdim, p, k), k, p, kdim // 2, 0.3)
+              for kind, kdim, p, k in (("band", 40, 2, 34), ("band", 64, 4, 60),
+                                       ("band", 170, 2, 165), ("arrow", 40, 1, 40),
+                                       ("arrow", 40, 1, 37), ("dups", 40, 1, 36),
+                                       ("dups", 40, 1, 40))]
+    return cases
+
+
+def ritz_work(He, k, p, dtype):
+    """Bytes and operations of one ritz_check call on the buffer ``He`` with
+    ``k_eff = k``: the active block and the coupling read once, (wr, wi)
+    read, (Vr, Vi) and (wr, wi, res) written; a slot's elimination 8
+    operations an entry of each candidate row's update (the rows whose first
+    nonzero column is at most the step's, as many in every slot) and its back
+    substitution 8 an entry of U's upper triangle, over the kdim slots."""
+    kdim = He.shape[1]
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * (k * k + p * p + 2 * kdim + 2 * kdim * kdim + 3 * kdim)
+    A = He[:k, :k] != 0
+    profile = np.argmax(A | np.eye(k, dtype=bool), axis=1)
+    cand = np.cumsum(np.bincount(profile, minlength=k)) - np.arange(k) if k else np.zeros(0)
+    elim = sum(8 * (int(c) - 1) * (k - j) for j, c in enumerate(cand))
+    return nbytes, kdim * (elim + 4 * k * k)
+
+
+def unit_phase(V, Vp):
+    """Largest entry of ``V - Vp e^{i phi}`` over the columns, ``phi`` the
+    phase that aligns each column of ``Vp`` with ``V``'s."""
+    dot = np.sum(np.conj(Vp) * V, axis=0)
+    ph = np.where(np.abs(dot) > 0, dot / np.where(np.abs(dot) > 0, np.abs(dot), 1.0), 1.0)
+    return float(np.abs(V - Vp * ph[None, :]).max()) if V.size else 0.0
+
+
+def ritz_checks(dev, dtype, cases, plain, out):
+    """Phase 33 (a): the Ritz kernel against its plain version on the Schur
+    kernel's eigenvalues of ``cases``; rows into ``out["ritz"]``.  Exact: the
+    values in their order, the count, the infinite residuals and the zero
+    rows from k_eff.  Within RITZ_TOL: each active column's
+    ||Hm v - lambda v|| / ||H||_F of the plain version's (and within
+    RITZ_RESID_TOL), each column's | |v^H v_plain| - 1 | and | ||v|| - 1 |,
+    and each finite residual of the plain version's, against |beta| (p = 1)
+    or ||B|| (p > 1)."""
+    for label, He, k, p, nev, tol in cases[dtype]:
+        kdim = He.shape[1]
+        Ht = torch.from_numpy(He).to(dev, dtype)
+        _, _, wr, wi, _, ok, _ = hess_ops.hessenberg_schur(Ht[:kdim].contiguous(), k)
+        got = [t.cpu() for t in hess_ops.ritz_check(Ht, wr, wi, ok, k, tol, nev, p)]
+        want, plain_s, where = plain_result(
+            plain, ("ritz", label, dtype),
+            lambda: hess_ops.ritz_check_reference(Ht, wr, wi, ok, k, tol, nev, p))
+        (gwr, gwi, gres, gVr, gVi, gn), (pwr, pwi, pres, pVr, pVi, pn) = got, [
+            t.cpu() for t in want]
+        A = Ht.double().cpu().numpy()
+        Ha = A[:k, :k]
+        hn = float(np.linalg.norm(Ha))
+        V = gVr.double().numpy() + 1j * gVi.double().numpy()
+        Vp = pVr.double().numpy() + 1j * pVi.double().numpy()
+        w = gwr.double().numpy() + 1j * gwi.double().numpy()
+        fin = torch.isfinite(pres).numpy()
+        resid = [tuple(np.linalg.norm(Ha @ X[:k, j] - w[j] * X[:k, j]) / hn for X in (V, Vp))
+                 for j in np.flatnonzero(fin)]
+        overlap = np.abs(np.abs(np.sum(np.conj(Vp) * V, axis=0)) - 1.0)
+        norms = np.abs(np.linalg.norm(V, axis=0) - 1.0)
+        if p == 1:
+            scale = abs(A[k, k - 1])
+        else:
+            scale = float(np.linalg.norm(A[k:k + p, max(k - p, 0):max(k - p, 0) + p], 2))
+        dres = np.abs(gres.double().numpy()[fin] - pres.double().numpy()[fin])
+        row = dict(case=label, dtype=str(dtype), kdim=kdim, k_eff=k, p=p, ok=bool(ok),
+                   n_conv=int(gn), plain_n_conv=int(pn),
+                   same_values=bool(torch.equal(gwr, pwr) and torch.equal(gwi, pwi)),
+                   same_inf=bool(np.array_equal(torch.isfinite(gres).numpy(), fin)),
+                   zero_rows=bool(torch.all(gVr[k:] == 0) and torch.all(gVi[k:] == 0)),
+                   max_eig_resid=max((r for r, _ in resid), default=0.0),
+                   max_eig_resid_vs_plain=max((abs(r - q) for r, q in resid), default=0.0),
+                   max_overlap_err=float(overlap.max()), max_norm_err=float(norms.max()),
+                   max_res_err=float(dres.max() / max(scale, 1e-300)) if dres.size else 0.0,
+                   max_abs_err=unit_phase(V, Vp), plain_s=plain_s, plain_on=where)
+        out["ritz"].append(row)
+        print(f"ritz_check {label} {dtype}: n_conv {row['n_conv']} (plain {row['plain_n_conv']}), "
+              f"values and order {'equal' if row['same_values'] else 'DIFFER'}, ||Hm v - lv|| "
+              f"max {row['max_eig_resid']:.2e} of ||H||_F ({row['max_eig_resid_vs_plain']:.2e} "
+              f"from the plain), | |v^H v_plain| - 1 | {row['max_overlap_err']:.2e}, norm "
+              f"{row['max_norm_err']:.2e}, residuals {row['max_res_err']:.2e} of the scale, "
+              f"max |v - v_plain e^(i phi)| {row['max_abs_err']:.2e}; plain {plain_s:.2f} s on "
+              f"the {where}")
+        rt = RITZ_TOL[dtype]
+        check(bool(ok) and row["same_values"] and row["same_inf"] and row["zero_rows"]
+              and row["n_conv"] == row["plain_n_conv"] and int(fin.sum()) == k,
+              f"ritz_check {label} {dtype}: exact outputs differ: {row}")
+        check(row["max_eig_resid_vs_plain"] <= rt and row["max_eig_resid"] <= RITZ_RESID_TOL[dtype]
+              and row["max_overlap_err"] <= rt and row["max_norm_err"] <= rt
+              and row["max_res_err"] <= rt,
+              f"ritz_check {label} {dtype}: vectors or residuals off (gate {rt}): {row}")
+
+
 def plain_on_host(kind, H, dtype, args):
     """Phase 33 (a)'s worker: the plain version of a kernel on the host, on
     ``H`` (float64 numpy) cast to ``dtype`` (its name), with ``args`` the
-    Schur core's ``k_eff`` or the filter's shifts ``(wr, wi, order, n,
-    pure)`` as numpy arrays -> ``(outputs as numpy arrays, seconds)``."""
+    Schur core's ``k_eff``, the filter's shifts ``(wr, wi, order, n,
+    pure)`` as numpy arrays, or the Ritz check's ``(wr, wi, ok, k_eff, p,
+    nev, tol)`` -> ``(outputs as numpy arrays, seconds)``."""
     torch.set_num_threads(1)
     Ht = torch.from_numpy(H).to(getattr(torch, dtype))
     t0 = time.perf_counter()
     if kind == "schur":
         out = hess_ops.hessenberg_schur_reference(Ht, args, True, True)
+    elif kind == "ritz":
+        wr, wi, ok, k, p, nev, tol = args
+        out = hess_ops.ritz_check_reference(Ht, torch.from_numpy(wr), torch.from_numpy(wi),
+                                            torch.from_numpy(ok), k, tol, nev, p)
     else:
         out = hess_ops.francis_filter_sweeps_reference(Ht, *map(torch.from_numpy, args))
     seconds = time.perf_counter() - t0
@@ -2342,9 +2509,18 @@ def hessenberg_kernels(dev, tag):
     order and numpy scalars, rounded alike on either device, so the host
     takes the card's sweeps and steps.  A dense input (the arrow form),
     whose reduction sums in the library's order, runs it on the card."""
-    out = {"schur": [], "filter": []}
+    out = {"schur": [], "filter": [], "ritz": []}
     dtypes = (torch.float32, torch.float64)
     schur_cases = {dtype: schur_inputs(dtype) for dtype in dtypes}
+    ritz_cases = {dtype: ritz_inputs() for dtype in dtypes}
+    ritz_args = {}
+    for dtype in dtypes:
+        for label, He, k, p, nev, tol in ritz_cases[dtype]:
+            kdim = He.shape[1]
+            Hs = torch.from_numpy(He[:kdim]).to(dev, dtype)
+            _, _, wr, wi, _, ok, _ = hess_ops.hessenberg_schur(Hs, k)
+            ritz_args[label, dtype] = (He, [wr.cpu().numpy(), wi.cpu().numpy(),
+                                            ok.cpu().numpy(), k, p, nev, tol])
     filter_cases = {}
     for dtype in dtypes:
         for kdim in FILTER_KDIMS:
@@ -2359,25 +2535,32 @@ def hessenberg_kernels(dev, tag):
         jobs += [(kdim, ("filter", kdim, dtype),
                   ("filter", Hs, str(dtype)[6:], [t.cpu().numpy() for t in shifts[:5]]))
                  for (dtype, kdim), (Hs, _, shifts) in filter_cases.items()]
+        jobs += [(He.shape[1], ("ritz", label, dtype), ("ritz", He, str(dtype)[6:], args))
+                 for (label, dtype), (He, args) in ritz_args.items()]
         # the largest first, so that no worker starts a long case last
         plain = {key: pool.submit(plain_on_host, *args)
                  for _, key, args in sorted(jobs, key=lambda j: -j[0])}
         for dtype in dtypes:
             schur_checks(dev, dtype, schur_cases[dtype], plain, out)
             filter_checks(dtype, filter_cases, plain, out)
+            ritz_checks(dev, dtype, ritz_cases, plain, out)
     finally:
         pool.shutdown(cancel_futures=True)
-    He = torch.from_numpy(arnoldi_hessenberg(MAIN_KDIM, seed=MAIN_KDIM)).to(dev, torch.float32)
-    hess.hessenberg_ritz(He, MAIN_KDIM, 1e-6, 16)
-    torch.cuda.synchronize()
-    k = torch.full((), MAIN_KDIM - 3, device=dev)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        hess.hessenberg_ritz(He, k, 1e-6, 16)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    print(f"hessenberg_ritz at kdim {MAIN_KDIM} f32 ran under set_sync_debug_mode('error'): no "
-          "host round-trip in a check")
+    for p in (1, 2):
+        He = (arnoldi_hessenberg(MAIN_KDIM, seed=MAIN_KDIM) if p == 1
+              else check_buffer("band", MAIN_KDIM, p, MAIN_KDIM))
+        He = torch.from_numpy(He).to(dev, torch.float32)
+        hess.hessenberg_ritz(He, MAIN_KDIM, 1e-6, 16, p=p)
+        torch.cuda.synchronize()
+        k = torch.full((), MAIN_KDIM - 3, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hess.hessenberg_ritz(He, k, 1e-6, 16, p=p)
+            hess.hessenberg_ritz(He, MAIN_KDIM - 2, 1e-6, 16, p=p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"hessenberg_ritz at kdim {MAIN_KDIM} f32, p = {p}, k_eff a 0-d tensor and an int, "
+              "ran under set_sync_debug_mode('error'): no host round-trip in a check")
     return out
 
 
@@ -2422,12 +2605,35 @@ def lagging_warp_check(dev, tag, build_s):
     return dict(build_s=build_s, cases=cases)
 
 
+def ritz_ms_of(He, wr, wi, ok, kdim):
+    """The ritz_check wrapper's time on the card (the count's fill and the
+    kernel; ten calls a sample queued behind a spacer, so the host's ~60 us
+    a call stays out) and a call's (CUDA events around one call), ms."""
+    def call():
+        return hess_ops.ritz_check(He, wr, wi, ok, kdim, 1e-6, 16)
+
+    device = alternating_ms({"ritz": call}, runs=10, per_run=10, spacer=True)["ritz"]
+    return device, median_ms(lambda i: call(), runs=10)
+
+
 def hessenberg_times(dev, tag):
     """Phase 33 (g): a check of hessenberg_ritz, the Schur kernel and the
     filter kernel alone, and the plain Schur core, at the kdims of the table,
     beside the host path's read plus numpy eig and torch.linalg.eigvals on the
-    device."""
+    device; the Ritz kernel alone (with the count's fill) and its plain
+    version, beside torch.linalg.eig on the card, at the same kdims and at
+    LARGE_KDIMS."""
     rows = {}
+
+    def host_clock(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
     for dtype in (torch.float32, torch.float64):
         for kdim in RITZ_KDIMS:
             He = torch.from_numpy(arnoldi_hessenberg(kdim, seed=kdim)).to(dev, dtype)
@@ -2442,17 +2648,14 @@ def hessenberg_times(dev, tag):
                                                                          pure), runs=10)
             _, _, fwork = hess_ops.francis_filter_sweeps(Hs, wr, wi, order, n, pure)
 
-            def host_clock(fn, reps=10):
-                fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t0) / reps * 1e3
-
             host_ms = host_clock(lambda: np.linalg.eig(Hs.cpu().numpy()))
             lib_ms = host_clock(lambda: torch.linalg.eigvals(Hs))
+            eig_ms = host_clock(lambda: torch.linalg.eig(Hs))
+            wr_s, wi_s, ok_s = hess.hessenberg_eigvals(Hs, kdim)
+            rk_ms, rk_call_ms = ritz_ms_of(He, wr_s, wi_s, ok_s, kdim)
+            rk_plain_ms = host_clock(lambda: hess_ops.ritz_check_reference(
+                He, wr_s, wi_s, ok_s, kdim, 1e-6, 16), reps=1)
+            rk_bound, rk_bound_by = bound_of(*ritz_work(He.cpu().numpy(), kdim, 1, dtype), dtype)
             plain_ms = host_clock(lambda: hess_ops.hessenberg_schur_reference(Hs, kdim), reps=1)
             fplain_ms = host_clock(lambda: hess_ops.francis_filter_sweeps_reference(
                 Hs, wr, wi, order, n, pure), reps=1)
@@ -2468,7 +2671,11 @@ def hessenberg_times(dev, tag):
                        z_bound_ms=zbound, filter_ms=filt_ms, filter_plain_ms=fplain_ms,
                        filter_sweeps=int(fwork[0]), filter_steps=fsteps,
                        filter_us_a_step=filt_ms * 1e3 / max(fsteps, 1), filter_bound_ms=fbound,
-                       filter_bound_by=fbound_by, host_read_eig_ms=host_ms, eigvals_ms=lib_ms)
+                       filter_bound_by=fbound_by, host_read_eig_ms=host_ms, eigvals_ms=lib_ms,
+                       ritz_kernel_ms=rk_ms, ritz_call_ms=rk_call_ms, ritz_plain_ms=rk_plain_ms,
+                       ritz_bound_ms=rk_bound,
+                       ritz_bound_by=rk_bound_by, eig_ms=eig_ms,
+                       ritz_geometry=hess_ops.ritz_geometry(kdim, Hs.element_size())._asdict())
             rows[f"{kdim}_{str(dtype)[6:]}"] = row
             print(f"{tag} kdim {kdim} {dtype}: hessenberg_ritz check {ritz_ms:.3f} ms; "
                   f"hessenberg_schur {schur_ms:.3f} ms ({sweeps} sweeps, {steps} chase steps, "
@@ -2478,12 +2685,16 @@ def hessenberg_times(dev, tag):
                   f"{plain_ms:.1f} ms; francis_filter_sweeps {filt_ms:.3f} ms "
                   f"({row['filter_sweeps']} sweeps, {fsteps} steps, "
                   f"{row['filter_us_a_step']:.3f} us a step; bound {fbound * 1e3:.3f} us), plain "
-                  f"{fplain_ms:.1f} ms; host read + numpy eig {host_ms:.3f} ms; "
-                  f"torch.linalg.eigvals {lib_ms:.3f} ms")
+                  f"{fplain_ms:.1f} ms; ritz_check (the count's fill and the kernel) "
+                  f"{rk_ms:.3f} ms on the card, {rk_call_ms:.3f} ms a call (bound "
+                  f"{rk_bound * 1e3:.3f} us by {rk_bound_by}), plain "
+                  f"{rk_plain_ms:.1f} ms; host read + numpy eig {host_ms:.3f} ms; "
+                  f"torch.linalg.eigvals {lib_ms:.3f} ms; torch.linalg.eig {eig_ms:.3f} ms")
     for dtype in (torch.float32, torch.float64):
         for n in LARGE_KDIMS:
-            Hs = filter_hessenberg(n, seed=n)
-            Hs = torch.from_numpy(Hs).to(dev, dtype)
+            He_np = arnoldi_hessenberg(n, seed=n, real=3.0 if n % 2 else None)
+            He = torch.from_numpy(He_np).to(dev, dtype)
+            Hs = He[:n].contiguous()
             schur_ms = median_ms(lambda i: hess_ops.hessenberg_schur(Hs, n), runs=10)
             schur_z_ms = median_ms(lambda i: hess_ops.hessenberg_schur(Hs, n, True, True),
                                    runs=10)
@@ -2493,6 +2704,13 @@ def hessenberg_times(dev, tag):
                                                                          pure), runs=10)
             fwork = hess_ops.francis_filter_sweeps(Hs, wr, wi, order, nk, pure)[2]
             steps, fsteps = int(work[1]), int(fwork[1])
+            wr_s, wi_s, ok_s = hess.hessenberg_eigvals(Hs, n)
+            rk_ms, rk_call_ms = ritz_ms_of(He, wr_s, wi_s, ok_s, n)
+            ritz_ms = median_ms(lambda i: hess.hessenberg_ritz(He, n, 1e-6, 16), runs=5)
+            rk_bound, rk_bound_by = bound_of(*ritz_work(He_np, n, 1, dtype), dtype)
+            host_ms = host_clock(lambda: np.linalg.eig(Hs.cpu().numpy()))
+            lib_ms = host_clock(lambda: torch.linalg.eigvals(Hs))
+            eig_ms = host_clock(lambda: torch.linalg.eig(Hs))
             bound, bound_by = bound_of(*schur_work(n, steps, False, dtype), dtype)
             zbound, _ = bound_of(*schur_work(n, steps, True, dtype), dtype)
             fbound, fbound_by = bound_of(*filter_work(n, fsteps, dtype), dtype)
@@ -2510,7 +2728,11 @@ def hessenberg_times(dev, tag):
                        bound_by=bound_by, schur_z_ms=schur_z_ms, z_bound_ms=zbound,
                        filter_ms=filt_ms, filter_sweeps=int(fwork[0]), filter_steps=fsteps,
                        filter_us_a_step=filt_ms * 1e3 / max(fsteps, 1), filter_bound_ms=fbound,
-                       filter_bound_by=fbound_by, geometry=where)
+                       filter_bound_by=fbound_by, geometry=where, ritz_ms=ritz_ms,
+                       ritz_kernel_ms=rk_ms, ritz_call_ms=rk_call_ms, ritz_bound_ms=rk_bound,
+                       ritz_bound_by=rk_bound_by,
+                       ritz_geometry=hess_ops.ritz_geometry(n, size)._asdict(),
+                       host_read_eig_ms=host_ms, eigvals_ms=lib_ms, eig_ms=eig_ms)
             rows[f"{n}_{str(dtype)[6:]}"] = row
             print(f"{tag} kdim {n} {dtype}: hessenberg_schur {schur_ms:.3f} ms ({row['sweeps']} "
                   f"sweeps, {steps} chase steps, {row['us_a_step']:.3f} us a step; bound "
@@ -2518,7 +2740,11 @@ def hessenberg_times(dev, tag):
                   f"(bound {zbound * 1e3:.3f} us); francis_filter_sweeps {filt_ms:.3f} ms "
                   f"({row['filter_sweeps']} sweeps, {fsteps} steps, "
                   f"{row['filter_us_a_step']:.3f} us a step; bound {fbound * 1e3:.3f} us); "
-                  f"geometry {where}")
+                  f"geometry {where}; hessenberg_ritz check {ritz_ms:.3f} ms, ritz_check "
+                  f"{rk_ms:.3f} ms on the card, {rk_call_ms:.3f} ms a call (bound "
+                  f"{rk_bound * 1e3:.3f} us by {rk_bound_by}; "
+                  f"{row['ritz_geometry']}); host read + numpy eig {host_ms:.3f} ms; "
+                  f"torch.linalg.eigvals {lib_ms:.3f} ms; torch.linalg.eig {eig_ms:.3f} ms")
     rows["wrapper"] = wrapper_cost(dev, tag)
     return rows
 
@@ -2546,6 +2772,58 @@ print(json.dumps([e.name for e in prof.events()
 """
 
 
+# checks of hessenberg_ritz under torch.profiler in a fresh process, with
+# k_eff a 0-d tensor on the card: at RITZ_KDIMS in f32 and f64 (p = 1) and at
+# MAIN_KDIM with p = 2, each once after two warm calls, a synchronise between
+CHECK_PROBE = """
+import json
+import numpy as np
+import torch
+from lightkrylov_tpu_torch.utils import hessenberg as hess
+cases = {cases}
+inputs = []
+for kdim, dt, p in cases:
+    He = np.triu(np.random.default_rng(kdim).standard_normal((kdim + p, kdim)), -p)
+    inputs.append((torch.from_numpy(He).to("cuda", getattr(torch, dt)),
+                   torch.full((), kdim - 1, device="cuda"), p))
+for He, k, p in inputs:
+    for _ in range(2):
+        hess.hessenberg_ritz(He, k, 1e-6, 16, p=p)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    for He, k, p in inputs:
+        hess.hessenberg_ritz(He, k, 1e-6, 16, p=p)
+        torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def check_launches(tag):
+    """The device activities of the checks of CHECK_PROBE: a check is the
+    Schur kernel, one fill (the count) and the Ritz kernel."""
+    cases = [(kdim, dt, 1) for dt in ("float32", "float64") for kdim in RITZ_KDIMS]
+    cases.append((MAIN_KDIM, "float32", 2))
+    proc = subprocess.run([sys.executable, "-c", CHECK_PROBE.format(cases=cases)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"the check probe failed: {proc.stderr[-2000:]}")
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    schur = sum("schur_kernel" in x for x in names)
+    ritz = sum("ritz_kernel" in x for x in names)
+    other = [x for x in names if "schur_kernel" not in x and "ritz_kernel" not in x]
+    n = len(cases)
+    print(f"{tag} {n} hessenberg_ritz checks (kdim {RITZ_KDIMS} f32 and f64, and {MAIN_KDIM} "
+          f"with p = 2) under torch.profiler: {len(names)} device activities, {schur} Schur "
+          f"kernels, {ritz} Ritz kernels, others {sorted(set(other))} x {len(other)}: "
+          f"{len(names) / n:.2f} a check")
+    check(schur == ritz == n and len(other) <= n,
+          f"a check launched more than the Schur kernel, a fill and the Ritz kernel: {names}")
+    return dict(checks=n, activities=len(names), a_check=len(names) / n, schur=schur, ritz=ritz,
+                other=len(other), other_names=sorted(set(other)))
+
+
 def wrapper_cost(dev, tag):
     """The Schur wrapper's launches in one call with k_eff a 0-d int32 on the
     card (torch.profiler in a fresh process, which imports the package from
@@ -2555,9 +2833,11 @@ def wrapper_cost(dev, tag):
     Hs = He[:MAIN_KDIM, :MAIN_KDIM].contiguous()
     k32 = torch.full((), MAIN_KDIM, dtype=torch.int32, device=dev)
     wr, wi, order, n, pure, _ = hess._filter_shifts(Hs, MAIN_KDIM // 2)
+    wr_s, wi_s, ok_s = hess.hessenberg_eigvals(Hs, k32)
     calls = {"hessenberg_schur": lambda: hess_ops.hessenberg_schur(Hs, k32),
              "francis_filter_sweeps": lambda: hess_ops.francis_filter_sweeps(Hs, wr, wi, order,
                                                                              n, pure),
+             "ritz_check": lambda: hess_ops.ritz_check(He, wr_s, wi_s, ok_s, k32, 1e-6, 16),
              "clone": lambda: Hs.clone()}
     for fn in calls.values():
         fn()
@@ -2572,7 +2852,7 @@ def wrapper_cost(dev, tag):
           f"one call {kernels}")
     check(len(kernels) == 1 and "schur_kernel" in kernels[0],
           f"hessenberg_schur launched {kernels}, not its kernel alone")
-    out = {"schur_call_kernels": kernels}
+    out = {"schur_call_kernels": kernels, "check_launches": check_launches(tag)}
     for name, fn in calls.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2582,7 +2862,8 @@ def wrapper_cost(dev, tag):
         torch.cuda.synchronize()
     print(f"{tag} host us a call, {HOST_US_CALLS} in a row: hessenberg_schur "
           f"{out['hessenberg_schur_host_us']:.1f}, francis_filter_sweeps "
-          f"{out['francis_filter_sweeps_host_us']:.1f}, clone {out['clone_host_us']:.1f}")
+          f"{out['francis_filter_sweeps_host_us']:.1f}, ritz_check "
+          f"{out['ritz_check_host_us']:.1f}, clone {out['clone_host_us']:.1f}")
     return out
 
 
@@ -2611,11 +2892,13 @@ def device_projected_path(dev, tag, results):
     t_first = time.perf_counter() - t0
     lt.timer.reset_counters()
     hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
+    hess_ops.ritz_check.LAUNCHES = 0
     t0 = time.perf_counter()
     w, V, r, info, meta = solve()
     t_warm = time.perf_counter() - t0
     launches = {"hessenberg_schur": hess_ops.hessenberg_schur.LAUNCHES,
-                "francis_filter_sweeps": hess_ops.francis_filter_sweeps.LAUNCHES}
+                "francis_filter_sweeps": hess_ops.francis_filter_sweeps.LAUNCHES,
+                "ritz_check": hess_ops.ritz_check.LAUNCHES}
     c = lt.timer.get_counter
     checks, reads = c("ritz_checks"), c("host_reads")
     restarts = {k: c(f"restarts.eigs.{k}") for k in ("iram", "schur_device", "host")}
@@ -2640,6 +2923,8 @@ def device_projected_path(dev, tag, results):
     check(restarts["host"] == 0, f"gl512 device: host restarts {restarts}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path (gl512 device)")
+    check(launches["ritz_check"] == checks,
+          f"gl512 device: {launches['ritz_check']} Ritz kernel launches for {checks} checks")
     out["gl512"] = dict(info=info, matvecs=meta.n_iter, host_matvecs=host13["matvecs"],
                         stride=stride, checks=checks, host_reads=reads, restarts=restarts,
                         qr_host_redos=c("qr_host_redos"), launches=launches, warm_s=t_warm,
@@ -2656,13 +2941,14 @@ def device_projected_path(dev, tag, results):
     def counted(fn):
         lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
         lt.stencil_matvec_batched.LAUNCHES = 0
-        hess_ops.hessenberg_schur.LAUNCHES = 0
+        hess_ops.hessenberg_schur.LAUNCHES = hess_ops.ritz_check.LAUNCHES = 0
         lt.timer.reset_counters()
         res = fn()
         torch.cuda.synchronize()
         return res, dict(single=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES,
                          batched=lt.stencil_matvec_batched.LAUNCHES,
                          hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
+                         ritz_check=hess_ops.ritz_check.LAUNCHES,
                          checks=c("ritz_checks"), host_reads=c("host_reads"),
                          library_syncs=c("library_syncs"))
 
@@ -2733,6 +3019,7 @@ def device_projected_path(dev, tag, results):
                           ("custom", lambda v: np.abs(v) > np.median(np.abs(v)))):
         lt.bell_spmv.LAUNCHES = 0
         hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
+        hess_ops.ritz_check.LAUNCHES = 0
         lt.timer.reset_counters()
         t0 = time.perf_counter()
         w, V, r, info, meta = lt.eigs(op_b, 6, x0=x14, kdim=30, tolerance=1e-10, select=select,
@@ -2744,7 +3031,8 @@ def device_projected_path(dev, tag, results):
         row = dict(info=info, matvecs=meta.n_iter, bell_spmv=lt.bell_spmv.LAUNCHES,
                    hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
                    francis_filter_sweeps=hess_ops.francis_filter_sweeps.LAUNCHES,
-                   restarts=restarts, ordschur_reads=c("ordschur_reads"), checks=c("ritz_checks"),
+                   ritz_check=hess_ops.ritz_check.LAUNCHES, restarts=restarts,
+                   ordschur_reads=c("ordschur_reads"), checks=c("ritz_checks"),
                    max_true_residual=res, seconds=secs)
         out[f"convdiff_{label}"] = row
         print(f"{tag} eigs f64 ConvectionDiffusion2D(64) through Block-ELL, device, {label}: "
@@ -2752,7 +3040,8 @@ def device_projected_path(dev, tag, results):
               f"{results['eigs_nonnormal']['matvecs']}), {row['bell_spmv']} bell_spmv, restarts "
               f"{restarts}, {row['ordschur_reads']} ordschur host reads, {row['checks']} checks, "
               f"launches hessenberg_schur {row['hessenberg_schur']} francis_filter_sweeps "
-              f"{row['francis_filter_sweeps']}, max true residual / |lambda_1| "
+              f"{row['francis_filter_sweeps']} ritz_check {row['ritz_check']}, max true "
+              f"residual / |lambda_1| "
               f"{res / abs(w[0]):.3e}, {secs:.2f} s")
         check(info == 6 and res <= 1e-8 * abs(w[0]), f"convdiff device {label}: {row}")
         check(row["bell_spmv"] >= meta.n_iter, f"convdiff device {label}: bell_spmv launches")
@@ -3100,11 +3389,45 @@ def main():
             "bound_by": ht[main_key]["bound_by" if prefix == "schur" else "filter_bound_by"],
             "library_ms": library,
             "by_case": {case: {k: v for k, v in row.items()
-                               if k.startswith("filter") == (prefix == "filter")
+                               if (k.startswith("filter") == (prefix == "filter")
+                                   and not k.startswith("ritz") and k != "eig_ms")
                                or k in ("host_read_eig_ms", "eigvals_ms")}
                         for case, row in ht.items() if case != "wrapper"},
             "wrapper": ht["wrapper"],
         })
+    ritz_main = [r for r in hk["ritz"] if r["case"] == f"arnoldi{MAIN_KDIM}"
+                 and r["dtype"] == "torch.float32"][0]
+    kernels["kernels"].append({
+        "name": "ritz_check",
+        "route": "cuda",
+        "source": "lightkrylov_tpu_torch/csrc/ritz.cu",
+        "replaces": RITZ_REPLACES[0],
+        "also_replaces": RITZ_REPLACES[1],
+        "launches": dp["gl512"]["launches"]["ritz_check"],
+        "path_launches": {
+            "gl512_device": dp["gl512"]["launches"]["ritz_check"],
+            "convdiff_device_iram": dp["convdiff_iram"]["ritz_check"],
+            "convdiff_device_custom": dp["convdiff_custom"]["ritz_check"],
+            "eigs_3072_device": dp["eigs_3072"]["launches"]["ritz_check"],
+            "eigs_3072_block_device": dp["eigs_3072_block"]["launches"]["ritz_check"]},
+        "max_abs_err": ritz_main["max_abs_err"],
+        "main_case": f"kdim {MAIN_KDIM} f32 (the count's fill and the kernel)",
+        "ms": ht[main_key]["ritz_kernel_ms"],
+        "plain_ms": ht[main_key]["ritz_plain_ms"],
+        "bound_ms": ht[main_key]["ritz_bound_ms"],
+        "bound_by": ht[main_key]["ritz_bound_by"],
+        "library_ms": ht[main_key]["eig_ms"],
+        "library": "torch.linalg.eig",
+        "check_ms": ht[main_key]["ritz_ms"],
+        "check_launches": ht["wrapper"]["check_launches"],
+        "by_case": {case: {k: v for k, v in row.items()
+                           if k.startswith("ritz") or k in ("host_read_eig_ms", "eig_ms")}
+                    for case, row in ht.items() if case != "wrapper"},
+        "gates": {f"{r['case']}_{r['dtype'][6:]}": {
+            k: r[k] for k in ("max_abs_err", "max_overlap_err", "max_eig_resid",
+                              "max_eig_resid_vs_plain", "max_res_err", "n_conv")}
+            for r in hk["ritz"]},
+    })
     print(json.dumps(kernels))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,7 +30,7 @@ __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu",
-           _PKG / "csrc" / "hessenberg.cu")
+           _PKG / "csrc" / "hessenberg.cu", _PKG / "csrc" / "ritz.cu")
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -196,6 +196,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                 ctypes.c_void_p, ctypes.c_int,
                                                 ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for name in ("lk_ritz_f32", "lk_ritz_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                                                ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
+                                                ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.lk_error_string.argtypes = [ctypes.c_int]
     lib.lk_error_string.restype = ctypes.c_char_p

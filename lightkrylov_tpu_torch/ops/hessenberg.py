@@ -16,7 +16,13 @@ chip:
   ``_split_real_blocks`` and ``_extract_eigvals`` of the JAX module;
 - :func:`francis_filter_sweeps` applies the ``kdim // 2`` sweeps of
   ``francis_filter`` (its ``hessenberg.py:687-714``) for a given shift
-  order, keep count and ``pure`` flag, all read from device memory.
+  order, keep count and ``pure`` flag, all read from device memory;
+- :func:`ritz_check` (``csrc/ritz.cu``, a warp an eigenvalue) solves each
+  eigenvalue's inverse iteration and writes its residual, its place in the
+  modulus-descending order and the converged count: ``hessenberg_eigvecs``
+  and ``hessenberg_ritz`` of the JAX module after its eigenvalues, the
+  realified ``2n x 2n`` systems solved as the complex ``n x n`` ones they
+  are; :func:`inverse_iteration` is the same kernel's vectors alone.
 
 :func:`geometry` decides each launch's layout in Python (warps, whether
 ``H`` and ``Z`` fit in shared memory, the bytes), so that the CPU tests can
@@ -26,13 +32,14 @@ does not fit.
 For a CUDA tensor a wrapper launches its kernel or raises: a failed build
 (:class:`._build.KernelCompileError`), a refused launch or an unsupported
 tensor is an error, never a quiet switch to another path.  For a CPU tensor
-it runs the plain version, :func:`hessenberg_schur_reference` or
-:func:`francis_filter_sweeps_reference`, built from the pieces of
+it runs the plain version (:func:`hessenberg_schur_reference`,
+:func:`francis_filter_sweeps_reference`, :func:`ritz_check_reference`,
+:func:`inverse_iteration_reference`), built from the pieces of
 :mod:`..utils.hessenberg`.  Each wrapper counts its launches in its
-``LAUNCHES`` attribute.  :func:`launch_schur` and :func:`launch_filter` are
-the launches themselves, from a library that the caller names (the shipping
-build, or the lagging-warp build of :func:`._build.load_lagging` that the
-tests hold to it), and count nothing.
+``LAUNCHES`` attribute.  :func:`launch_schur`, :func:`launch_filter` and
+:func:`launch_ritz` are the launches themselves, from a library that the
+caller names (the shipping build, or the lagging-warp build of
+:func:`._build.load_lagging` that the tests hold to it), and count nothing.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ import torch
 from ..utils import hessenberg as _plain
 from . import _build
 
-__all__ = ["Geometry", "francis_filter_sweeps", "francis_filter_sweeps_reference", "geometry",
-           "hessenberg_schur", "hessenberg_schur_reference", "launch_filter", "launch_schur"]
+__all__ = ["Geometry", "RitzGeometry", "francis_filter_sweeps", "francis_filter_sweeps_reference",
+           "geometry", "hessenberg_schur", "hessenberg_schur_reference", "inverse_iteration",
+           "inverse_iteration_reference", "launch_filter", "launch_ritz", "launch_schur",
+           "ritz_check", "ritz_check_reference", "ritz_geometry"]
 
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -60,6 +69,16 @@ def hessenberg_schur_reference(H, k_eff=None, with_z: bool = False, split: bool 
 def francis_filter_sweeps_reference(H, wr, wi, shift_order, n_keep, pure):
     """Plain PyTorch version of :func:`francis_filter_sweeps`."""
     return _plain._sweeps_plain(H, wr, wi, shift_order, n_keep, pure)
+
+
+def ritz_check_reference(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
+    """Plain PyTorch version of :func:`ritz_check`, on ``H_ext``'s device."""
+    return _plain._ritz_plain(H_ext, wr, wi, ok, k_eff, tol, nev, p)
+
+
+def inverse_iteration_reference(H, wr, wi, k_eff=None):
+    """Plain PyTorch version of :func:`inverse_iteration`."""
+    return _plain._inverse_iteration_plain(H, wr, wi, H.shape[0] if k_eff is None else k_eff)
 
 
 #: Shared memory a CTA may take on the H100 (sm_90), and the part the
@@ -96,6 +115,26 @@ def geometry(n: int, itemsize: int, with_z: bool, schur: bool = True) -> Geometr
     z_smem = bool(with_z) and h_smem and 2 * mat + vec <= budget
     warps = min(MAX_WARPS, max(1, -(-n // 32)))
     return Geometry(warps, h_smem, z_smem, vec + mat * (int(h_smem) + int(z_smem)))
+
+
+class RitzGeometry(NamedTuple):
+    """How one launch of the Ritz kernel lays out (a CTA of one warp an
+    eigenvalue slot): whether its working matrix lives in shared memory, and
+    the dynamic shared memory a CTA takes in bytes."""
+
+    w_smem: bool
+    smem_bytes: int
+
+
+def ritz_geometry(n: int, itemsize: int) -> RitzGeometry:
+    """The Ritz kernel's layout at ``kdim = n``: a CTA's working matrix
+    (``n`` rows of odd stride ``(n + 1) | 1``, real and imaginary parts
+    apart, the right-hand side in its last column) in shared memory when it
+    fits beside the rows' profile (``4 n`` bytes): to ``n = 169`` in f32 and
+    119 in f64; else in a global scratch slice a CTA."""
+    w = 2 * n * ((n + 1) | 1) * itemsize
+    w_smem = w + 4 * n <= SMEM_LIMIT - SMEM_RESERVED
+    return RitzGeometry(w_smem, 4 * n + (w if w_smem else 0))
 
 
 def _check(H, what):
@@ -241,5 +280,85 @@ def launch_filter(load, H, wr, wi, shift_order, n_keep, pure):
     return Hf, Z, work
 
 
+def ritz_check(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
+    """The analysis of one check after its eigenvalues -> ``(wr, wi, res, Vr,
+    Vi, n_conv)``, ordered by descending modulus (stable): for each slot of
+    the Schur kernel's ``(wr, wi)`` the inverse iteration's unit vector on
+    the active ``k_eff x k_eff`` block of the ``(kdim + p, kdim)`` buffer
+    ``H_ext`` (rows ``>= k_eff`` zero), its residual (``|H_ext[k, k-1]|
+    |v[k-1]|`` for ``p = 1``, ``||H_ext[k:k+p, k-p:k] v[k-p:k]||`` else;
+    ``+inf`` unless the slot is active and ``ok``) and ``n_conv`` (0-d
+    int32), the finite residuals below ``tol`` among the leading ``nev``
+    (``None``: all).  ``k_eff`` and ``ok`` are numbers or one-element tensors
+    on ``H_ext``'s device (read there); ``tol`` and ``nev`` are numbers.  On a
+    CUDA tensor one fill (the count) and one launch, and nothing else when
+    ``(wr, wi)`` are of ``H_ext``'s dtype."""
+    if H_ext.device.type == "cpu":
+        return ritz_check_reference(H_ext, wr, wi, ok, k_eff, tol, nev, p)
+    out = launch_ritz(_build.load, H_ext, wr, wi, k_eff, ok, tol, nev, p)
+    ritz_check.LAUNCHES += 1
+    return out
+
+
+def inverse_iteration(H, wr, wi, k_eff=None):
+    """The inverse iteration's vectors alone -> ``(Vr, Vi)`` in slot order,
+    columns of unit norm, rows ``>= k_eff`` zero, for the square real ``H``
+    (any structure) and the eigenvalues ``(wr, wi)``; the kernel of
+    :func:`ritz_check` with no residual and no order.  One launch on a CUDA
+    tensor."""
+    if H.device.type == "cpu":
+        return inverse_iteration_reference(H, wr, wi, k_eff)
+    out = launch_ritz(_build.load, H, wr, wi, k_eff)
+    inverse_iteration.LAUNCHES += 1
+    return out
+
+
+def launch_ritz(load, H, wr, wi, k_eff=None, ok=True, tol=None, nev=None, p: int = 1):
+    """The launch of the Ritz kernel on the CUDA tensor ``H`` from the library
+    that ``load()`` returns: with ``tol`` that of :func:`ritz_check` (``H``
+    the ``(kdim + p, kdim)`` buffer), without it that of
+    :func:`inverse_iteration` (``H`` square); not counted in ``LAUNCHES``."""
+    ritz = tol is not None
+    what = "ritz_check" if ritz else "inverse_iteration"
+    if H.device.type != "cuda":
+        raise ValueError(f"{what} kernel: expected a CUDA tensor, got {H.device}")
+    if H.dtype not in _NAMES:
+        raise TypeError(f"{what} kernel: dtype {H.dtype} not supported (float32 or float64)")
+    n = H.shape[-1]
+    rows = n + p if ritz else n
+    if H.ndim != 2 or n == 0 or p < 1 or H.shape[0] != rows:
+        raise ValueError(f"{what} kernel: expected a ({rows}, {n}) matrix with n >= 1 and "
+                         f"p >= 1, got shape {tuple(H.shape)} and p = {p}")
+    dev = H.device
+    H = H.contiguous()
+    wr = wr.to(H.dtype).contiguous()
+    wi = wi.to(H.dtype).contiguous()
+    for t, name in ((wr, "wr"), (wi, "wi")):
+        if t.device != dev or t.shape != (n,):
+            raise ValueError(f"{what} kernel: {name} must have shape ({n},) on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    keff, kbytes, kval = _int_arg(k_eff, n, dev)
+    okt, okbytes, okval = _int_arg(ok, 1, dev)
+    geo = ritz_geometry(n, H.element_size())
+    Vr = torch.empty((n, n), dtype=H.dtype, device=dev)
+    Vi = torch.empty_like(Vr)
+    wr_o = wi_o = res = n_conv = scratch = None
+    if ritz:
+        wr_o, wi_o, res = (torch.empty(n, dtype=H.dtype, device=dev) for _ in range(3))
+        n_conv = torch.zeros((), dtype=torch.int32, device=dev)
+    if not geo.w_smem:
+        scratch = torch.empty(2 * n * n * ((n + 1) | 1), dtype=H.dtype, device=dev)
+    lib = load()
+    err = getattr(lib, f"lk_ritz_{_NAMES[H.dtype]}")(
+        H.data_ptr(), wr.data_ptr(), wi.data_ptr(), _ptr(okt), okbytes, okval, _ptr(keff),
+        kbytes, kval, float(tol) if ritz else 0.0, n if nev is None else int(nev), p, int(ritz),
+        _ptr(wr_o), _ptr(wi_o), _ptr(res), Vr.data_ptr(), Vi.data_ptr(), _ptr(n_conv),
+        _ptr(scratch), n, int(geo.w_smem), geo.smem_bytes, _stream(dev))
+    _raise_on(err, lib, what)
+    return (wr_o, wi_o, res, Vr, Vi, n_conv) if ritz else (Vr, Vi)
+
+
 hessenberg_schur.LAUNCHES = 0
 francis_filter_sweeps.LAUNCHES = 0
+ritz_check.LAUNCHES = 0
+inverse_iteration.LAUNCHES = 0

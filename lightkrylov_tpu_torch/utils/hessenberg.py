@@ -16,7 +16,8 @@ src/IterativeSolvers/IterativeSolvers.fypp:1065, and the Ritz residuals of
   orthogonal block swaps (Bai and Demmel's direct swap);
 - :func:`francis_filter`: the exact-shift IRAM filter of a Krylov restart;
 - :func:`hessenberg_eigvecs`: ``dhsein``-style eigenvectors, one inverse
-  iteration per eigenvalue on the realified ``2n x 2n`` systems, batched;
+  iteration per eigenvalue, batched (the JAX package's realified ``2n x 2n``
+  system solved as the complex ``n x n`` system it is);
 - :func:`hessenberg_ritz`: the Ritz values, residuals, modulus-descending
   order and converged count of one ``eigs`` check (``p = 1``, and the block
   residual for ``p > 1``).
@@ -27,10 +28,11 @@ zeroing the rest and planting separated dummy diagonal entries
 ``k_eff`` may be a 0-d tensor on the device and never cross to the host.
 
 The Schur core (embedding, Householder reduction to Hessenberg form, the
-Francis sweeps, the block split, the eigenvalue extraction) and the filter's
-sweeps run through :mod:`..ops.hessenberg`: on a CUDA tensor one launch of
-the hand-written kernel of ``csrc/hessenberg.cu`` each, on a CPU tensor the
-plain versions below, whose data-dependent loops are Python loops reading
+Francis sweeps, the block split, the eigenvalue extraction), the filter's
+sweeps, and the inverse iteration with the check's residuals, order and
+count run through :mod:`..ops.hessenberg`: on a CUDA tensor one launch of
+the hand-written kernels of ``csrc/hessenberg.cu`` and ``csrc/ritz.cu``
+each, on a CPU tensor the plain versions below, whose data-dependent loops are Python loops reading
 the few scalars they branch on.  The arithmetic follows the JAX package's
 order: each chase step applies its 3-row and 3-column updates over the full
 slices and sets the annihilated bulge entries to exactly zero.  The small
@@ -39,11 +41,13 @@ elementwise sums in a fixed order (:func:`_ordered_rows`), which the kernel
 repeats operation for operation; only the reduction's products with a dense
 column (``u @ H``, ``H @ u``) keep the library's order.  Square roots are
 numpy's (:func:`_sqrt`), correctly rounded, so the plain versions round
-alike on every device.  What stays
-plain torch on the device: the shift bookkeeping of the filter, the batched
-inverse iteration (``torch.linalg.solve_ex``, which checks no error on the
-host), the stable sorts, and :func:`ordschur_device`, which reads one
-packed vector to the host a block swap (counted by
+alike on every device.  The inverse iteration's elimination and back
+substitution are written the same way (:func:`_cmul`, :func:`_recip`), and
+``csrc/ritz.cu`` repeats them.  A check on the card is the Schur kernel,
+one fill of the converged count and the Ritz kernel: three launches and no
+host read.  What stays plain torch on the device: the shift bookkeeping
+of the filter, its stable sorts, and :func:`ordschur_device`, which reads
+one packed vector to the host a block swap (counted by
 :func:`..utils.timer.host_read`).
 
 Real dtypes only, as in the JAX package: a complex input raises
@@ -420,6 +424,171 @@ def _sweeps_plain(H, wr, wi, shift_order, n_keep, pure):
     return Hc, Z, torch.tensor([active_sweeps, steps], dtype=torch.int32, device=H.device)
 
 
+def _cmul(ar, ai, br, bi):
+    """``(ar + i ai)(br + i bi)`` elementwise, each product and sum rounded on
+    its own; ``csrc/ritz.cu`` (``cmul``) computes it in the same order."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _recip(br, bi):
+    """``1 / (br + i bi)`` elementwise by Smith's formula (no square of an
+    entry, so no overflow before the result's); ``csrc/ritz.cu``
+    (``recip``) computes it in the same order."""
+    one = torch.ones_like(br)
+    big = torch.abs(br) >= torch.abs(bi)
+    r1 = bi / br
+    d1 = br + bi * r1
+    r2 = br / bi
+    d2 = bi + br * r2
+    return torch.where(big, one / d1, r2 / d2), torch.where(big, -(r1 / d1), -(one / d2))
+
+
+def _eigvec_rhs(n, dt, device):
+    """Fixed right-hand side of the inverse iteration, ``2n`` entries (a
+    dense incommensurate pattern, never orthogonal to the null direction by
+    accident): ``b[:n] + i b[n:]`` is the complex system's."""
+    i = torch.arange(2 * n, device=device).to(dt)
+    b = torch.sin(1.7 * i + 0.3) + 0.25
+    return b / torch.linalg.vector_norm(b)
+
+
+def _shifts(Hm, wr, wi):
+    """The inverse iteration's ridge ``eps3 = eps (max |Hm| + 1)`` over the
+    embedded matrix ``Hm`` (its dummy diagonal included), the separation
+    ``sep = 4 eps3``, and the real parts moved apart: each by ``sep`` for
+    every EARLIER slot within ``sep`` of it (dhsein's cluster rule, over all
+    slots, the inactive ones at 0 included).  Returns ``(eps3, sep, wr')``."""
+    eps = torch.finfo(Hm.dtype).eps
+    eps3 = eps * (torch.max(torch.abs(Hm)) + 1.0)
+    sep = 4.0 * eps3
+    close = (torch.abs(wr[None, :] - wr[:, None]) + torch.abs(wi[None, :] - wi[:, None])) <= sep
+    earlier = torch.tril(close, diagonal=-1)
+    return eps3, sep, wr + earlier.sum(dim=1).to(Hm.dtype) * sep
+
+
+def _inverse_iteration_plain(H, wr, wi, k_eff):
+    """The plain version of the inverse iteration of ``csrc/ritz.cu``, batched
+    over the slots: for slot ``j`` the complex system
+    ``(Hm - sigma_j I) z = b[:n] + i b[n:]`` with
+    ``sigma_j = (wr'_j - eps3) + i wi_j`` (:func:`_shifts`), which is the
+    JAX package's realified ``[[A, wi I], [-wi I, A]] + eps3 I`` with
+    ``A = Hm - wr'_j I``.  LU with partial pivoting (the largest
+    ``|re| + |im|``, ties to the lower position; an exact zero pivot becomes
+    ``eps3``, as ``dlaein`` does) among the rows that can hold a nonzero in
+    the column, those whose first nonzero column (the profile) is at most
+    the column: two a step on a Hessenberg or the Krylov-Schur arrow form.
+    Then back substitution a column at a time, in real and imaginary parts
+    apart (:func:`_cmul`, :func:`_recip`).  Returns ``(Vr, Vi)`` in slot
+    order, columns of unit norm (zero if the solve gave 0), rows ``>= k_eff``
+    zero."""
+    n = H.shape[0]
+    dt, dev = H.dtype, H.device
+    Hm, active = _embed(H, k_eff)
+    eps3, _, wrp = _shifts(Hm, wr, wi)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    slots = torch.arange(n, device=dev)
+    S = slots[:, None]
+    Wr = Hm.expand(n, n, n).clone()
+    Wi = torch.zeros_like(Wr)
+    Wr[:, slots, slots] = (torch.diagonal(Hm)[None, :] - wrp[:, None]) + eps3
+    Wi[:, slots, slots] = (-wi)[:, None].expand(n, n)
+    b = _eigvec_rhs(n, dt, dev)
+    yr, yi = b[:n].expand(n, n).clone(), b[n:].expand(n, n).clone()
+    nz = (Hm != 0) | torch.eye(n, dtype=torch.bool, device=dev)
+    profile = torch.argmax(nz.to(torch.int8), dim=1)
+    fpos = profile.expand(n, n).clone()
+    # the rows that can hold a nonzero in column j: as many in every slot
+    counts = np.cumsum(np.bincount(_np(profile), minlength=n)) - np.arange(n)
+    for j in range(n):
+        cand = fpos[:, j:] <= j
+        pos = torch.argsort((~cand).to(torch.int8), dim=1, stable=True)[:, :int(counts[j])] + j
+        score = torch.abs(Wr[S, pos, j]) + torch.abs(Wi[S, pos, j])
+        score = torch.where(torch.isnan(score), -1.0, score)
+        pv = pos[slots, torch.argmax(score, dim=1)]
+        for M in (Wr, Wi, yr, yi, fpos):
+            top = M[slots, j].clone()
+            M[slots, j] = M[slots, pv]
+            M[slots, pv] = top
+        if counts[j] < 2:
+            continue
+        pr, pi = Wr[slots, j, j], Wi[slots, j, j]
+        ir, ii = _recip(torch.where((pr == 0) & (pi == 0), eps3, pr), pi)
+        rest = pos[:, 1:]  # position j leads; the pivot's old row now sits at pv
+        lr, li = _cmul(Wr[S, rest, j], Wi[S, rest, j], ir[:, None], ii[:, None])
+        tr, ti = _cmul(lr[..., None], li[..., None], Wr[slots, j, j + 1:][:, None],
+                       Wi[slots, j, j + 1:][:, None])
+        Wr[S, rest, j + 1:] = Wr[S, rest, j + 1:] - tr
+        Wi[S, rest, j + 1:] = Wi[S, rest, j + 1:] - ti
+        tr, ti = _cmul(lr, li, yr[slots, j][:, None], yi[slots, j][:, None])
+        yr[S, rest] = yr[S, rest] - tr
+        yi[S, rest] = yi[S, rest] - ti
+    for c in range(n - 1, -1, -1):
+        pr, pi = Wr[:, c, c], Wi[:, c, c]
+        pr = torch.where((pr == 0) & (pi == 0), eps3, pr)
+        ir, ii = _recip(pr, pi)
+        xr, xi = _cmul(yr[:, c], yi[:, c], ir, ii)
+        yr[:, c], yi[:, c] = xr, xi
+        if c:
+            tr, ti = _cmul(Wr[:, :c, c], Wi[:, :c, c], xr[:, None], xi[:, None])
+            yr[:, :c] = yr[:, :c] - tr
+            yi[:, :c] = yi[:, :c] - ti
+    return _unit_columns(torch.where(active[None, :], yr, zero),
+                         torch.where(active[None, :], yi, zero))
+
+
+def _unit_columns(xr, xi):
+    """The rows of ``x = xr + i xi`` (one a slot) as unit columns, zero where
+    the norm is 0: each scaled down first by the power of two of its largest
+    entry, an exact scale that changes no bit where the sum of squares does
+    not overflow.  Where it would, the JAX package's unscaled sum gives
+    ``inf``, a zero column and a zero residual that counts as converged (in
+    f32 at a triple eigenvalue, where ``|x|`` reaches ``1 / eps3^3``; ROADMAP
+    F11).  ``csrc/ritz.cu`` scales alike."""
+    m = _np(torch.maximum(torch.abs(xr), torch.abs(xi)).amax(dim=1))
+    e = np.where((m > 0) & np.isfinite(m), np.frexp(m)[1], 0).clip(min=0)
+    scale = torch.from_numpy(np.ldexp(np.ones_like(m), -e)).to(xr.device)[:, None]
+    xr, xi = xr * scale, xi * scale
+    nrm = _sqrt(torch.sum(xr * xr + xi * xi, dim=1))
+    pos = nrm > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, nrm, torch.ones_like(nrm)),
+                      torch.zeros_like(nrm))
+    return (xr * inv[:, None]).T, (xi * inv[:, None]).T
+
+
+def _ritz_plain(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
+    """The plain version of the check's analysis of ``csrc/ritz.cu``: the
+    vectors of :func:`_inverse_iteration_plain` for the Schur kernel's
+    ``(wr, wi, ok)``, their residuals (``+inf`` unless the slot is active and
+    ``ok``), the stable modulus-descending order and the converged count
+    among the leading ``nev``.  Returns ``(wr, wi, res, Vr, Vi, n_conv)``
+    in that order."""
+    kdim = H_ext.shape[1]
+    dev, dt = H_ext.device, H_ext.dtype
+    k_t = torch.clamp(torch.as_tensor(k_eff, device=dev).long().reshape(()), 0, kdim)
+    Vr, Vi = _inverse_iteration_plain(H_ext[:kdim, :kdim], wr, wi, k_t)
+    idx = torch.arange(kdim, device=dev)
+    live = (idx < k_t) & torch.as_tensor(ok, device=dev)
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    if p == 1:
+        km1 = torch.clamp(k_t - 1, min=0)
+        beta = torch.abs(take_at(H_ext, k_t * kdim + km1))
+        vr, vi = Vr.index_select(0, km1.reshape(1))[0], Vi.index_select(0, km1.reshape(1))[0]
+        res = beta * _sqrt(vr * vr + vi * vi)
+    else:
+        kmp = torch.clamp(k_t - p, min=0)
+        rows = k_t + torch.arange(p, device=dev)
+        cols = kmp + torch.arange(p, device=dev)
+        B = H_ext.index_select(0, rows).index_select(1, cols)
+        Br, Bi = B @ Vr.index_select(0, cols), B @ Vi.index_select(0, cols)
+        res = _sqrt(torch.sum(Br * Br + Bi * Bi, dim=0))
+    res = torch.where(live, res, inf)
+    order = _stable_argsort(-(wr * wr + wi * wi))
+    res = res[order]
+    lead = idx < (kdim if nev is None else nev)
+    n_conv = torch.sum(lead & torch.isfinite(res) & (res < tol)).to(torch.int32)
+    return wr[order], wi[order], res, Vr[:, order], Vi[:, order], n_conv
+
+
 def _schur_plain(H, k_eff, with_z: bool, split: bool):
     """The plain version of the ``hessenberg_schur`` kernel: embedding,
     Hessenberg reduction, Francis sweeps, optionally the real-block split,
@@ -686,54 +855,28 @@ def francis_filter(H_sq, n_target):
     return Hf, Z, n, ok & pure
 
 
-def _eigvec_rhs(n, dt, device):
-    """Fixed right-hand side of the inverse iteration (a dense
-    incommensurate pattern, never orthogonal to the null direction by
-    accident)."""
-    i = torch.arange(2 * n, device=device).to(dt)
-    b = torch.sin(1.7 * i + 0.3) + 0.25
-    return b / torch.linalg.vector_norm(b)
-
-
 def hessenberg_eigvecs(H, wr, wi, k_eff=None):
     """Eigenvectors by one inverse-iteration solve per eigenvalue (LAPACK
     ``dhsein``'s method), batched over all eigenvalues: for
-    ``wr[j] + i wi[j]`` the realified system
+    ``wr[j] + i wi[j]`` the JAX package's realified system
     ``[[H - wr I, wi I], [-wi I, H - wr I]] x = b`` with a diagonal ridge
-    ``ulp ||H||``, duplicates separated by ``4 ulp ||H||`` each as dhsein
-    does.  Returns ``(Vr, Vi)``, columns normalized, rows ``>= k_eff``
-    zero.  ``torch.linalg.solve_ex`` checks no error on the host."""
-    n = H.shape[0]
-    dt, dev = H.dtype, H.device
-    Hm, active = _embed(H, _keff(k_eff, n, dev))
-    eps = torch.finfo(H.dtype).eps
-    norm = torch.max(torch.abs(Hm)) + 1.0
-    eps3 = eps * norm
-    sep = 4.0 * eps3
-    close = (torch.abs(wr[None, :] - wr[:, None]) + torch.abs(wi[None, :] - wi[:, None])) <= sep
-    earlier = torch.tril(close, diagonal=-1)
-    wr = wr + earlier.sum(dim=1).to(dt) * sep
-    eye = _eye(n, H)
-    A = Hm[None] - wr[:, None, None] * eye
-    Wi = wi[:, None, None] * eye
-    M = torch.cat([torch.cat([A, Wi], dim=2), torch.cat([-Wi, A], dim=2)], dim=1)
-    M = M + eps3 * _eye(2 * n, H)
-    b = _eigvec_rhs(n, dt, dev)
-    x, _ = torch.linalg.solve_ex(M, b.expand(n, 2 * n))
-    mask = active.to(dt)
-    xr, xi = x[:, :n] * mask, x[:, n:] * mask
-    nrm = torch.sqrt(torch.sum(xr * xr + xi * xi, dim=1))
-    pos = nrm > 0
-    inv = torch.where(pos, 1.0 / torch.where(pos, nrm, torch.ones_like(nrm)),
-                      torch.zeros_like(nrm))
-    return (xr * inv[:, None]).T, (xi * inv[:, None]).T
+    ``ulp ||H||`` and duplicates separated by ``4 ulp ||H||`` each as dhsein
+    does, solved as the complex ``n x n`` system it is (LU with partial
+    pivoting over each column's possible nonzeros, then back substitution;
+    :func:`_inverse_iteration_plain`).  ``H`` may be any real square matrix.
+    Returns ``(Vr, Vi)``, columns normalized, rows ``>= k_eff`` zero.  One
+    launch of the kernel of ``csrc/ritz.cu`` on a CUDA tensor."""
+    from ..ops import hessenberg as kernels
+
+    _real_only(H, "hessenberg_eigvecs")
+    return kernels.inverse_iteration(H, wr, wi, _keff(k_eff, H.shape[0], H.device))
 
 
 def hessenberg_ritz(H_ext, k_eff, tol, nev=None, p: int = 1):
     """The Ritz analysis of one ``eigs`` check on the device, with no host
     round-trip: the projected eigensolve of the ``(kdim + p, kdim)`` Arnoldi
     buffer's active ``k_eff x k_eff`` block (``k_eff`` an int or a 0-d
-    tensor), its eigenvectors, residuals and converged count.
+    integer tensor), its eigenvectors, residuals and converged count.
 
     Returns ``(wr, wi, res, Vr, Vi, n_conv, ok)`` in modulus-descending
     order (a stable sort, as the host path's ``argsort(-|w|)``); inactive
@@ -742,35 +885,12 @@ def hessenberg_ritz(H_ext, k_eff, tol, nev=None, p: int = 1):
     (IterativeSolvers.fypp:1069-1083), ``||B y_last||`` with the coupling
     block ``B = H_ext[k:k+p, k-p:k]`` for ``p > 1``.  ``n_conv`` (0-d int32)
     counts converged residuals among the LEADING ``nev`` entries (the JAX
-    package's documented deviation; ``nev = None``: the whole spectrum)."""
+    package's documented deviation; ``nev = None``: the whole spectrum);
+    ``tol`` and ``nev`` are numbers.  On a CUDA tensor: the Schur kernel,
+    a fill of the count and the Ritz kernel, three launches."""
+    from ..ops import hessenberg as kernels
+
     kdim = H_ext.shape[1]
-    dev, dt = H_ext.device, H_ext.dtype
-    H = H_ext[:kdim, :kdim]
-    k_t = (k_eff.to(dev) if isinstance(k_eff, torch.Tensor)
-           else torch.full((), int(k_eff), device=dev)).long().reshape(())
-    wr, wi, ok = hessenberg_eigvals(H, k_t)
-    Vr, Vi = hessenberg_eigvecs(H, wr, wi, k_t)
-    idx = torch.arange(kdim, device=dev)
-    active = idx < k_t
-    inf = torch.full((), float("inf"), dtype=dt, device=dev)
-    if p == 1:
-        km1 = torch.clamp(k_t - 1, min=0)
-        beta = torch.abs(take_at(H_ext, k_t * kdim + km1))
-        last = torch.sqrt(Vr.index_select(0, km1.reshape(1))[0] ** 2
-                          + Vi.index_select(0, km1.reshape(1))[0] ** 2)
-        res = torch.where(active & ok, beta * last, inf)
-    else:
-        kmp = torch.clamp(k_t - p, min=0)
-        rows = k_t + torch.arange(p, device=dev)
-        cols = kmp + torch.arange(p, device=dev)
-        B = H_ext.index_select(0, rows).index_select(1, cols)
-        Vr_l = Vr.index_select(0, cols)
-        Vi_l = Vi.index_select(0, cols)
-        res = torch.sqrt(torch.sum((B @ Vr_l) ** 2 + (B @ Vi_l) ** 2, dim=0))
-        res = torch.where(active & ok, res, inf)
-    order = _stable_argsort(-(wr * wr + wi * wi))
-    wr, wi, res = wr[order], wi[order], res[order]
-    Vr, Vi = Vr[:, order], Vi[:, order]
-    lead = idx < (kdim if nev is None else nev)
-    n_conv = torch.sum(lead & torch.isfinite(res) & (res < tol)).to(torch.int32)
-    return wr, wi, res, Vr, Vi, n_conv, ok
+    k = _keff(k_eff, kdim, H_ext.device)
+    wr, wi, ok = hessenberg_eigvals(H_ext[:kdim, :kdim], k)
+    return kernels.ritz_check(H_ext, wr, wi, ok, k, tol, nev, p) + (ok,)

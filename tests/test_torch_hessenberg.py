@@ -214,6 +214,183 @@ def test_ritz_block_residuals_match_jax(rng, J, jnp):
     assert int(n_conv) == int(jn)
 
 
+def _check_buffer(case):
+    """``(H_ext, k_eff, p, nev, tol)`` of a named check: the ``(kdim + p,
+    kdim)`` buffers a check sees (a Hessenberg, a block Arnoldi band, the
+    Krylov-Schur arrow form after a device Schur restart) at kdim 8-40 with
+    ``k_eff <= kdim``, and a triangular one whose eigenvalues hold exact
+    duplicates, a pair within ``sep`` (a last bit apart), a real ``+-lambda``
+    tie and exact conjugate pairs."""
+    kind, kdim, p, k = case
+    rng = np.random.default_rng(kdim * 10 + p + k)
+    He = np.zeros((kdim + p, kdim))
+    if kind == "band":
+        He[:k + p, :k] = np.triu(rng.standard_normal((k + p, k)), -p)
+    elif kind == "arrow":  # T, the spike row m, then Arnoldi columns
+        m = kdim // 2
+        He[:m, :m] = np.triu(rng.standard_normal((m, m)))
+        He[m, :m] = rng.standard_normal(m)
+        for j in range(m, k):
+            He[:j + 2, j] = rng.standard_normal(j + 2)
+        He[k + 1:, :] = 0.0
+        He[:, k:] = 0.0
+    else:  # "dups"
+        d = rng.standard_normal(k)
+        d[3] = d[1]
+        d[6] = np.nextafter(d[1], np.inf)
+        d[5] = -d[2]
+        T = np.triu(rng.standard_normal((k, k)))
+        np.fill_diagonal(T, d)
+        for i in (8, 11):  # exact conjugate pairs: rotation-scaling blocks
+            T[i:i + 2, i:i + 2] = [[d[i], 0.7], [-0.4, d[i]]]
+        He[:k, :k] = T
+        He[k, k - 1] = 0.8
+    return He, k, p, kdim // 2, 0.3
+
+
+RITZ_CASES = {f"{c[0]}{c[1]}-p{c[2]}-k{c[3]}": c for c in [
+    ("band", 8, 1, 8), ("band", 17, 1, 12), ("band", 40, 1, 33), ("band", 20, 2, 15),
+    ("band", 24, 3, 24), ("band", 40, 2, 31), ("arrow", 24, 1, 24), ("arrow", 30, 1, 27),
+    ("dups", 16, 1, 14), ("dups", 16, 1, 16)]}
+
+
+@pytest.mark.parametrize("case", sorted(RITZ_CASES))
+def test_ritz_check_matches_jax(case, J, jnp):
+    """The port's check through the plain banded elimination against the
+    JAX check (its realified dense solves): Ritz values within 1e-10 in the
+    same order, residuals within ``RTOL64``, the same converged count, zero
+    rows from ``k_eff``, and every vector, inactive slots' included, within
+    ``RTOL64`` of the JAX one up to a unit complex factor."""
+    He, k, p, nev, tol = _check_buffer(RITZ_CASES[case])
+    got = H.hessenberg_ritz(torch.from_numpy(He), torch.tensor(k), tol, nev, p=p)
+    want = J.hessenberg_ritz(jnp.asarray(He), k, tol, nev, p=p)
+    wr, wi, res, Vr, Vi, n_conv, ok = (np.asarray(t) for t in got)
+    jwr, jwi, jres, jVr, jVi, jn, jok = (np.asarray(t) for t in want)
+    assert bool(ok) and bool(jok)
+    assert np.max(np.abs(_w(wr, wi) - _w(jwr, jwi))) < 1e-10
+    assert int(n_conv) == int(jn) and 0 < int(jn)
+    fin = np.isfinite(jres)
+    assert np.array_equal(np.isfinite(res), fin) and fin.sum() == k
+    assert np.max(np.abs(res[fin] - jres[fin])) < RTOL64
+    V, jV = Vr + 1j * Vi, jVr + 1j * jVi
+    assert np.all(V[k:] == 0)
+    overlap = np.abs(np.sum(np.conj(jV) * V, axis=0))
+    assert np.all(np.abs(overlap - 1.0) < RTOL64)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_inverse_iteration_shifts_match_the_jax_formula(dtype, J, jnp):
+    """``eps3``, ``sep`` and the shifted real parts equal the JAX
+    ``hessenberg_eigvecs``' formula bit for bit, over the embedded matrix
+    (whose dummy diagonal makes ``eps3`` about 3x that of the active block
+    alone) and over all slots: exact duplicates, a pair a last bit apart,
+    and inactive slots at 0 each moved by the earlier slots within ``sep``,
+    an active 0 among them."""
+    n, k = 12, 8
+    A = np.triu(np.random.default_rng(4).standard_normal((n, n)), -1).astype(dtype)
+    wr = np.zeros(n, dtype)
+    wi = np.zeros(n, dtype)
+    wr[:k] = [0.5, 0.5, -0.5, 0.25, np.nextafter(dtype(0.25), dtype(1)), 0.0, 0.1, 0.5]
+    wi[6] = 0.3
+    Hm, _ = H._embed(torch.from_numpy(A), k)
+    eps3, sep, wrp = (t.numpy() for t in H._shifts(Hm, torch.from_numpy(wr),
+                                                   torch.from_numpy(wi)))
+    Hj, _ = J._embed(jnp.asarray(A), k)
+    eps = np.finfo(dtype).eps
+    jeps3 = eps * (jnp.max(jnp.abs(Hj)) + 1.0)
+    jsep = 4.0 * jeps3
+    close = (jnp.abs(wr[None, :] - wr[:, None]) + jnp.abs(wi[None, :] - wi[:, None])) <= jsep
+    jwrp = wr + jnp.tril(close, k=-1).sum(axis=1).astype(dtype) * jsep
+    assert eps3 == np.asarray(jeps3) and sep == np.asarray(jsep)
+    assert np.array_equal(wrp, np.asarray(jwrp))
+    assert eps3 > 2.0 * eps * (np.abs(A[:k, :k]).max() + 1.0)
+    moved = np.rint((wrp.astype(np.float64) - wr) / sep).astype(int)
+    assert moved.tolist() == [0, 1, 0, 0, 1, 0, 0, 2, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("kind", ["arrow", "dense"])
+def test_eigvecs_any_structure(kind, rng, J, jnp):
+    """``hessenberg_eigvecs`` pivots over each column's possible nonzeros, so
+    the Krylov-Schur arrow form (a spike row below a triangle) and a dense
+    matrix get their eigenvectors as a Hessenberg does: residuals against
+    numpy's eigenvalues, and the JAX vectors up to a unit complex factor."""
+    n = 20
+    if kind == "dense":
+        A = rng.standard_normal((n, n))
+    else:
+        A = _check_buffer(("arrow", n, 1, n))[0][:n]
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    Vr, Vi = H.hessenberg_eigvecs(torch.from_numpy(A), wr, wi)
+    V, w = Vr.numpy() + 1j * Vi.numpy(), _w(wr, wi)
+    assert bool(ok)
+    for j in range(n):
+        assert np.linalg.norm(A @ V[:, j] - w[j] * V[:, j]) < 1e-10 * np.linalg.norm(A)
+    jVr, jVi = J.hessenberg_eigvecs(jnp.asarray(A), jnp.asarray(wr.numpy()),
+                                    jnp.asarray(wi.numpy()))
+    jV = np.asarray(jVr) + 1j * np.asarray(jVi)
+    assert np.all(np.abs(np.abs(np.sum(np.conj(jV) * V, axis=0)) - 1.0) < RTOL64)
+
+
+def test_f32_vectors_at_a_triple_eigenvalue_are_unit_columns(J, jnp):
+    """ROADMAP F11: in f32, at a triple eigenvalue of a triangular check
+    (two exact duplicates and one a last bit away) the inverse iteration's
+    ``|x|`` reaches ``1 / eps3^3`` and its sum of squares overflows.  The
+    JAX check then returns a zero column with a zero residual, counted as
+    converged; the port scales ``x`` by a power of two first and returns a
+    unit eigenvector, with the JAX check's values (within f32 rounding) and
+    every other column."""
+    He, k, p, nev, tol = _check_buffer(RITZ_CASES["dups16-p1-k14"])
+    He = He.astype(np.float32)
+    wr, wi, res, Vr, Vi, n_conv, ok = (np.asarray(t) for t in H.hessenberg_ritz(
+        torch.from_numpy(He), k, tol, nev, p=p))
+    jwr, jwi, jres, jVr, jVi, jn, jok = (np.asarray(t) for t in J.hessenberg_ritz(
+        jnp.asarray(He), k, tol, nev, p=p))
+    V, jV = Vr.astype(np.float64) + 1j * Vi, jVr.astype(np.float64) + 1j * jVi
+    jnorm = np.linalg.norm(jV, axis=0)
+    zero = np.flatnonzero(jnorm == 0)
+    assert bool(ok) and bool(jok) and np.max(np.abs(_w(wr, wi) - _w(jwr, jwi))) < 1e-6
+    assert len(zero) == 1 and jres[zero[0]] == 0
+    assert np.all(np.abs(np.linalg.norm(V, axis=0) - 1.0) < 1e-6)
+    A = He.astype(np.float64)[:k, :k]
+    j = zero[0]
+    w = _w(wr, wi)[j]
+    assert np.linalg.norm(A @ V[:k, j] - w * V[:k, j]) < 1e-5 * np.linalg.norm(A)
+    rest = np.flatnonzero(jnorm > 0)
+    assert np.all(np.abs(np.abs(np.sum(np.conj(jV) * V, axis=0))[rest] - 1.0) < 1e-4)
+
+
+def test_ritz_wrappers_take_the_plain_version_on_the_cpu(rng):
+    """On a CPU tensor ``ritz_check`` and ``inverse_iteration`` are their
+    plain versions and count no launch."""
+    He, k, p, nev, tol = _check_buffer(("band", 12, 1, 10))
+    Ht = torch.from_numpy(He)
+    _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(Ht[:12], k)
+    before = (kernels.ritz_check.LAUNCHES, kernels.inverse_iteration.LAUNCHES)
+    got = kernels.ritz_check(Ht, wr, wi, ok, k, tol, nev, p)
+    want = kernels.ritz_check_reference(Ht, wr, wi, ok, k, tol, nev, p)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = kernels.inverse_iteration(Ht[:12], wr, wi, k)
+    want = kernels.inverse_iteration_reference(Ht[:12], wr, wi, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (kernels.ritz_check.LAUNCHES, kernels.inverse_iteration.LAUNCHES) == before
+
+
+def test_schur_f32_on_a_hessenberg_scaled_to_2_pow_minus_40(J, jnp):
+    """ROADMAP Queue 3: the f32 Schur core on a Hessenberg input scaled by
+    2^-40.  The port's converges, its eigenvalues within 1e-5 of the
+    spectrum's scale (the reduction of a Hessenberg column holds one nonzero
+    product, exact; the scaled reflectors (F10) keep the chase's vectors in
+    range); the JAX package's runs out of its sweep budget (F10: its
+    reflectors are unscaled)."""
+    A = (np.triu(np.random.default_rng(3).standard_normal((24, 24)), -1)
+         * 2.0 ** -40).astype(np.float32)
+    w_ref = np.linalg.eigvals(A.astype(np.float64))
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    _, _, jok = J.hessenberg_eigvals(jnp.asarray(A))
+    assert bool(ok) and _match(_w(wr, wi), w_ref) < 1e-5 * np.abs(w_ref).max()
+    assert not bool(jok)
+
+
 # -- Schur form, reordering, the IRAM filter ----------------------------------
 
 @pytest.mark.parametrize("n", [2, 5, 12, 24, 40, 120, 257])
@@ -501,6 +678,19 @@ def test_geometry_warps(n, warps, rows):
             assert -(-n // (32 * g.warps)) == rows
 
 
+@pytest.mark.parametrize("n, itemsize, w_smem", [
+    (40, 4, True), (40, 8, True), (119, 8, True), (120, 8, False), (169, 4, True),
+    (170, 4, False), (300, 4, False), (300, 8, False)])
+def test_ritz_geometry_places_w_by_the_shared_memory_limit(n, itemsize, w_smem):
+    """The Ritz kernel's working matrix (n rows of odd stride, real and
+    imaginary parts) stays in shared memory to n = 169 in f32 and 119 in
+    f64, and never asks for more than a CTA may take."""
+    g = kernels.ritz_geometry(n, itemsize)
+    assert g.w_smem == w_smem
+    w = 2 * n * ((n + 1) | 1) * itemsize
+    assert g.smem_bytes == 4 * n + (w if w_smem else 0) <= _BUDGET
+
+
 # -- the CUDA kernels (need a GPU) --------------------------------------------
 
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}  # of ||H||_F, as chip_smoke.py
@@ -623,12 +813,13 @@ def test_cuda_schur_kernel_keff_tensors(cuda, dtype):
                 assert torch.equal(a, b)
 
 
-def _arnoldi_hessenberg(kdim, seed, n=256, real=None):
+def _arnoldi_hessenberg(kdim, seed, n=256, real=None, ext=False):
     """The square Arnoldi Hessenberg of a matrix of order ``n`` with a known,
     well-separated complex spectrum (chip_smoke.py's input for the filter),
     with ``real`` one more, real eigenvalue: the exact-shift filter is
     forward-unstable on a random non-normal Hessenberg, so kernel and plain
-    version agree there only up to that instability."""
+    version agree there only up to that instability.  With ``ext`` the
+    ``(kdim + 1, kdim)`` buffer of a check."""
     rng = np.random.default_rng(seed)
     m = n + (real is not None)
     D = np.zeros((m, m))
@@ -653,7 +844,7 @@ def _arnoldi_hessenberg(kdim, seed, n=256, real=None):
             H[:k + 1, k] += h
         H[k + 1, k] = np.linalg.norm(w)
         V[:, k + 1] = w / H[k + 1, k]
-    return H[:kdim, :kdim]
+    return H if ext else H[:kdim, :kdim]
 
 
 FILTER_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F, as chip_smoke.py
@@ -750,17 +941,127 @@ def test_cuda_filter_lagging_warp_build_is_bit_equal(cuda, kdim, dtype):
 @pytest.mark.cuda
 def test_cuda_ritz_check_makes_no_host_read(cuda):
     """A check of ``hessenberg_ritz`` at kdim 40 under
-    ``torch.cuda.set_sync_debug_mode("error")``."""
-    He = np.triu(np.random.default_rng(2).standard_normal((41, 40)), -1)
-    Ht = torch.from_numpy(He).to(cuda, torch.float32)
-    H.hessenberg_ritz(Ht, 40, 1e-6, 16)
+    ``torch.cuda.set_sync_debug_mode("error")``, with ``k_eff`` an int and a
+    0-d tensor on the card, for ``p = 1`` and a block buffer with ``p = 2``."""
+    for p in (1, 2):
+        He = np.triu(np.random.default_rng(2).standard_normal((40 + p, 40)), -p)
+        Ht = torch.from_numpy(He).to(cuda, torch.float32)
+        H.hessenberg_ritz(Ht, 40, 1e-6, 16, p=p)
+        torch.cuda.synchronize()
+        k = torch.full((), 37, device=cuda)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            H.hessenberg_ritz(Ht, k, 1e-6, 16, p=p)
+            H.hessenberg_ritz(Ht, 38, 1e-6, 16, p=p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+# ||Hm v - lambda v|| / ||H||_F of an inverse-iteration vector, in f64; in
+# f32 the method's own residual grows with kdim (the JAX package's f32
+# vectors read 1.3e-5 to 3.5e-5 on the Arnoldi inputs at kdim 16-128, the
+# plain version's 5.4e-5 at 169), so there the kernel is held to the plain
+# version's residual within KERNEL_TOL alone
+RITZ_RESID_TOL = {torch.float32: float("inf"), torch.float64: 1e-11}
+
+
+def _hold_ritz_to_plain(cuda, dtype, He, k, p, nev, tol):
+    """One launch of the Ritz kernel on the Schur kernel's eigenvalues of
+    ``He`` against its plain version on the same inputs: the same values in
+    the same order, count, infinite residuals and zero rows from ``k_eff``;
+    each active column's eigen-residual ``||Hm v - lambda v||`` within
+    ``KERNEL_TOL`` of the plain version's (and within ``RITZ_RESID_TOL``), each
+    column's overlap ``|v^H v_plain|`` and norm, and the finite residuals
+    (against ``|beta|`` or ``||B||``) within ``KERNEL_TOL``."""
+    kdim = He.shape[1]
+    Ht = torch.from_numpy(He).to(cuda, dtype)
+    _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(Ht[:kdim].contiguous(), k)
+    before = kernels.ritz_check.LAUNCHES
+    got = kernels.ritz_check(Ht, wr, wi, ok, k, tol, nev, p)
     torch.cuda.synchronize()
-    k = torch.full((), 37, device=cuda)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        H.hessenberg_ritz(Ht, k, 1e-6, 16)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.ritz_check.LAUNCHES == before + 1
+    want = kernels.ritz_check_reference(Ht, wr, wi, ok, k, tol, nev, p)
+    (gwr, gwi, gres, gVr, gVi, gn), (pwr, pwi, pres, pVr, pVi, pn) = (
+        [t.cpu() for t in out] for out in (got, want))
+    assert bool(ok)
+    assert torch.equal(gwr, pwr) and torch.equal(gwi, pwi) and int(gn) == int(pn)
+    fin = torch.isfinite(pres)
+    assert torch.equal(torch.isfinite(gres), fin) and int(fin.sum()) == k
+    assert torch.all(gVr[k:] == 0) and torch.all(gVi[k:] == 0)
+    tol_k = KERNEL_TOL[dtype]
+    A = Ht.double().cpu().numpy()
+    Ha = A[:k, :k]
+    V = gVr.double().numpy() + 1j * gVi.double().numpy()
+    Vp = pVr.double().numpy() + 1j * pVi.double().numpy()
+    w = _w(gwr, gwi)
+    for j in np.flatnonzero(fin.numpy()):
+        r, rp = (np.linalg.norm(Ha @ X[:k, j] - w[j] * X[:k, j]) / np.linalg.norm(Ha)
+                 for X in (V, Vp))
+        assert r < RITZ_RESID_TOL[dtype] and abs(r - rp) < tol_k
+    assert np.all(np.abs(np.abs(np.sum(np.conj(Vp) * V, axis=0)) - 1.0) < tol_k)
+    assert np.all(np.abs(np.linalg.norm(V, axis=0) - 1.0) < tol_k)
+    if p == 1:
+        scale = abs(A[k, k - 1])
+    else:
+        scale = np.linalg.norm(A[k:k + p, max(k - p, 0):max(k - p, 0) + p], 2)
+    d = np.abs(gres.double().numpy()[fin.numpy()] - pres.double().numpy()[fin.numpy()])
+    assert np.all(d <= tol_k * max(scale, 1e-300))
+
+
+# kdim: the phase's sizes; the working matrix leaves shared memory at 120
+# (f64) and 170 (f32), a lane owns two rows or columns from 33
+RITZ_NS = [16, 30, 32, 40, 64, 119, 120, 128, 169, 170, 240, 257, 300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kdim", RITZ_NS)
+def test_cuda_ritz_kernel_matches_plain(cuda, dtype, kdim):
+    He = _arnoldi_hessenberg(kdim, kdim, 256 if kdim <= 128 else 512, ext=True)
+    _hold_ritz_to_plain(cuda, dtype, He, kdim, 1, 16, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(RITZ_CASES) + ["keff100of128", "band64-p4-k60",
+                                                       "band170-p2-k165"])
+def test_cuda_ritz_kernel_special_cases(cuda, dtype, case):
+    """``k_eff < kdim``, ``p = 2, 3, 4``, the arrow form, exact and
+    near duplicates, a ``+-lambda`` tie and exact conjugate pairs."""
+    if case == "keff100of128":
+        He, k, p, nev, tol = _arnoldi_hessenberg(128, 7, ext=True), 100, 1, 16, 1e-6
+        He[101:, :] = 0.0
+        He[:, 100:] = 0.0
+    elif case.startswith("band64") or case.startswith("band170"):
+        kdim, p, k = (64, 4, 60) if case.startswith("band64") else (170, 2, 165)
+        He, k, p, nev, tol = _check_buffer(("band", kdim, p, k))
+    else:
+        He, k, p, nev, tol = _check_buffer(RITZ_CASES[case])
+    _hold_ritz_to_plain(cuda, dtype, He, k, p, nev, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind, n", [("dense", 40), ("dense", 120), ("arrow", 64)])
+def test_cuda_inverse_iteration_matches_plain(cuda, dtype, kind, n):
+    """``inverse_iteration`` (the kernel's vectors alone, slot order) on a
+    dense matrix and the arrow form against its plain version, up to a unit
+    complex factor."""
+    if kind == "dense":
+        A = np.random.default_rng(n).standard_normal((n, n))
+    else:
+        A = _check_buffer(("arrow", n, 1, n))[0][:n]
+    Ht = torch.from_numpy(A).to(cuda, dtype)
+    wr, wi, ok = H.hessenberg_eigvals(Ht)
+    before = kernels.inverse_iteration.LAUNCHES
+    Vr, Vi = kernels.inverse_iteration(Ht, wr, wi, n - 3)
+    torch.cuda.synchronize()
+    assert kernels.inverse_iteration.LAUNCHES == before + 1
+    pVr, pVi = kernels.inverse_iteration_reference(Ht, wr, wi, n - 3)
+    V = Vr.double().cpu().numpy() + 1j * Vi.double().cpu().numpy()
+    Vp = pVr.double().cpu().numpy() + 1j * pVi.double().cpu().numpy()
+    assert bool(ok) and np.all(V[n - 3:] == 0)
+    assert np.all(np.abs(np.abs(np.sum(np.conj(Vp) * V, axis=0)) - 1.0) < KERNEL_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -769,3 +1070,8 @@ def test_cuda_wrappers_refuse_unsupported_tensors(cuda):
         kernels.hessenberg_schur(torch.eye(4, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         kernels.hessenberg_schur(torch.ones(4, 5, device=cuda))
+    w = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.ritz_check(torch.ones(4, 4, device=cuda), w, w, True, 4, 1e-6)
+    with pytest.raises(TypeError):
+        kernels.inverse_iteration(torch.eye(4, device=cuda, dtype=torch.float16), w, w)
