@@ -166,8 +166,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     f64: values, order, count and zero rows exactly, eigen-residuals,
     overlaps, norms and residuals within 1e-5 / 1e-11, its plain versions on
     the host workers; checks under set_sync_debug_mode("error") for p = 1
-    and 2; (h) the lagging-warp build of the same
-    source against the shipping kernels, bit for bit, at n = 40 and 257;
+    and 2; the ordschur kernel (csrc/ordschur.cu: the device Krylov-Schur
+    restart's Schur reordering) against its plain version on the Schur
+    kernel's forms of Arnoldi Hessenbergs at kdim 16-300 (Z leaving shared
+    memory at 120 in f64 and 170 in f32, T at 170 and 241), with the median
+    selector's mask, a random one and the larger half by real part, f32 and
+    f64: sel', ok and the swap count exactly, T' within 1e-5 / 1e-12 of
+    ||T||_F and Z' within 1e-5 / 1e-12, its plain versions on the host
+    workers; (h) the lagging-warp build of the same
+    sources against the shipping kernels, bit for bit, at n = 40 and 257
+    (the ordschur kernel on a random mask too);
     (b) gl512 under projected="device" (the phase's main path, the kernels'
     launches zeroed before and read after): 16/16 inside the kappa budgets,
     no QR host redo, no host restart, matvecs, stride, checks, host reads a
@@ -176,7 +184,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     projected="device" with their launch counts, against phases 15, 10, 19
     and 29b; (d) the non-normal eigs f64 through Block-ELL with IRAM
     restarts, then with a custom selector through the device Schur restart
-    (its ordschur host reads printed), by true residual; (g) a check, each
+    (the Schur kernel, the ordschur kernel and the restart's small ops), by
+    true residual, with no ordschur host read and one ordschur launch a
+    device Schur restart, each beside the same solve on the host path, the
+    custom solve's reorder timed by its span, and the custom solve again
+    with the plain reorder on the card; (g) a check, each
     kernel alone (the Schur kernel with and without Z) and the plain Schur
     core at kdim 30, 32, 40, 64, 128, f32 and f64, with sweeps, chase steps,
     us a chase step and the bound, beside the host path's read plus numpy
@@ -186,7 +198,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     at every kdim of (g), beside torch.linalg.eig on the card; the
     wrappers' host us a call beside clone's, the Schur wrapper's launches
     in one call (its kernel alone) and a check's (the Schur kernel, one
-    fill and the Ritz kernel), by torch.profiler.
+    fill and the Ritz kernel), by torch.profiler; the ordschur kernel alone
+    and a call at kdim 30-300 on a random mask, with its swaps, us a swap
+    and bound, beside its plain version on the card and the host path's
+    reorder (read, LAPACK TRSEN, copy back).
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -311,6 +326,20 @@ MAIN_KDIM = 40  # gl512's, the main path's shape
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 HESS_REPLACES = {"hessenberg_schur": "lightkrylov_tpu/utils/hessenberg.py:226",
                  "francis_filter_sweeps": "lightkrylov_tpu/utils/hessenberg.py:687"}
+# phase 33: the ordschur kernel (csrc/ordschur.cu) against its plain version
+# on the Schur kernel's (T, Z) of Arnoldi Hessenbergs at these kdims (Z
+# leaves shared memory at 120 in f64 and 170 in f32, T at 170 and 241, a
+# thread owns two rows from 257), each with the masks of ORDSCHUR_MASKS: the
+# median selector's (the larger half by modulus, as the custom-selector
+# restarts keep; on these inputs the Schur form already leads with it), a
+# seeded random one and the larger half by real part
+ORDSCHUR_KDIMS = (16, 30, 40, 64, 119, 120, 128, 169, 170, 240, 241, 257, 300)
+ORDSCHUR_MASKS = ("median", "random", "real")
+ORDSCHUR_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # T' of ||T||_F; Z', orthogonality
+ORDSCHUR_TIME_KDIMS = (30, 40, 64, 128, 240, 300)
+ORDSCHUR_REPLACES = ("lightkrylov_tpu/utils/hessenberg.py:481",
+                     "lightkrylov_tpu/utils/hessenberg.py:571")
+ORDSCHUR_MAIN = "30_float64"  # the shape of the convdiff device solves' restarts
 
 R5_TPU_ERR = {2: 6.84e-4, 1: 1.54e-6}
 # phase 32: each copy case of copy_tiles by its shape and block, with the TPU
@@ -2480,12 +2509,82 @@ def ritz_checks(dev, dtype, cases, plain, out):
               f"ritz_check {label} {dtype}: vectors or residuals off (gate {rt}): {row}")
 
 
+def ordschur_mask(kind, wr, wi, n):
+    """The mask of ORDSCHUR_MASKS' ``kind`` over the diagonal positions of a
+    Schur form with eigenvalues ``(wr, wi)`` (numpy)."""
+    if kind == "median":
+        mod = np.hypot(wr, wi)
+        return mod > np.median(mod)
+    if kind == "real":
+        return wr > np.median(wr)
+    return np.random.default_rng(n).random(n) < 0.5
+
+
+def ordschur_input(dev, dtype, n, kind):
+    """``(T, Z, mask)`` on the card: the Schur kernel's form with ``Z`` and
+    the split of the spiral operator's Arnoldi Hessenberg at kdim ``n``, and
+    the mask of ``kind``."""
+    A = torch.from_numpy(arnoldi_hessenberg(n, seed=n)[:n, :n]).to(dev, dtype)
+    T, Z, wr, wi, _, ok, _ = hess_ops.hessenberg_schur(A, n, with_z=True, split=True)
+    check(bool(ok), f"hessenberg_schur arnoldi{n} {dtype}: sweep budget out")
+    mask = ordschur_mask(kind, wr.double().cpu().numpy(), wi.double().cpu().numpy(), n)
+    return T, Z, torch.from_numpy(mask).to(dev)
+
+
+def ordschur_work(n, nz, swaps, dtype):
+    """Bytes and operations of one ordschur call: T, Z and the mask read
+    once, T', Z' and sel' written once; each swap counted at its least size
+    (two 1x1 blocks, m = 2): 2 m^2 operations an entry of the n + m entries
+    of T's rows and columns it updates and of Z's nz rows (the 4 x 4 work
+    left out)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return size * 2 * n * (n + nz) + 2 * n, swaps * 8 * (n + 2 + nz)
+
+
+def ordschur_checks(dtype, cases, plain, out):
+    """Phase 33 (a): the ordschur kernel against its plain version on
+    ``cases``; rows into ``out["ordschur"]``.  Exact: sel', ok and the swap
+    count.  Within ORDSCHUR_TOL: T' of ||T||_F, Z' (orthogonal), and the
+    kernel's factorization Z' T' Z'^T = Z T Z^T and orthogonality."""
+    for label, T, Z, mask in cases:
+        got = [t.cpu() for t in hess_ops.ordschur(T, Z, mask)]
+        want, plain_s, where = plain_result(plain, ("ordschur", label, dtype),
+                                            lambda: hess_ops.ordschur_reference(T, Z, mask))
+        (gT, gZ, gsel, gok, gsw), (pT, pZ, psel, pok, psw) = got, [t.cpu() for t in want]
+        Tn, Zn = T.double().cpu().numpy(), Z.double().cpu().numpy()
+        norm = float(np.linalg.norm(Tn))
+        A = Zn @ Tn @ Zn.T
+        G, GZ = gT.double().numpy(), gZ.double().numpy()
+        d_t = float((gT.double() - pT.double()).abs().max())
+        d_z = float((gZ.double() - pZ.double()).abs().max())
+        fact = float(np.linalg.norm(GZ @ G @ GZ.T - A, 2) / np.linalg.norm(A, 2))
+        orth = float(np.linalg.norm(GZ.T @ GZ - np.eye(len(GZ)), 2))
+        row = dict(case=label, dtype=str(dtype), n=int(T.shape[0]), ok=bool(gok),
+                   plain_ok=bool(pok), swaps=int(gsw), plain_swaps=int(psw),
+                   selected=int(gsel.sum()), same_sel=bool(torch.equal(gsel, psel)),
+                   t_err=d_t / norm, z_err=d_z, factorization=fact, orthogonality=orth,
+                   max_abs_err=d_t, plain_s=plain_s, plain_on=where)
+        out["ordschur"].append(row)
+        print(f"ordschur {label} {dtype}: ok {row['ok']} (plain {row['plain_ok']}), "
+              f"{row['swaps']} swaps (plain {row['plain_swaps']}), {row['selected']} selected, "
+              f"sel' {'equal' if row['same_sel'] else 'DIFFERS'}; T' vs plain {row['t_err']:.2e} "
+              f"of ||T||_F, Z' {d_z:.2e}, ||Z'T'Z'^T - ZTZ^T||/||T|| {fact:.2e}, "
+              f"||Z'^TZ'-I|| {orth:.2e}; plain {plain_s:.2f} s on the {where}")
+        tol = ORDSCHUR_TOL[dtype]
+        check(row["same_sel"] and row["ok"] == row["plain_ok"]
+              and row["swaps"] == row["plain_swaps"],
+              f"ordschur {label} {dtype}: exact outputs differ: {row}")
+        check(row["t_err"] <= tol and d_z <= tol and fact <= tol and orth <= tol,
+              f"ordschur {label} {dtype}: T', Z' or the factorization off (gate {tol}): {row}")
+
+
 def plain_on_host(kind, H, dtype, args):
     """Phase 33 (a)'s worker: the plain version of a kernel on the host, on
     ``H`` (float64 numpy) cast to ``dtype`` (its name), with ``args`` the
     Schur core's ``k_eff``, the filter's shifts ``(wr, wi, order, n,
-    pure)`` as numpy arrays, or the Ritz check's ``(wr, wi, ok, k_eff, p,
-    nev, tol)`` -> ``(outputs as numpy arrays, seconds)``."""
+    pure)`` as numpy arrays, the Ritz check's ``(wr, wi, ok, k_eff, p,
+    nev, tol)``, or the reorder's ``(Z, mask)`` (``H`` its ``T``) ->
+    ``(outputs as numpy arrays, seconds)``."""
     torch.set_num_threads(1)
     Ht = torch.from_numpy(H).to(getattr(torch, dtype))
     t0 = time.perf_counter()
@@ -2495,6 +2594,10 @@ def plain_on_host(kind, H, dtype, args):
         wr, wi, ok, k, p, nev, tol = args
         out = hess_ops.ritz_check_reference(Ht, torch.from_numpy(wr), torch.from_numpy(wi),
                                             torch.from_numpy(ok), k, tol, nev, p)
+    elif kind == "ordschur":
+        Z, mask = args
+        out = hess_ops.ordschur_reference(Ht, torch.from_numpy(Z).to(Ht.dtype),
+                                          torch.from_numpy(mask))
     else:
         out = hess_ops.francis_filter_sweeps_reference(Ht, *map(torch.from_numpy, args))
     seconds = time.perf_counter() - t0
@@ -2502,16 +2605,19 @@ def plain_on_host(kind, H, dtype, args):
 
 
 def hessenberg_kernels(dev, tag):
-    """Phase 33 (a): both kernels against their plain versions, f32 and f64;
-    the check under set_sync_debug_mode("error").  The plain version of a
+    """Phase 33 (a): the Francis-QR, Ritz and ordschur kernels against their
+    plain versions, f32 and f64; the check under set_sync_debug_mode("error").  The plain version of a
     Hessenberg input runs on the host, in PLAIN_WORKERS processes beside the
     kernels: its arithmetic is elementwise products and sums in a written
     order and numpy scalars, rounded alike on either device, so the host
     takes the card's sweeps and steps.  A dense input (the arrow form),
     whose reduction sums in the library's order, runs it on the card."""
-    out = {"schur": [], "filter": [], "ritz": []}
+    out = {"schur": [], "filter": [], "ritz": [], "ordschur": []}
     dtypes = (torch.float32, torch.float64)
     schur_cases = {dtype: schur_inputs(dtype) for dtype in dtypes}
+    ordschur_cases = {dtype: [(f"arnoldi{n}_{kind}", *ordschur_input(dev, dtype, n, kind))
+                              for n in ORDSCHUR_KDIMS for kind in ORDSCHUR_MASKS]
+                      for dtype in dtypes}
     ritz_cases = {dtype: ritz_inputs() for dtype in dtypes}
     ritz_args = {}
     for dtype in dtypes:
@@ -2537,6 +2643,10 @@ def hessenberg_kernels(dev, tag):
                  for (dtype, kdim), (Hs, _, shifts) in filter_cases.items()]
         jobs += [(He.shape[1], ("ritz", label, dtype), ("ritz", He, str(dtype)[6:], args))
                  for (label, dtype), (He, args) in ritz_args.items()]
+        jobs += [(T.shape[0], ("ordschur", label, dtype),
+                  ("ordschur", T.double().cpu().numpy(), str(dtype)[6:],
+                   [Z.double().cpu().numpy(), mask.cpu().numpy()]))
+                 for dtype in dtypes for label, T, Z, mask in ordschur_cases[dtype]]
         # the largest first, so that no worker starts a long case last
         plain = {key: pool.submit(plain_on_host, *args)
                  for _, key, args in sorted(jobs, key=lambda j: -j[0])}
@@ -2544,6 +2654,7 @@ def hessenberg_kernels(dev, tag):
             schur_checks(dev, dtype, schur_cases[dtype], plain, out)
             filter_checks(dtype, filter_cases, plain, out)
             ritz_checks(dev, dtype, ritz_cases, plain, out)
+            ordschur_checks(dtype, ordschur_cases[dtype], plain, out)
     finally:
         pool.shutdown(cancel_futures=True)
     for p in (1, 2):
@@ -2578,7 +2689,8 @@ def lagging_warp_check(dev, tag, build_s):
     (-DLK_LAG_WARP=1: one warp sleeps at the start of every stretch between
     two barriers; built in ``build_s`` seconds, in phase 2) against the
     shipping build, bit for bit, at LAG_NS in f32 and f64: the Schur kernel
-    with Z and the split and without, and the filter.  A read that depends
+    with Z and the split and without, the filter, and the ordschur kernel on
+    a random mask.  A read that depends
     on which warp gets there first gives other outputs under the lag."""
     lib = _build.load_lagging()
     check(lib is not _build.load(), "the lagging-warp build replaced the shipping library")
@@ -2598,6 +2710,10 @@ def lagging_warp_check(dev, tag, build_s):
             want = hess_ops.launch_filter(_build.load, Hs, wr, wi, order, nk, pure)
             got = hess_ops.launch_filter(_build.load_lagging, Hs, wr, wi, order, nk, pure)
             cases[f"filter{n}_{name}"] = bit_equal(got, want)
+            T, Z, mask = ordschur_input(dev, dtype, n, "random")
+            want = hess_ops.launch_ordschur(_build.load, T, Z, mask)
+            got = hess_ops.launch_ordschur(_build.load_lagging, T, Z, mask)
+            cases[f"ordschur{n}_{name}"] = bit_equal(got, want) and int(want[4]) > 0
     torch.cuda.synchronize()
     print(f"{tag} lagging-warp build (-DLK_LAG_WARP=1) built in {build_s:.2f} s; outputs "
           f"bit-equal to the shipping kernels': {cases}")
@@ -2616,6 +2732,60 @@ def ritz_ms_of(He, wr, wi, ok, kdim):
     return device, median_ms(lambda i: call(), runs=10)
 
 
+def host_clock(fn, reps=10):
+    """Host-clock ms a call of ``fn`` (the device's work included), over
+    ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ordschur_times(dev, tag):
+    """Phase 33 (g): the ordschur kernel alone (ten calls a sample behind a
+    spacer) and a call with its host time (CUDA events around one call) at
+    ORDSCHUR_TIME_KDIMS, on the Schur kernel's form of the Arnoldi
+    Hessenberg with a seeded random mask, with its swaps, us a swap and its
+    bound; beside it the plain version on the card (one call) and the host
+    path's reorder: (T, Z) read to the host, LAPACK TRSEN
+    (utils.linalg.ordschur) and the copy back.  No PyTorch call reorders a
+    Schur form."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in ORDSCHUR_TIME_KDIMS:
+            T, Z, mask = ordschur_input(dev, dtype, n, "random")
+
+            def call():
+                return hess_ops.ordschur(T, Z, mask)
+
+            def host_path():
+                Ts, Zs = lt.utils.linalg.ordschur(T.cpu().numpy(), Z.cpu().numpy(),
+                                                  mask.cpu().numpy())
+                return torch.from_numpy(Ts).to(dev), torch.from_numpy(Zs).to(dev)
+
+            swaps = int(call()[4])
+            ms = alternating_ms({"ordschur": call}, runs=10, per_run=10, spacer=True)["ordschur"]
+            call_ms = median_ms(lambda i: call(), runs=10)
+            plain_ms = host_clock(lambda: hess_ops.ordschur_reference(T, Z, mask), reps=1)
+            host_ms = host_clock(host_path)
+            bound, bound_by = bound_of(*ordschur_work(n, n, swaps, dtype), dtype)
+            geo = hess_ops.ordschur_geometry(n, n, T.element_size())
+            where = dict(warps=geo.warps, t="shared" if geo.h_smem else "global",
+                         z="shared" if geo.z_smem else "global")
+            row = dict(ms=ms, call_ms=call_ms, swaps=swaps, us_a_swap=ms * 1e3 / max(swaps, 1),
+                       bound_ms=bound, bound_by=bound_by, plain_ms=plain_ms, host_path_ms=host_ms,
+                       geometry=where)
+            rows[f"{n}_{str(dtype)[6:]}"] = row
+            print(f"{tag} ordschur kdim {n} {dtype}: {ms:.3f} ms on the card, {call_ms:.3f} ms a "
+                  f"call, {swaps} swaps, {row['us_a_swap']:.3f} us a swap (bound "
+                  f"{bound * 1e3:.3f} us by {bound_by}; {where}); plain on the card "
+                  f"{plain_ms:.1f} ms; host path (read, TRSEN, copy back) {host_ms:.3f} ms")
+    return rows
+
+
 def hessenberg_times(dev, tag):
     """Phase 33 (g): a check of hessenberg_ritz, the Schur kernel and the
     filter kernel alone, and the plain Schur core, at the kdims of the table,
@@ -2624,16 +2794,6 @@ def hessenberg_times(dev, tag):
     version, beside torch.linalg.eig on the card, at the same kdims and at
     LARGE_KDIMS."""
     rows = {}
-
-    def host_clock(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     for dtype in (torch.float32, torch.float64):
         for kdim in RITZ_KDIMS:
             He = torch.from_numpy(arnoldi_hessenberg(kdim, seed=kdim)).to(dev, dtype)
@@ -3003,50 +3163,107 @@ def device_projected_path(dev, tag, results):
     del V
     torch.cuda.empty_cache()
 
-    # (d) the non-normal eigs f64 through K3: IRAM restarts, then a custom
-    # selector through the device Schur restart
+    out.update(convdiff_device_solves(dev, tag, results))
+    return out
+
+
+def convdiff_device_solves(dev, tag, results):
+    """Phase 33 (d): the non-normal eigs f64 through K3 under
+    projected="device", with IRAM restarts, then with a custom selector
+    through the device Schur restart (the Schur kernel, the ordschur kernel
+    and the restart's small ops), each beside the same solve on the host
+    path; the custom solve's reorder timed by its span
+    (krylov_schur.ordschur_device, device work included), then the same
+    solve with the plain reorder on the card (host reads each swap)."""
+    out = {}
+    c = lt.timer.get_counter
+    dev_opts = dict(projected="device")
     cd = lt.ConvectionDiffusion2D(64)
     A = cd.dense().numpy()
     op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
     x14 = seeded((64 * 64,), torch.float64, dev, seed=14)
+    span = lt.timer.global_watch.add_timer("krylov_schur.ordschur_device", "BaseKrylov")
 
     def true_res(w, V):
         Vh = V.cpu().numpy()
         return max(float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
                    for i in range(len(w)))
 
-    for label, select in (("iram", None),
-                          ("custom", lambda v: np.abs(v) > np.median(np.abs(v)))):
-        lt.bell_spmv.LAUNCHES = 0
+    def convdiff_solve(select, **opts):
+        t0 = time.perf_counter()
+        w, V, r, info, meta = lt.eigs(op_b, 6, x0=x14, kdim=30, tolerance=1e-10, select=select,
+                                      options=lt.EigsOptions(maxiter=100, **opts))
+        torch.cuda.synchronize()
+        return w, V, info, meta, time.perf_counter() - t0
+
+    median_select = lambda v: np.abs(v) > np.median(np.abs(v))  # noqa: E731
+    for label, select in (("iram", None), ("custom", median_select)):
+        lt.bell_spmv.LAUNCHES = hess_ops.ordschur.LAUNCHES = 0
         hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
         hess_ops.ritz_check.LAUNCHES = 0
         lt.timer.reset_counters()
-        t0 = time.perf_counter()
-        w, V, r, info, meta = lt.eigs(op_b, 6, x0=x14, kdim=30, tolerance=1e-10, select=select,
-                                      options=lt.EigsOptions(maxiter=100, **dev_opts))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        span0 = (span.etime, span.count)
+        lt.timer.set_timing(select is not None)
+        try:
+            w, V, info, meta, secs = convdiff_solve(select, **dev_opts)
+        finally:
+            lt.timer.set_timing(False)
         res = true_res(w, V)
         restarts = {k_: c(f"restarts.eigs.{k_}") for k_ in ("iram", "schur_device", "host")}
         row = dict(info=info, matvecs=meta.n_iter, bell_spmv=lt.bell_spmv.LAUNCHES,
                    hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
                    francis_filter_sweeps=hess_ops.francis_filter_sweeps.LAUNCHES,
-                   ritz_check=hess_ops.ritz_check.LAUNCHES, restarts=restarts,
-                   ordschur_reads=c("ordschur_reads"), checks=c("ritz_checks"),
+                   ritz_check=hess_ops.ritz_check.LAUNCHES, ordschur=hess_ops.ordschur.LAUNCHES,
+                   restarts=restarts, ordschur_reads=c("ordschur_reads"),
+                   host_reads=c("host_reads"), checks=c("ritz_checks"),
                    max_true_residual=res, seconds=secs)
+        if select is not None:
+            row["reorder_span_s"] = span.etime - span0[0]
+            row["reorder_spans"] = span.count - span0[1]
+        _, _, hinfo, hmeta, hsecs = convdiff_solve(select)
+        row.update(host_path_seconds=hsecs, host_path_info=hinfo, host_path_matvecs=hmeta.n_iter)
         out[f"convdiff_{label}"] = row
+        share = (f", the reorder's span {row['reorder_span_s']:.3f} s in {row['reorder_spans']} "
+                 f"restarts ({row['reorder_span_s'] / secs:.1%} of the solve, timing on)"
+                 if select is not None else "")
         print(f"{tag} eigs f64 ConvectionDiffusion2D(64) through Block-ELL, device, {label}: "
               f"info={info}, {meta.n_iter} matvecs (phase 16: "
               f"{results['eigs_nonnormal']['matvecs']}), {row['bell_spmv']} bell_spmv, restarts "
-              f"{restarts}, {row['ordschur_reads']} ordschur host reads, {row['checks']} checks, "
-              f"launches hessenberg_schur {row['hessenberg_schur']} francis_filter_sweeps "
-              f"{row['francis_filter_sweeps']} ritz_check {row['ritz_check']}, max true "
-              f"residual / |lambda_1| "
-              f"{res / abs(w[0]):.3e}, {secs:.2f} s")
+              f"{restarts}, {row['ordschur_reads']} ordschur host reads, {row['host_reads']} host "
+              f"reads, {row['checks']} checks, launches hessenberg_schur {row['hessenberg_schur']} "
+              f"francis_filter_sweeps {row['francis_filter_sweeps']} ritz_check "
+              f"{row['ritz_check']} ordschur {row['ordschur']}, max true residual / |lambda_1| "
+              f"{res / abs(w[0]):.3e}, {secs:.2f} s{share}; the host path's solve (info={hinfo}, "
+              f"{hmeta.n_iter} matvecs) {hsecs:.2f} s")
         check(info == 6 and res <= 1e-8 * abs(w[0]), f"convdiff device {label}: {row}")
         check(row["bell_spmv"] >= meta.n_iter, f"convdiff device {label}: bell_spmv launches")
         check(restarts["iram" if select is None else "schur_device"] > 0,
               f"convdiff device {label}: restarts {restarts}")
+        check(row["ordschur_reads"] == 0, f"convdiff device {label}: ordschur host reads {row}")
+        check(row["ordschur"] == restarts["schur_device"],
+              f"convdiff device {label}: {row['ordschur']} ordschur launches for "
+              f"{restarts['schur_device']} device Schur restarts")
+    # the custom solve with the plain reorder on the card, its span beside
+    kernel_ordschur = hess_ops.ordschur
+    hess_ops.ordschur = hess_ops.ordschur_reference
+    lt.timer.reset_counters()
+    span0 = (span.etime, span.count)
+    lt.timer.set_timing(True)
+    try:
+        w, V, info, meta, secs = convdiff_solve(median_select, **dev_opts)
+    finally:
+        lt.timer.set_timing(False)
+        hess_ops.ordschur = kernel_ordschur
+    res = true_res(w, V)
+    row = dict(info=info, matvecs=meta.n_iter, seconds=secs, max_true_residual=res,
+               ordschur_reads=c("ordschur_reads"), reorder_span_s=span.etime - span0[0],
+               reorder_spans=span.count - span0[1])
+    out["convdiff_custom_plain_reorder"] = row
+    print(f"{tag} the same custom solve with the plain reorder on the card: info={info}, "
+          f"{meta.n_iter} matvecs, {row['ordschur_reads']} ordschur host reads, {secs:.2f} s, "
+          f"the reorder's span {row['reorder_span_s']:.3f} s in {row['reorder_spans']} restarts "
+          f"({row['reorder_span_s'] / secs:.1%} of the solve)")
+    check(info == 6 and res <= 1e-8 * abs(w[0]), f"convdiff device, plain reorder: {row}")
     return out
 
 
@@ -3251,6 +3468,7 @@ def main():
     results["hess_lagging_warp"] = lagging_warp_check(dev, tag, results["lag_build_s"])
     results["device_path"] = device_projected_path(dev, tag, results)
     results["hess_times"] = hessenberg_times(dev, tag)
+    results["ordschur_times"] = ordschur_times(dev, tag)
     print(f"phase 33: {time.perf_counter() - t33:.1f} s")
 
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
@@ -3427,6 +3645,34 @@ def main():
             k: r[k] for k in ("max_abs_err", "max_overlap_err", "max_eig_resid",
                               "max_eig_resid_vs_plain", "max_res_err", "n_conv")}
             for r in hk["ritz"]},
+    })
+    ot = results["ordschur_times"]
+    ordschur_main = [r for r in hk["ordschur"] if r["case"] == "arnoldi30_random"
+                     and r["dtype"] == "torch.float64"][0]
+    kernels["kernels"].append({
+        "name": "ordschur",
+        "route": "cuda",
+        "source": "lightkrylov_tpu_torch/csrc/ordschur.cu",
+        "replaces": ORDSCHUR_REPLACES[0],
+        "also_replaces": ORDSCHUR_REPLACES[1],
+        "launches": dp["convdiff_custom"]["ordschur"],
+        "path_launches": {"convdiff_device_custom": dp["convdiff_custom"]["ordschur"],
+                          "convdiff_device_iram": dp["convdiff_iram"]["ordschur"],
+                          "gl512_device": 0},
+        "max_abs_err": ordschur_main["max_abs_err"],
+        "main_case": "kdim 30 f64, a random mask (the convdiff device solves' shape)",
+        "ms": ot[ORDSCHUR_MAIN]["ms"],
+        "plain_ms": ot[ORDSCHUR_MAIN]["plain_ms"],
+        "bound_ms": ot[ORDSCHUR_MAIN]["bound_ms"],
+        "bound_by": ot[ORDSCHUR_MAIN]["bound_by"],
+        "library_ms": None,
+        "host_path_ms": ot[ORDSCHUR_MAIN]["host_path_ms"],
+        "by_case": ot,
+        "solves": {k: dp[k] for k in ("convdiff_iram", "convdiff_custom",
+                                      "convdiff_custom_plain_reorder")},
+        "gates": {f"{r['case']}_{r['dtype'][6:]}": {
+            k: r[k] for k in ("ok", "swaps", "max_abs_err", "t_err", "z_err", "factorization")}
+            for r in hk["ordschur"]},
     })
     print(json.dumps(kernels))
     print(gpu)

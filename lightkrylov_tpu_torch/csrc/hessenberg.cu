@@ -59,11 +59,15 @@
 // the LAPACK dlahqr-style deflation test with the zero-neighbour safeguard,
 // the Wilkinson and exceptional shifts, the closing Givens rotation, the
 // annihilated bulge entries set to exactly zero, the block split and the
-// eigenvalues.  One departure from the JAX code, in both: a reflector's or
+// eigenvalues.  Two departures from the JAX code, in both: a reflector's or
 // a rotation's vector too small to square (its sum of squares below
 // (sqrt(tiny) / eps)^2) is scaled by an exact power of two first
-// (pow2_exp), which leaves every other vector's arithmetic as it was.  Scalar formulas round each operation as numpy
-// does, and the small products of the chase, the closing rotation and the
+// (pow2_exp), which leaves every other vector's arithmetic as it was; and an
+// active block whose largest entry lies outside [sqrt(tiny) / eps,
+// eps / sqrt(tiny)] is scaled into [0.5, 1) by a power of two first, T and
+// the eigenvalues unscaled after (range_exp, LAPACK xGEEV's prescale), which
+// changes nothing inside the range.  Scalar formulas round each operation
+// as numpy does, and the small products of the chase, the closing rotation and the
 // split are the plain version's ordered sums (utils/hessenberg.py
 // _ordered_rows: sum3 and sum2 below), so on a Hessenberg input the kernel
 // takes the same sweeps and chase steps as the plain version (chip_smoke.py
@@ -101,6 +105,22 @@ template <> __device__ __forceinline__ double small_of<double>() { return 0x1p-4
 template <typename T> __device__ __forceinline__ T small2_of();
 template <> __device__ __forceinline__ float small2_of<float>() { return 0x1p-80f; }
 template <> __device__ __forceinline__ double small2_of<double>() { return 0x1p-918; }
+
+template <typename T> __device__ __forceinline__ T big_of();
+template <> __device__ __forceinline__ float big_of<float>() { return 0x1p40f; }
+template <> __device__ __forceinline__ double big_of<double>() { return 0x1p459; }
+
+// The exponent e that the active block is scaled by, 2^-e, before the Schur
+// core (LAPACK xGEEV's prescale): that of anrm = max |H_act| when anrm lies
+// outside [small_of, big_of], which brings it into [0.5, 1); else 0, and
+// nothing changes.  Below the range the reduction's products u (u^T H),
+// cubic in the scale, fall into the subnormals (float32: from 2^-42); above
+// it they overflow (utils/hessenberg.py _range_exponent).
+template <typename T> __device__ __forceinline__ int range_exp(T m) {
+  int e = 0;
+  if (m > T(0) && (m < small_of<T>() || m > big_of<T>()) && isfinite(m)) frexp(m, &e);
+  return e;
+}
 
 // The exponent e that a vector is scaled by, 2^-e: that of max |v| when it
 // lies in (0, small_of), else 0.  The scale is exact, and a reflector or a
@@ -447,14 +467,17 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
   const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
   const int k = static_cast<int>(int_arg(keff_ptr, keff_bytes, keff_val));
 
-  // _embed: zero the inactive block, plant the dummy diagonal
+  // the range prescale, then _embed: zero the inactive block, plant the
+  // dummy diagonal
   T m = T(0);
   for (int i = warp; i < k && i < n; i += nw)
     for (int j = lane; j < k && j < n; j += 32) m = maxnan(m, fabs(Hin[i * n + j]));
-  const T norm = radd(block_max(m, red), T(1));
+  const T anrm = block_max(m, red);
+  const int e = range_exp(anrm);
+  const T norm = radd(ldexp(anrm, -e), T(1));
   for (int i = warp; i < n; i += nw)
     for (int j = lane; j < n; j += 32) {
-      T val = (i < k && j < k) ? Hin[i * n + j] : T(0);
+      T val = (i < k && j < k) ? ldexp(Hin[i * n + j], -e) : T(0);
       if (i == j && i >= k) val = rmul(norm, radd(T(2), T(i) / T(n)));
       H[i * ldh + j] = val;
       if (Z) Z[i * ldz + j] = i == j ? T(1) : T(0);
@@ -694,9 +717,15 @@ schur_kernel(const T* __restrict__ Hin, T* Tout, T* Zout, T* wr, T* wi, bool* ac
       wri = T(0);
       wii = T(0);
     }
-    wr[i] = wri;
-    wi[i] = wii;
+    wr[i] = ldexp(wri, e);
+    wi[i] = ldexp(wii, e);
     if (i + 1 < n) acc_out[i] = acc[i] != 0;
+  }
+  if (e) {  // T unscaled; Z is as it is
+    __syncthreads();
+    for (int i = warp; i < n; i += nw)
+      for (int j = lane; j < n; j += 32) H[i * ldh + j] = ldexp(H[i * ldh + j], e);
+    __syncthreads();
   }
   if constexpr (HS) copy_out(H, ldh, Tout, n, false);
   if (Z) {

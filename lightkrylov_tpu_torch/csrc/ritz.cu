@@ -93,6 +93,23 @@ template <typename T> __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
+// The exponent e that the active block and the eigenvalues are scaled by,
+// 2^-e, before the solve: that of anrm = max |H_act| when anrm lies outside
+// [sqrt(tiny) / eps, eps / sqrt(tiny)] (2^-40 and 2^40 in float32, 2^-459
+// and 2^459 in float64), which brings it into [0.5, 1); else 0, and nothing
+// changes (csrc/hessenberg.cu range_exp, utils/hessenberg.py
+// _range_exponent).  The vectors do not depend on it; the residuals are
+// taken with the unscaled coupling.
+template <typename T> __device__ __forceinline__ T small_of();
+template <> __device__ __forceinline__ float small_of<float>() { return 0x1p-40f; }
+template <> __device__ __forceinline__ double small_of<double>() { return 0x1p-459; }
+
+template <typename T> __device__ __forceinline__ int range_exp(T m) {
+  int e = 0;
+  if (m > T(0) && (m < small_of<T>() || m > T(1) / small_of<T>()) && isfinite(m)) frexp(m, &e);
+  return e;
+}
+
 // an integer argument: read from device memory (bytes 8, 4 or 1) or given
 __device__ __forceinline__ long long int_arg(const void* p, int bytes, long long val) {
   if (bytes == 8) return *static_cast<const long long*>(p);
@@ -181,9 +198,17 @@ ritz_kernel(const T* __restrict__ H, const T* __restrict__ wr, const T* __restri
       m = maxnan(m, fabs(v));
       if (c < r && v != T(0)) atomicMin(f + r, c);
     }
+  // the range prescale of the block and the eigenvalues (range_exp)
+  m = warp_max(m);
+  const int re = range_exp(m);
+  if (re) {
+    __syncwarp();
+    for (int r = 0; r < k; ++r)
+      for (int c = lane; c < k; c += 32) Wr[r * ld + c] = ldexp(Wr[r * ld + c], -re);
+    m = ldexp(m, -re);
+  }
   // eps3 = eps (max |Hm| + 1) over the embedded matrix, whose dummy
   // diagonal (max |H_act| + 1)(2 + i / n) lies above the active block
-  m = warp_max(m);
   const T norm = radd(m, T(1));
   T mx = m;
   for (int i = k + lane; i < n; i += 32) mx = maxnan(mx, rmul(norm, radd(T(2), T(i) / T(n))));
@@ -192,12 +217,12 @@ ritz_kernel(const T* __restrict__ H, const T* __restrict__ wr, const T* __restri
   const T sep = rmul(T(4), eps3);
 
   // this slot's shift: wr + sep for each earlier slot within sep (dhsein)
-  const T wrs = wr[s], wis = wi[s];
+  const T wrs = ldexp(wr[s], -re), wis = ldexp(wi[s], -re);
   int cnt = 0;
   for (int i0 = 0; i0 < s; i0 += 32) {
     const int i = i0 + lane;
-    const bool close =
-        i < s && radd(fabs(rsub(wr[i], wrs)), fabs(rsub(wi[i], wis))) <= sep;
+    const bool close = i < s && radd(fabs(rsub(ldexp(wr[i], -re), wrs)),
+                                     fabs(rsub(ldexp(wi[i], -re), wis))) <= sep;
     cnt += __popc(__ballot_sync(FULL, close));
   }
   const T wrp = radd(wrs, rmul(T(cnt), sep));
@@ -370,7 +395,8 @@ ritz_kernel(const T* __restrict__ H, const T* __restrict__ wr, const T* __restri
     col = 0;
     for (int i0 = 0; i0 < n; i0 += 32) {
       const int i = i0 + lane;
-      const bool before = i < n && key_before(sort_key(wr[i], wi[i]), i, key, s);
+      const bool before =
+          i < n && key_before(sort_key(ldexp(wr[i], -re), ldexp(wi[i], -re)), i, key, s);
       col += __popc(__ballot_sync(FULL, before));
     }
   }
@@ -384,8 +410,8 @@ ritz_kernel(const T* __restrict__ H, const T* __restrict__ wr, const T* __restri
     Vi[static_cast<size_t>(r) * n + col] = vi;
   }
   if (ritz && lane == 0) {
-    wr_out[col] = wrs;
-    wi_out[col] = wis;
+    wr_out[col] = wr[s];
+    wi_out[col] = wi[s];
     res_out[col] = res;
     if (col < nev && isfinite(res) && res < static_cast<T>(tol)) atomicAdd(n_conv, 1);
   }

@@ -253,7 +253,8 @@ def krylov_schur_device(X, H, sel_wr, sel_wi, sel_mask, p: int = 1, k_eff=None):
     sel = torch.as_tensor(sel_mask, device=dev).to(torch.bool)[torch.argmin(d, dim=1)]
     if p > 1:
         sel = sel & (idx < ke)  # inactive (embedded identity) positions
-    T, Zs, sel, ok2 = ordschur_device(T, Zs, sel)
+    with timed("krylov_schur.ordschur_device", "BaseKrylov", device=True):
+        T, Zs, sel, ok2 = ordschur_device(T, Zs, sel)
     n = torch.sum(sel).long()
     one, two = torch.ones_like(n), torch.full_like(n, 2)
     n = torch.where(n < 1, torch.where(T[1, 0] != 0, two, one), n)

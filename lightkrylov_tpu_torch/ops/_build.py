@@ -11,9 +11,10 @@ raises :class:`KernelCompileError`; nothing falls back to another path.
 
 :func:`load_lagging` builds and loads, beside it and through a handle of its
 own, the same sources with ``-DLK_LAG_WARP=1``: the Francis-QR kernels of
-``csrc/hessenberg.cu`` with one warp made to lag in every stretch between
-two barriers, whose outputs the tests hold bit-equal to the shipping
-kernels' (a check for ordering hazards between warps).
+``csrc/hessenberg.cu`` and the reordering of ``csrc/ordschur.cu`` with one
+warp made to lag in every stretch between two barriers, whose outputs the
+tests hold bit-equal to the shipping kernels' (a check for ordering hazards
+between warps).
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "
            "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil.cu", _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "probes.cu",
-           _PKG / "csrc" / "hessenberg.cu", _PKG / "csrc" / "ritz.cu")
+SOURCES = tuple(_PKG / "csrc" / f"{name}.cu"
+                for name in ("stencil", "spmv", "probes", "hessenberg", "ritz", "ordschur"))
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -203,6 +204,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
                                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for name in ("lk_ordschur_f32", "lk_ordschur_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.lk_error_string.argtypes = [ctypes.c_int]
     lib.lk_error_string.restype = ctypes.c_char_p

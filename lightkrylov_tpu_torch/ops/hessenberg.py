@@ -22,10 +22,14 @@ chip:
   modulus-descending order and the converged count: ``hessenberg_eigvecs``
   and ``hessenberg_ritz`` of the JAX module after its eigenvalues, the
   realified ``2n x 2n`` systems solved as the complex ``n x n`` ones they
-  are; :func:`inverse_iteration` is the same kernel's vectors alone.
+  are; :func:`inverse_iteration` is the same kernel's vectors alone;
+- :func:`ordschur` (``csrc/ordschur.cu``) reorders a real Schur form so that
+  flagged positions lead, by adjacent block swaps: ``ordschur_device`` and
+  its ``_ordschur_core`` of the JAX module, the loop on the card.
 
-:func:`geometry` decides each launch's layout in Python (warps, whether
-``H`` and ``Z`` fit in shared memory, the bytes), so that the CPU tests can
+:func:`geometry` (and :func:`ordschur_geometry`, :func:`ritz_geometry`)
+decides each launch's layout in Python (warps, whether ``H`` and ``Z`` fit
+in shared memory, the bytes), so that the CPU tests can
 hold it against the card's limit; the C entries check it and refuse what
 does not fit.
 
@@ -34,12 +38,13 @@ For a CUDA tensor a wrapper launches its kernel or raises: a failed build
 tensor is an error, never a quiet switch to another path.  For a CPU tensor
 it runs the plain version (:func:`hessenberg_schur_reference`,
 :func:`francis_filter_sweeps_reference`, :func:`ritz_check_reference`,
-:func:`inverse_iteration_reference`), built from the pieces of
-:mod:`..utils.hessenberg`.  Each wrapper counts its launches in its
-``LAUNCHES`` attribute.  :func:`launch_schur`, :func:`launch_filter` and
-:func:`launch_ritz` are the launches themselves, from a library that the
-caller names (the shipping build, or the lagging-warp build of
-:func:`._build.load_lagging` that the tests hold to it), and count nothing.
+:func:`inverse_iteration_reference`, :func:`ordschur_reference`), built from
+the pieces of :mod:`..utils.hessenberg`.  Each wrapper counts its launches
+in its ``LAUNCHES`` attribute.  :func:`launch_schur`, :func:`launch_filter`,
+:func:`launch_ritz` and :func:`launch_ordschur` are the launches themselves,
+from a library that the caller names (the shipping build, or the
+lagging-warp build of :func:`._build.load_lagging` that the tests hold to
+it), and count nothing.
 """
 
 from __future__ import annotations
@@ -53,8 +58,9 @@ from . import _build
 
 __all__ = ["Geometry", "RitzGeometry", "francis_filter_sweeps", "francis_filter_sweeps_reference",
            "geometry", "hessenberg_schur", "hessenberg_schur_reference", "inverse_iteration",
-           "inverse_iteration_reference", "launch_filter", "launch_ritz", "launch_schur",
-           "ritz_check", "ritz_check_reference", "ritz_geometry"]
+           "inverse_iteration_reference", "launch_filter", "launch_ordschur", "launch_ritz",
+           "launch_schur", "ordschur", "ordschur_geometry", "ordschur_reference", "ritz_check",
+           "ritz_check_reference", "ritz_geometry"]
 
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -79,6 +85,11 @@ def ritz_check_reference(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
 def inverse_iteration_reference(H, wr, wi, k_eff=None):
     """Plain PyTorch version of :func:`inverse_iteration`."""
     return _plain._inverse_iteration_plain(H, wr, wi, H.shape[0] if k_eff is None else k_eff)
+
+
+def ordschur_reference(T, Z, sel):
+    """Plain PyTorch version of :func:`ordschur`, on ``T``'s device."""
+    return _plain._ordschur_plain(T, Z, sel)
 
 
 #: Shared memory a CTA may take on the H100 (sm_90), and the part the
@@ -124,6 +135,22 @@ class RitzGeometry(NamedTuple):
 
     w_smem: bool
     smem_bytes: int
+
+
+def ordschur_geometry(n: int, nz: int, itemsize: int) -> Geometry:
+    """The ordschur kernel's layout for an ``n x n`` ``T`` and an ``nz x n``
+    ``Z``: :func:`geometry`'s warps (a thread a column of ``T``'s rows and a
+    row of ``T``'s and ``Z``'s columns), ``T`` in shared memory when it fits
+    (rows of odd stride ``n | 1``), ``Z`` too when both do; ``h_smem`` is
+    ``T``'s place.  With ``nz = n``: ``Z`` leaves shared memory at ``n = 120``
+    in f64 and 170 in f32, ``T`` at 170 and 241."""
+    ld = n | 1
+    t, z = n * ld * itemsize, nz * ld * itemsize
+    budget = SMEM_LIMIT - SMEM_RESERVED
+    t_smem = t <= budget
+    z_smem = t_smem and t + z <= budget
+    warps = min(MAX_WARPS, max(1, -(-n // 32)))
+    return Geometry(warps, t_smem, z_smem, t * int(t_smem) + z * int(z_smem))
 
 
 def ritz_geometry(n: int, itemsize: int) -> RitzGeometry:
@@ -358,7 +385,54 @@ def launch_ritz(load, H, wr, wi, k_eff=None, ok=True, tol=None, nev=None, p: int
     return (wr_o, wi_o, res, Vr, Vi, n_conv) if ritz else (Vr, Vi)
 
 
+def ordschur(T, Z, sel):
+    """Reorder the real Schur form ``(T, Z)`` so that the positions flagged
+    in ``sel`` lead -> ``(T', Z', sel', ok, swaps)``: the mask made
+    pair-consistent first, then the bubble sort of adjacent block swaps
+    (:func:`..utils.hessenberg._ordschur_plain`) until the flagged blocks
+    lead (``ok`` True), a swap is rejected (``ok`` False, the form partially
+    reordered) or ``n^2 + 4`` passes are spent; ``swaps`` (0-d int32) the
+    swaps applied.  ``T`` is ``n x n``, ``Z`` ``nz x n`` of ``T``'s dtype,
+    ``sel`` ``n`` flags (bool, or any dtype, cast) on ``T``'s device.  On a
+    CUDA tensor one launch, and nothing else when ``sel`` is bool and the
+    tensors contiguous."""
+    if T.device.type == "cpu":
+        return ordschur_reference(T, Z, sel)
+    out = launch_ordschur(_build.load, T, Z, sel)
+    ordschur.LAUNCHES += 1
+    return out
+
+
+def launch_ordschur(load, T, Z, sel):
+    """The launch of :func:`ordschur` on the CUDA tensor ``T`` from the
+    library that ``load()`` returns; not counted in ``LAUNCHES``."""
+    _check(T, "ordschur")
+    n = T.shape[0]
+    dev = T.device
+    if Z.device != dev or Z.dtype != T.dtype or Z.ndim != 2 or Z.shape[1] != n:
+        raise ValueError(f"ordschur kernel: Z must be (nz, {n}) of {T.dtype} on {dev}, got "
+                         f"{tuple(Z.shape)} of {Z.dtype} on {Z.device}")
+    if sel.device != dev or sel.shape != (n,):
+        raise ValueError(f"ordschur kernel: sel must have shape ({n},) on {dev}, got "
+                         f"{tuple(sel.shape)} on {sel.device}")
+    T, Z = T.contiguous(), Z.contiguous()
+    sel = sel.to(torch.bool).contiguous()
+    geo = ordschur_geometry(n, Z.shape[0], T.element_size())
+    To, Zo = torch.empty_like(T), torch.empty_like(Z)
+    sel_o = torch.empty_like(sel)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    swaps = torch.empty((), dtype=torch.int32, device=dev)
+    lib = load()
+    err = getattr(lib, f"lk_ordschur_{_NAMES[T.dtype]}")(
+        T.data_ptr(), Z.data_ptr(), sel.data_ptr(), To.data_ptr(), Zo.data_ptr(),
+        sel_o.data_ptr(), ok.data_ptr(), swaps.data_ptr(), n, Z.shape[0], geo.warps,
+        int(geo.h_smem), int(geo.z_smem), geo.smem_bytes, _stream(dev))
+    _raise_on(err, lib, "ordschur")
+    return To, Zo, sel_o, ok, swaps
+
+
 hessenberg_schur.LAUNCHES = 0
 francis_filter_sweeps.LAUNCHES = 0
 ritz_check.LAUNCHES = 0
 inverse_iteration.LAUNCHES = 0
+ordschur.LAUNCHES = 0

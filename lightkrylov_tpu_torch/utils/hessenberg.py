@@ -29,11 +29,12 @@ zeroing the rest and planting separated dummy diagonal entries
 
 The Schur core (embedding, Householder reduction to Hessenberg form, the
 Francis sweeps, the block split, the eigenvalue extraction), the filter's
-sweeps, and the inverse iteration with the check's residuals, order and
-count run through :mod:`..ops.hessenberg`: on a CUDA tensor one launch of
-the hand-written kernels of ``csrc/hessenberg.cu`` and ``csrc/ritz.cu``
-each, on a CPU tensor the plain versions below, whose data-dependent loops are Python loops reading
-the few scalars they branch on.  The arithmetic follows the JAX package's
+sweeps, the inverse iteration with the check's residuals, order and count,
+and the Schur reordering run through :mod:`..ops.hessenberg`: on a CUDA
+tensor one launch of the hand-written kernels of ``csrc/hessenberg.cu``,
+``csrc/ritz.cu`` and ``csrc/ordschur.cu`` each, on a CPU tensor the plain
+versions below, whose data-dependent loops are Python loops reading the few
+scalars they branch on.  The arithmetic follows the JAX package's
 order: each chase step applies its 3-row and 3-column updates over the full
 slices and sets the annihilated bulge entries to exactly zero.  The small
 products of a chase, its closing rotation and the pair split are written as
@@ -43,12 +44,21 @@ column (``u @ H``, ``H @ u``) keep the library's order.  Square roots are
 numpy's (:func:`_sqrt`), correctly rounded, so the plain versions round
 alike on every device.  The inverse iteration's elimination and back
 substitution are written the same way (:func:`_cmul`, :func:`_recip`), and
-``csrc/ritz.cu`` repeats them.  A check on the card is the Schur kernel,
-one fill of the converged count and the Ritz kernel: three launches and no
-host read.  What stays plain torch on the device: the shift bookkeeping
-of the filter, its stable sorts, and :func:`ordschur_device`, which reads
-one packed vector to the host a block swap (counted by
-:func:`..utils.timer.host_read`).
+``csrc/ritz.cu`` repeats them; so are a reorder's swaps (its solve, QR and
+updates; :func:`_swap_plain`), which ``csrc/ordschur.cu`` repeats.  A check
+on the card is the Schur kernel, one fill of the converged count and the
+Ritz kernel: three launches and no host read; a device Krylov-Schur
+restart's Schur form and reordering are two launches and no host read.
+What stays plain torch on the device: the shift bookkeeping of the filter
+and its stable sorts.
+
+Two departures from the JAX package, in the plain versions and the
+kernels alike: a reflector's or rotation's vector too small to square is
+scaled by a power of two first (:func:`_pow2_scaled`, ROADMAP F10), and a
+block whose largest entry lies outside ``[sqrt(tiny) / eps, eps /
+sqrt(tiny)]`` is scaled into ``[0.5, 1)`` before the Schur core and the
+inverse iteration (:func:`_range_exponent`, LAPACK ``xGEEV``'s prescale,
+ROADMAP F12).  Neither changes a bit inside its range.
 
 Real dtypes only, as in the JAX package: a complex input raises
 ``TypeError`` (complex projected problems take the host path).
@@ -470,7 +480,9 @@ def _inverse_iteration_plain(H, wr, wi, k_eff):
     """The plain version of the inverse iteration of ``csrc/ritz.cu``, batched
     over the slots: for slot ``j`` the complex system
     ``(Hm - sigma_j I) z = b[:n] + i b[n:]`` with
-    ``sigma_j = (wr'_j - eps3) + i wi_j`` (:func:`_shifts`), which is the
+    ``sigma_j = (wr'_j - eps3) + i wi_j`` (:func:`_shifts`; the block and the
+    eigenvalues prescaled as the Schur core's, :func:`_range_exponent`, so
+    that the ridge ``eps3`` is relative to the block), which is the
     JAX package's realified ``[[A, wi I], [-wi I, A]] + eps3 I`` with
     ``A = Hm - wr'_j I``.  LU with partial pivoting (the largest
     ``|re| + |im|``, ties to the lower position; an exact zero pivot becomes
@@ -483,7 +495,9 @@ def _inverse_iteration_plain(H, wr, wi, k_eff):
     zero."""
     n = H.shape[0]
     dt, dev = H.dtype, H.device
-    Hm, active = _embed(H, k_eff)
+    e = _range_exponent(H, k_eff)
+    Hm, active = _embed(_ldexp(H, -e), k_eff)
+    wr, wi = _ldexp(wr, -e), _ldexp(wi, -e)
     eps3, _, wrp = _shifts(Hm, wr, wi)
     zero = torch.zeros((), dtype=dt, device=dev)
     slots = torch.arange(n, device=dev)
@@ -561,7 +575,9 @@ def _ritz_plain(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
     ``(wr, wi, ok)``, their residuals (``+inf`` unless the slot is active and
     ``ok``), the stable modulus-descending order and the converged count
     among the leading ``nev``.  Returns ``(wr, wi, res, Vr, Vi, n_conv)``
-    in that order."""
+    in that order; the order is taken on the prescaled eigenvalues
+    (:func:`_range_exponent`), whose squares neither underflow nor
+    overflow."""
     kdim = H_ext.shape[1]
     dev, dt = H_ext.device, H_ext.dtype
     k_t = torch.clamp(torch.as_tensor(k_eff, device=dev).long().reshape(()), 0, kdim)
@@ -582,21 +598,55 @@ def _ritz_plain(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
         Br, Bi = B @ Vr.index_select(0, cols), B @ Vi.index_select(0, cols)
         res = _sqrt(torch.sum(Br * Br + Bi * Bi, dim=0))
     res = torch.where(live, res, inf)
-    order = _stable_argsort(-(wr * wr + wi * wi))
+    e = _range_exponent(H_ext[:kdim, :kdim], k_t)
+    wrs, wis = _ldexp(wr, -e), _ldexp(wi, -e)
+    order = _stable_argsort(-(wrs * wrs + wis * wis))
     res = res[order]
     lead = idx < (kdim if nev is None else nev)
     n_conv = torch.sum(lead & torch.isfinite(res) & (res < tol)).to(torch.int32)
     return wr[order], wi[order], res, Vr[:, order], Vi[:, order], n_conv
 
 
+def _range_exponent(H, k_eff):
+    """The exponent ``e`` that the active ``k_eff x k_eff`` block of ``H`` is
+    scaled by, ``2^-e``, before the Schur core (LAPACK ``xGEEV``'s
+    prescale): that of ``anrm = max |H_act|`` when ``anrm`` lies outside
+    ``[sqrt(tiny) / eps, eps / sqrt(tiny)]`` of the dtype (``[2^-40, 2^40]``
+    in float32, ``[2^-459, 2^459]`` in float64), so that the block's largest
+    entry lands in ``[0.5, 1)``; else 0, and nothing changes.  Below the
+    range the Householder reduction's rank-one products ``u (u^T H)``, cubic
+    in the scale, fall into the subnormals (float32: from ``2^-42``) and lose
+    digits; above it they overflow.  ``csrc/hessenberg.cu`` and
+    ``csrc/ritz.cu`` (``range_exp``) compute the same."""
+    active = torch.arange(H.shape[0], device=H.device) < k_eff
+    blk = torch.where(active[:, None] & active[None, :], torch.abs(H),
+                      torch.zeros((), dtype=H.dtype, device=H.device))
+    m = _np(torch.max(blk))[()]
+    fi = np.finfo(m.dtype)
+    small = np.sqrt(fi.tiny) / fi.eps
+    if not (np.isfinite(m) and m > 0 and (m < small or m > 1 / small)):
+        return 0
+    return int(np.frexp(m)[1])
+
+
+def _ldexp(t, e):
+    """``t * 2^e``, exact (by numpy, so that no power of two is rounded in
+    the tensor's dtype)."""
+    if t is None or e == 0:
+        return t
+    return torch.from_numpy(np.ldexp(_np(t), e)).to(t.device)
+
+
 def _schur_plain(H, k_eff, with_z: bool, split: bool):
-    """The plain version of the ``hessenberg_schur`` kernel: embedding,
-    Hessenberg reduction, Francis sweeps, optionally the real-block split,
-    and the eigenvalues.  Returns ``(T, Z, wr, wi, accepted, ok, work)``
-    with ``Z`` None unless ``with_z``; ``ok`` a 0-d bool tensor, ``work``
-    an int32 tensor ``[sweeps, chase steps]``."""
+    """The plain version of the ``hessenberg_schur`` kernel: the range
+    prescale (:func:`_range_exponent`), embedding, Hessenberg reduction,
+    Francis sweeps, optionally the real-block split, and the eigenvalues,
+    then ``T``, ``wr`` and ``wi`` unscaled.  Returns ``(T, Z, wr, wi,
+    accepted, ok, work)`` with ``Z`` None unless ``with_z``; ``ok`` a 0-d
+    bool tensor, ``work`` an int32 tensor ``[sweeps, chase steps]``."""
     n = H.shape[0]
-    Hm, active = _embed(H, k_eff)
+    e = _range_exponent(H, k_eff)
+    Hm, active = _embed(_ldexp(H, -e), k_eff)
     Z = _eye(n, H) if with_z else None
     Hh, Z = _to_hessenberg(Hm, Z)
     T, Z, acc, ok, work = _schur_core(Hh.contiguous(), Z)
@@ -606,7 +656,8 @@ def _schur_plain(H, k_eff, with_z: bool, split: bool):
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
     wr = torch.where(active, wr, zero)
     wi = torch.where(active, wi, zero)
-    return (T, Z, wr, wi, acc, torch.tensor(ok, device=H.device),
+    return (_ldexp(T, e), Z, _ldexp(wr, e), _ldexp(wi, e), acc,
+            torch.tensor(ok, device=H.device),
             torch.tensor(work, dtype=torch.int32, device=H.device))
 
 
@@ -649,130 +700,259 @@ def schur_real(H, k_eff=None):
     return T, Z, wr, wi, ok
 
 
-def _householder_qr_complete(M):
-    """``Q`` of the complete QR of the small ``(m, q)`` matrix ``M`` by
-    Householder reflectors in LAPACK's convention (``dgeqrf``'s ``dlarfg``
-    and ``dorgqr``), in plain tensor operations."""
+def _maxnan(a, b):
+    """``max(a, b)`` that keeps a NaN, as ``torch.max`` and the kernels do."""
+    return b if (b > a or b != b) else a
+
+
+def _solve_pivoted(A, b):
+    """``A x = b`` for the small square ``A`` (numpy, the working dtype) by
+    Gaussian elimination with partial pivoting (the first largest ``|a|``
+    of the column, as LAPACK ``getrf``), then back substitution, each
+    product and sum rounded on its own in the order written here;
+    ``csrc/ordschur.cu`` (``solve_pivoted``) repeats it."""
+    A, b = A.copy(), b.copy()
+    q = len(b)
+    for j in range(q):
+        p = j
+        for r in range(j + 1, q):
+            if abs(A[r, j]) > abs(A[p, j]):
+                p = r
+        if p != j:
+            A[[j, p]] = A[[p, j]]
+            b[[j, p]] = b[[p, j]]
+        for r in range(j + 1, q):
+            l = A[r, j] / A[j, j]
+            for c in range(j + 1, q):
+                A[r, c] = A[r, c] - l * A[j, c]
+            b[r] = b[r] - l * b[j]
+    x = np.zeros_like(b)
+    for r in range(q - 1, -1, -1):
+        acc = b[r]
+        for c in range(r + 1, q):
+            acc = acc - A[r, c] * x[c]
+        x[r] = acc / A[r, r]
+    return x
+
+
+def _householder_q(M):
+    """``Q`` of the complete QR of the small ``(m, q)`` matrix ``M`` (numpy,
+    the working dtype, ``q < m``) by Householder reflectors in LAPACK's
+    convention (``dgeqrf``'s ``dlarfg``: ``beta = -sign(alpha) ||x||``,
+    ``tau = (beta - alpha) / beta``, ``v = [1, x[1:] / (alpha - beta)]``;
+    then ``dorgqr``), each product and sum rounded on its own in the order
+    written here; ``||x||`` is taken on the column scaled by the power of
+    two of its largest entry (exact), so that a large ``X`` (blocks with
+    nearly equal eigenvalues) cannot overflow its squares, as ``dlapy2``
+    guards LAPACK's.  ``csrc/ordschur.cu`` (``householder_q``) repeats it."""
     m, q = M.shape
-    R = M.clone()
-    zero = torch.zeros((), dtype=M.dtype, device=M.device)
-    vs, taus = [], []
-    for j in range(min(q, m - 1)):
-        x = R[j:, j]
-        alpha = x[0]
-        xnorm = torch.linalg.vector_norm(x[1:])
-        h = torch.sqrt(alpha * alpha + xnorm * xnorm)
-        beta = torch.where(alpha >= 0, -h, h)
-        live = xnorm != 0
-        tau = torch.where(live, (beta - alpha) / torch.where(live, beta, torch.ones_like(beta)),
-                          zero)
-        scale = torch.where(live, 1.0 / torch.where(live, alpha - beta, torch.ones_like(beta)),
-                            zero)
-        v = torch.cat([torch.ones(1, dtype=M.dtype, device=M.device), x[1:] * scale])
-        R[j:, j:] = R[j:, j:] - tau * torch.outer(v, v @ R[j:, j:])
-        vs.append(v)
-        taus.append(tau)
-    Q = _eye(m, M)
-    for j in reversed(range(len(vs))):
-        Q[j:, :] = Q[j:, :] - taus[j] * torch.outer(vs[j], vs[j] @ Q[j:, :])
+    dt = M.dtype.type
+    R = M.copy()
+    vs = []
+    for j in range(q):
+        mx = dt(0)
+        for r in range(j, m):
+            mx = _maxnan(mx, abs(R[r, j]))
+        e = int(np.frexp(mx)[1]) if 0 < mx < np.inf else 0
+        ss = dt(0)
+        for r in range(j + 1, m):
+            t = np.ldexp(R[r, j], -e)
+            ss = ss + t * t
+        v = np.zeros(m, M.dtype)
+        v[j] = 1
+        tau = dt(0)
+        if ss != 0:
+            alpha = R[j, j]
+            a = np.ldexp(alpha, -e)
+            h = np.ldexp(np.sqrt(a * a + ss), e)
+            beta = -h if alpha >= 0 else h
+            tau = (beta - alpha) / beta
+            scl = dt(1) / (alpha - beta)
+            for r in range(j + 1, m):
+                v[r] = R[r, j] * scl
+            for c in range(j + 1, q):
+                w = dt(0)
+                for r in range(j, m):
+                    w = w + v[r] * R[r, c]
+                for r in range(j, m):
+                    R[r, c] = R[r, c] - tau * (v[r] * w)
+        vs.append((v, tau))
+    Q = np.eye(m, dtype=M.dtype)
+    for j in range(q - 1, -1, -1):
+        v, tau = vs[j]
+        for c in range(m):
+            w = dt(0)
+            for r in range(j, m):
+                w = w + v[r] * Q[r, c]
+            for r in range(j, m):
+                Q[r, c] = Q[r, c] - tau * (v[r] * w)
     return Q
 
 
-def _swap_q(W, n1: int, n2: int):
-    """Direct-swap orthogonal transform for adjacent diagonal blocks of
-    sizes ``(n1, n2)`` (Bai and Demmel, LAPACK ``dlaexc``): solve
-    ``A11 X - X A22 = -A12``, then ``Q`` from the complete QR of
-    ``[X; I]``; ``Q^T W Q`` has the ``A22`` block leading.  Returns a 4x4
-    matrix, the identity beyond ``n1 + n2``."""
+def _swap_plain(W, n1: int, n2: int, anrm, rej_factor: float = 50.0):
+    """The direct swap of the adjacent diagonal blocks of sizes ``(n1, n2)``
+    leading the window ``W`` (numpy, ``m x m``, ``m = n1 + n2``; Bai and
+    Demmel, LAPACK ``dlaexc``), as the JAX package's ``_swap_q_factory``
+    and its test compute it, in a written order: the Sylvester system of
+    :func:`_sylvester_system` solved by :func:`_solve_pivoted`, ``Q`` from
+    :func:`_householder_q` of ``[X; I]``, then ``Q^T W Q`` as ``(Q^T W) Q``
+    with each entry an ordered sum, and the largest ``|.|`` of its
+    ``(n1, n2)`` lower-left block (the coupling the swap annihilates)
+    against ``rej_factor eps (anrm + 1)``, ``anrm = max |T|``.  Returns
+    ``(Q, resid, bad)``."""
     m = n1 + n2
-    dt = W.dtype
-    eps = torch.finfo(W.dtype).eps
-    A11, A12, A22 = W[:n1, :n1], W[:n1, n1:m], W[n1:m, n1:m]
-    K = (torch.kron(_eye(n2, W), A11) - torch.kron(A22.T.contiguous(), _eye(n1, W)))
-    rhs = -A12.T.reshape(-1)
-    # singular iff the blocks share an eigenvalue: the ridge keeps the
-    # solve finite and the caller's residual test rejects the swap
-    reg = eps * (torch.max(torch.abs(K)) + 1.0)
-    x, _ = torch.linalg.solve_ex(K + reg * _eye(n1 * n2, W), rhs)
-    X = x.reshape(n2, n1).T
-    Mq = torch.cat([X, _eye(n2, W)], dim=0)
-    Qf = torch.eye(4, dtype=dt, device=W.device)
-    Qf[:m, :m] = _householder_qr_complete(Mq)
-    return Qf
+    dt = W.dtype.type
+    eps = np.finfo(W.dtype).eps
+    x = _solve_pivoted(*_sylvester_system(W, n1, n2))
+    M = np.zeros((m, n2), W.dtype)
+    for c in range(n2):
+        for r in range(n1):
+            M[r, c] = x[c * n1 + r]
+        M[n1 + c, c] = 1
+    Q = _householder_q(M)
+    U = np.zeros((m, m), W.dtype)
+    for r in range(m):
+        for c in range(m):
+            acc = Q[0, r] * W[0, c]
+            for a in range(1, m):
+                acc = acc + Q[a, r] * W[a, c]
+            U[r, c] = acc
+    resid = dt(0)
+    for r in range(n2, m):
+        for c in range(n2):
+            acc = U[r, 0] * Q[0, c]
+            for b in range(1, m):
+                acc = acc + U[r, b] * Q[b, c]
+            resid = _maxnan(resid, abs(acc))
+    thr = dt(rej_factor) * eps * (anrm + dt(1))
+    return Q, resid, bool(resid > thr)
 
 
-def _ordschur_core(T, Z, sel, rej_factor: float = 50.0):
-    """Reorder a real Schur form so the ``sel``-flagged diagonal positions
-    lead (LAPACK TRSEN/dtrexc: bubble each selected block up by adjacent
-    orthogonal swaps).  ``sel`` must be pair-consistent and every 2x2 block
-    a conjugate pair.  A swap whose annihilated coupling exceeds
-    ``rej_factor * eps * ||T||`` is not applied and the loop stops
-    (``ok`` False); what was applied is an exact orthogonal similarity.
+def _sylvester_system(W, n1: int, n2: int):
+    """The swap's Sylvester equation ``A11 X - X A22 = -A12`` on the window
+    ``W`` as the ``n1 n2``-square system of the JAX package's
+    ``_swap_q_factory``: ``K = kron(I, A11) - kron(A22^T, I)`` (column-major
+    ``vec``) with the ridge ``eps (max |K| + 1)`` added to its diagonal, and
+    ``-vec(A12)``.  ``K`` is singular iff the blocks share an eigenvalue;
+    the ridge keeps the solve finite and the swap's test rejects what it
+    gives.  Returns ``(K + ridge I, rhs)``."""
+    dt = W.dtype.type
+    eps = np.finfo(W.dtype).eps
+    q = n1 * n2
+    K = np.zeros((q, q), W.dtype)
+    rhs = np.zeros(q, W.dtype)
+    for c in range(n2):
+        for r in range(n1):
+            a = c * n1 + r
+            rhs[a] = -W[r, n1 + c]
+            for c2 in range(n2):
+                for r2 in range(n1):
+                    b = c2 * n1 + r2
+                    if c == c2 and r == r2:
+                        K[a, b] = W[r, r] - W[n1 + c, n1 + c]
+                    elif c == c2:
+                        K[a, b] = W[r, r2]
+                    elif r == r2:
+                        K[a, b] = -W[n1 + c2, n1 + c]
+    kmax = dt(0)
+    for a in range(q):
+        for b in range(q):
+            kmax = _maxnan(kmax, abs(K[a, b]))
+    reg = eps * (kmax + dt(1))
+    for a in range(q):
+        K[a, a] = K[a, a] + reg
+    return K, rhs
 
-    Each pass computes the next swap's position and block sizes on the
-    device and reads them, with the failure flag, in one host read; the
-    swap itself (its tiny Sylvester solve and QR, the test and the masked
-    update) stays on the device."""
+
+def _next_swap(T, sel):
+    """The next swap of the bubble sort on the device: the first block
+    start whose block is unselected with a selected block right below it
+    (``n`` when there is none), and the sizes ``n1``, ``n2`` of the two
+    blocks from the subdiagonal (the JAX package's ``find``)."""
     n = T.shape[0]
-    dev, dt = T.device, T.dtype
-    eps = torch.finfo(T.dtype).eps
-    P = n + 3  # pad so that every 4x4 window stays in range
-    Tp = torch.zeros((P, P), dtype=dt, device=dev)
-    Tp[:n, :n] = T
-    Zp = torch.zeros((Z.shape[0], P), dtype=dt, device=dev)
-    Zp[:, :n] = Z
+    dev = T.device
+    idx = torch.arange(n, device=dev)
+    zero = torch.zeros(1, dtype=T.dtype, device=dev)
+    sub = torch.cat([torch.diagonal(T, -1), zero])
+    prev = torch.cat([zero, sub[:-1]])
+    start = (idx == 0) | (prev == 0)
+    nxt = idx + 1 + (sub != 0).long()
+    cand = start & (nxt < n) & ~sel & sel[torch.clamp(nxt, 0, n - 1)]
+    i = torch.min(torch.where(cand, idx, torch.full_like(idx, n)))
+    ic = torch.clamp(i, 0, n - 1)
+    n1 = 1 + (take_at(sub, ic) != 0).long()
+    n2 = 1 + (take_at(sub, torch.clamp(ic + n1, 0, n - 1)) != 0).long()
+    return i, n1, n2
+
+
+def _pair_consistent(T, sel):
+    """``sel`` with a flag on either position of a 2x2 block of ``T`` set on
+    both (LAPACK's behaviour)."""
+    coupled = torch.diagonal(T, -1) != 0
+    pad = torch.zeros(1, dtype=torch.bool, device=T.device)
+    up = torch.cat([coupled & sel[1:], pad])
+    down = torch.cat([pad, coupled & sel[:-1]])
+    return sel | up | down
+
+
+def _ordschur_plain(T, Z, select_mask, rej_factor: float = 50.0):
+    """The plain version of the ``ordschur`` kernel of ``csrc/ordschur.cu``:
+    reorder a real Schur form so that the flagged diagonal positions lead
+    (LAPACK TRSEN/dtrexc: bubble each selected block up by adjacent
+    orthogonal swaps; the JAX package's ``_ordschur_core``).  The mask is
+    made pair-consistent first; every 2x2 block must be a conjugate pair.  A
+    swap whose annihilated coupling exceeds ``rej_factor eps (max |T| + 1)``
+    is not applied and the loop stops (``ok`` False); what was applied is an
+    exact orthogonal similarity.  The loop ends too after ``n^2 + 4``
+    passes.
+
+    Each pass finds the next swap on ``T``'s device and reads its position
+    and block sizes in one counted host read (``ordschur_reads``); the
+    swap's ``4 x 4`` work (:func:`_swap_plain`) runs on numpy scalars of the
+    window; the accepted swap's ``Q^T`` on rows ``i..i+m-1`` of ``T`` (from
+    column ``i``), ``Q`` on columns ``i..i+m-1`` of ``T`` (rows ``< i + m``)
+    and of ``Z`` (every row), as ordered sums (:func:`_ordered_rows`), the
+    exact zeros below the new block diagonal written after.  The entries
+    the JAX package's full-width updates also touch are exact zeros there
+    (the quasi-triangular form), and its padding to ``n + 3`` only keeps its
+    fixed-shape window in range.  Returns ``(T', Z', sel', ok, swaps)``,
+    ``ok`` a 0-d bool tensor, ``swaps`` the swaps applied (int32)."""
+    n = T.shape[0]
+    dev = T.device
+    T, Z = T.clone(), Z.clone()
+    sel = _pair_consistent(T, torch.as_tensor(select_mask, device=dev).to(torch.bool))
     idx = torch.arange(n, device=dev)
     max_swaps = n * n + 4
-    r4 = torch.arange(4, device=dev)
-
-    def find(Tp, sel):
-        sub = Tp[idx + 1, idx]
-        prev = torch.cat([torch.zeros(1, dtype=dt, device=dev), sub[:-1]])
-        start = (idx == 0) | (prev == 0)
-        nxt = idx + 1 + (sub != 0).long()
-        cand = start & (nxt < n) & ~sel & sel[torch.clamp(nxt, 0, n - 1)]
-        return torch.min(torch.where(cand, idx, torch.full_like(idx, n)))
-
-    failed = torch.zeros((), dtype=torch.bool, device=dev)
-    cnt = 0
+    passes = swaps = 0
+    failed = False
     while True:
-        i_t = find(Tp, sel)
-        ic = torch.clamp(i_t, 0, n - 1)
-        n1_t = 1 + (take_at(Tp[1:, :-1].diagonal(), ic) != 0).long()
-        j_t = torch.clamp(ic + n1_t, 0, n - 1)
-        n2_t = 1 + (take_at(Tp[1:, :-1].diagonal(), j_t) != 0).long()
-        i, n1, n2, f = (int(v) for v in host_read(torch.stack(
-            [i_t.long(), n1_t, n2_t, failed.long()])))
+        i, n1, n2 = (int(v) for v in host_read(torch.stack(_next_swap(T, sel))))
         count_event("ordschur_reads")
-        if not (i < n and not f and cnt < max_swaps):
+        if i >= n or passes >= max_swaps:
             break
+        passes += 1
         m = n1 + n2
-        W = Tp[i:i + 4, i:i + 4]
-        Q = _swap_q(W, n1, n2)
-        Wt = Q.T @ W @ Q
-        lowleft = (r4[:, None] >= n2) & (r4[:, None] < m) & (r4[None, :] < n2)
-        resid = torch.max(torch.where(lowleft, torch.abs(Wt), torch.zeros_like(Wt)))
-        bad = resid > rej_factor * eps * (torch.max(torch.abs(Tp)) + 1.0)
-        Tn = Tp.clone()
-        Tn[i:i + 4, :] = Q.T @ Tn[i:i + 4, :]
-        Tn[:, i:i + 4] = Tn[:, i:i + 4] @ Q
-        Zn = Zp.clone()
-        Zn[:, i:i + 4] = Zn[:, i:i + 4] @ Q
+        anrm = _np(torch.max(torch.abs(T)))[()]
+        Q, _, bad = _swap_plain(_np(T[i:i + m, i:i + m]), n1, n2, anrm, rej_factor)
+        if bad:
+            failed = True
+            break
+        Qt = torch.from_numpy(Q).to(dev)
+        T[i:i + m, i:] = _ordered_rows(Qt.T, T[i:i + m, i:])
+        T[:i + m, i:i + m] = _ordered_cols(T[:i + m, i:i + m], Qt)
+        Z[:, i:i + m] = _ordered_cols(Z[:, i:i + m], Qt)
         # exact zeros below the new block diagonal inside the window: the
         # block of size n2 leads, the block of size n1 follows
-        for r in range(1, 4):
-            for cc in range(r):
-                keep = (n2 == 2 and r == 1 and cc == 0) or (n1 == 2 and r == n2 + 1 and cc == n2)
-                if r < m and not keep:
-                    Tn[i + r, i + cc] = 0.0
-        selP = torch.where((idx >= i) & (idx < i + m), idx < i + n2, sel)
-        Tp = torch.where(bad, Tp, Tn)
-        Zp = torch.where(bad, Zp, Zn)
-        sel = torch.where(bad, sel, selP)
-        failed = failed | bad
-        cnt += 1
-    done = find(Tp, sel) >= n
-    return Tp[:n, :n], Zp[:, :n], sel, done & ~failed
+        for r in range(1, m):
+            for c in range(r):
+                keep = (n2 == 2 and r == 1 and c == 0) or (n1 == 2 and r == n2 + 1 and c == n2)
+                if not keep:
+                    T[i + r, i + c] = 0.0
+        sel = torch.where((idx >= i) & (idx < i + m), idx < i + n2, sel)
+        swaps += 1
+    ok = i >= n and not failed
+    return (T, Z, sel, torch.tensor(ok, device=dev),
+            torch.tensor(swaps, dtype=torch.int32, device=dev))
 
 
 def ordschur_device(T, Z, select_mask):
@@ -783,18 +963,17 @@ def ordschur_device(T, Z, select_mask):
     either position of a 2x2 block selects the block).  Returns
     ``(T', Z', sel', ok)``: ``sel'`` the reordered mask, ``ok`` (a 0-d bool
     tensor) False if a block swap was rejected, the output then a valid but
-    partially reordered form.  Plain torch on the device, with one counted
-    host read a block swap."""
+    partially reordered form.  ``Z`` may have more rows than ``T``.  One
+    launch of the kernel of ``csrc/ordschur.cu`` on a CUDA tensor, with no
+    host read; on a CPU tensor the plain version, :func:`_ordschur_plain`."""
+    from ..ops import hessenberg as kernels
+
     _real_only(T, "ordschur_device")
     n = T.shape[0]
     sel = torch.as_tensor(select_mask, device=T.device).to(torch.bool)
     if n < 2:
         return T, Z, sel, torch.ones((), dtype=torch.bool, device=T.device)
-    coupled = torch.diagonal(T, -1) != 0
-    pad = torch.zeros(1, dtype=torch.bool, device=T.device)
-    up = torch.cat([coupled & sel[1:], pad])
-    down = torch.cat([pad, coupled & sel[:-1]])
-    return _ordschur_core(T, Z, sel | up | down)
+    return kernels.ordschur(T, Z, sel)[:4]
 
 
 def _filter_shifts(H_sq, n_target):

@@ -138,17 +138,24 @@ def _wait_for_device() -> None:
 
 
 @contextmanager
-def timed(name: str, group: str = "user"):
+def timed(name: str, group: str = "user", device: bool = False):
     """Bracket a stage with a named timer and a profiler range (reference:
-    the ``timer%start/stop`` brackets, e.g. arnoldi.fypp:18,75)."""
+    the ``timer%start/stop`` brackets, e.g. arnoldi.fypp:18,75).  With
+    ``device``, the stage's device work is timed too: the span waits for the
+    device when it opens and when it closes (two synchronizations, so only
+    while timing is enabled)."""
     if not _timing_enabled:
         yield
         return
     t = global_watch.add_timer(name, group)
     with torch.profiler.record_function(name):
+        if device:
+            _wait_for_device()
         t.start()
         try:
             yield
+            if device:
+                _wait_for_device()
         finally:
             t.stop()
 
@@ -160,12 +167,8 @@ def timed_fn(name: str, group: str = "user"):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not _timing_enabled:
+            with timed(name, group, device=True):
                 return fn(*args, **kwargs)
-            with timed(name, group):
-                out = fn(*args, **kwargs)
-                _wait_for_device()
-            return out
         return wrapper
     return deco
 

@@ -191,6 +191,72 @@ def test_krylov_schur_device_block_restart(p, rng):
         < 1e-9 * max(1.0, np.abs(w).max())
 
 
+@pytest.mark.parametrize("p", [2, 3])
+def test_krylov_schur_device_block_restart_matches_jax(p, rng):
+    """The block device restart at ``k_eff < kdim`` (inactive identity
+    positions in the Schur form, deselected before the reorder) against the
+    JAX package's on the same buffer and selection: the same keep count and
+    kept spectrum, the factorization exact."""
+    from lightkrylov_tpu.krylov.krylov_schur import krylov_schur_device as j_ksd
+
+    n, kdim, k = 60, 12, 10
+    Am = rng.standard_normal((n, n))
+    op = lt.DenseOperator(torch.from_numpy(Am))
+    X, H = initialize_arnoldi_block(torch.from_numpy(rng.standard_normal(n)), kdim, p)
+    X, H, _ = arnoldi_block(op, X, H, p)
+    Hh, Xh0 = H.numpy().copy(), X.numpy().copy()
+    w = np.linalg.eigvals(Hh[:k, :k])
+    ws = np.concatenate([w[np.argsort(-np.abs(w))], np.zeros(kdim - k)])
+    mask = np.concatenate([np.abs(ws[:k]) > np.median(np.abs(ws[:k])), np.zeros(kdim - k, bool)])
+    args = [ws.real.copy(), ws.imag.copy(), mask]
+    Xn, Hn, nk, ok = krylov_schur_device(X, H, *map(torch.from_numpy, args), p=p,
+                                         k_eff=torch.tensor(k))
+    _, jHn, jnk, jok = j_ksd(jnp.asarray(Xh0), jnp.asarray(Hh), *map(jnp.asarray, args), p=p,
+                             k_eff=jnp.asarray(k))
+    nk = int(nk)
+    assert bool(ok) and bool(jok) and nk == int(jnk)
+    Hnh = Hn.numpy()
+    kept = np.linalg.eigvals(Hnh[:nk, :nk])
+    assert _multiset(kept, np.linalg.eigvals(np.asarray(jHn)[:nk, :nk])) < 1e-10
+    Xh = Xn.numpy()
+    assert np.linalg.norm(Am @ Xh[:nk].T - Xh[:nk + p].T @ Hnh[:nk + p, :nk]) \
+        < 1e-10 * np.abs(Hh).max()
+
+
+def test_device_schur_restart_reorders_once_each(monkeypatch):
+    """A custom-selector solve on the device path reorders once a device
+    Schur restart, through ``ops.hessenberg.ordschur`` (on the card one
+    launch of ``csrc/ordschur.cu``), and its span
+    ``krylov_schur.ordschur_device`` counts each reorder while timing is on."""
+    from lightkrylov_tpu_torch.ops import hessenberg as kernels
+
+    calls = []
+    plain = kernels.ordschur
+
+    def counting(T, Z, sel):
+        calls.append(T.shape[0])
+        return plain(T, Z, sel)
+
+    monkeypatch.setattr(kernels, "ordschur", counting)
+    N = 128
+    op = port_operator(JT(N, 2.0, -1.0, 1.0, dtype=np.float64))
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal(N))
+    span = lt.timer.global_watch.add_timer("krylov_schur.ordschur_device", "BaseKrylov")
+    count0 = span.count
+    lt.timer.reset_counters()
+    lt.timer.set_timing(True)
+    try:
+        _, _, _, info, meta = lt.eigs(op, 6, x0=x0, kdim=16, tolerance=1e-9,
+                                      select=lambda w: np.abs(w) > np.median(np.abs(w)),
+                                      options=lt.EigsOptions(projected="device", maxiter=100))
+    finally:
+        lt.timer.set_timing(False)
+    restarts = lt.timer.get_counter("restarts.eigs.schur_device")
+    assert meta.converged and info == 6 and restarts > 0
+    assert len(calls) == restarts == span.count - count0 and set(calls) == {16}
+    assert lt.timer.get_counter("ordschur_reads") >= restarts  # the plain version's, on the CPU
+
+
 # -- eigs ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -442,6 +442,294 @@ def test_ordschur_device_matches_jax(rng, J, jnp):
             assert reads >= 1
 
 
+# float64 / float32: eigenvalues of the spectrum's scale (the JAX package's
+# LAPACK gates, as above), factorization and orthogonality (2-norms)
+ORD_EIG = {np.float64: 1e-11, np.float32: 1e-4}
+ORD_FACT = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+def _zero_pattern_ok(T):
+    """``T`` quasi-triangular: exact zeros below the subdiagonal, and each
+    nonzero subdiagonal entry the coupling of a 2x2 conjugate-pair block
+    (no two in a row)."""
+    sub = np.diag(T, -1) != 0
+    pairs_ok = all(((T[i, i] - T[i + 1, i + 1]) / 2) ** 2 + T[i, i + 1] * T[i + 1, i] < 0
+                   for i in np.flatnonzero(sub))
+    return bool(np.all(np.tril(T, -2) == 0) and not np.any(sub[1:] & sub[:-1]) and pairs_ok)
+
+
+def _hold_ordschur_to_jax(T, Z, mask, J, jnp, want_ok=True):
+    """The port's plain reorder (``ops.hessenberg.ordschur`` on a CPU tensor)
+    and the JAX package's ``ordschur_device`` on the same ``(T, Z, mask)``:
+    the same ``sel'`` and ``ok``, the leading block's spectrum within
+    ``ORD_EIG`` of the spectrum's scale, ``Z'^T Z' = I``, ``Z' T' Z'^T = Z T
+    Z^T`` within ``ORD_FACT`` and the zero pattern below the block diagonal.
+    Returns the port's ``(T', Z', sel', swaps)``."""
+    dt = T.dtype.type
+    before = kernels.ordschur.LAUNCHES
+    T2, Z2, sel2, ok2, swaps = kernels.ordschur(torch.from_numpy(T), torch.from_numpy(Z),
+                                                torch.from_numpy(mask))
+    assert kernels.ordschur.LAUNCHES == before
+    jT2, _, jsel2, jok2 = J.ordschur_device(jnp.asarray(T), jnp.asarray(Z), jnp.asarray(mask))
+    T2, Z2, sel2 = T2.numpy(), Z2.numpy(), sel2.numpy()
+    assert np.array_equal(sel2, np.asarray(jsel2)) and bool(ok2) == bool(jok2) == want_ok
+    ns = int(np.argmin(np.append(sel2, False)))  # the leading run of selected positions
+    scale = max(1.0, float(np.abs(np.linalg.eigvals(T.astype(np.float64))).max()))
+    if ns:
+        lead = np.linalg.eigvals(T2[:ns, :ns].astype(np.float64))
+        jlead = np.linalg.eigvals(np.asarray(jT2, np.float64)[:ns, :ns])
+        assert _match(lead, jlead) < ORD_EIG[dt] * scale
+    A = Z.astype(np.float64) @ T.astype(np.float64) @ Z.T.astype(np.float64)
+    T2d, Z2d = T2.astype(np.float64), Z2.astype(np.float64)
+    assert np.linalg.norm(Z2d @ T2d @ Z2d.T - A, 2) < ORD_FACT[dt] * np.linalg.norm(A, 2)
+    assert np.linalg.norm(Z2d.T @ Z2d - np.eye(len(Z2d)), 2) < ORD_FACT[dt]
+    assert _zero_pattern_ok(T2)
+    return T2, Z2, sel2, int(swaps)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [6, 13, 24, 40])
+def test_ordschur_plain_matches_jax(n, dtype, J, jnp):
+    """The plain reorder against the JAX package's on the Schur form of a
+    seeded random matrix and three seeded masks each: the selected
+    eigenvalues lead, ``sel'`` all True then all False."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n)).astype(dtype)
+    T, Z, _, _, _ = H.schur_real(torch.from_numpy(A))
+    T, Z = T.numpy(), Z.numpy()
+    for _ in range(3):
+        mask = rng.random(n) < 0.4
+        _, _, sel2, swaps = _hold_ordschur_to_jax(T, Z, mask, J, jnp)
+        ns = int(sel2.sum())
+        assert np.all(sel2[:ns]) and not np.any(sel2[ns:]) and swaps >= 0
+
+
+def _two_blocks(n1, n2, dtype):
+    """A quasi-triangular ``T`` (order 7) whose blocks at 2 (size ``n1``) and
+    below it (size ``n2``) have distinct spectra, 2x2 blocks conjugate
+    pairs, a seeded orthogonal ``Z``, and the mask that selects the lower
+    block and positions 0 and 1: one swap, of sizes ``(n1, n2)``."""
+    rng = np.random.default_rng(10 * n1 + n2)
+    n = 2 + n1 + n2 + 1
+    T = np.triu(rng.standard_normal((n, n)))
+    np.fill_diagonal(T, [3.0, -2.5, 0.0, 0.0, 0.0, 0.0, 1.7][:n])
+    i, j = 2, 2 + n1
+    if n1 == 2:
+        T[i:i + 2, i:i + 2] = [[0.4, 1.3], [-0.6, 0.4]]
+    else:
+        T[i, i] = 0.4
+    if n2 == 2:
+        T[j:j + 2, j:j + 2] = [[-1.1, 0.5], [-2.0, -1.1]]
+    else:
+        T[j, j] = -1.1
+    T[-1, -1] = 1.7
+    Z, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    mask = np.zeros(n, bool)
+    mask[:2] = True
+    mask[j] = True
+    return T.astype(dtype), Z.astype(dtype), mask
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n1, n2", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_ordschur_plain_block_pairs_match_jax(n1, n2, dtype, J, jnp):
+    """Each pair of block sizes ``(n1, n2)`` of Bai and Demmel's swap (a 1x1
+    to 4x4 Sylvester system), with the flag on one position of a 2x2 block
+    only (made pair-consistent), and the exact zeros below the new block
+    diagonal."""
+    T, Z, mask = _two_blocks(n1, n2, dtype)
+    T2, _, sel2, swaps = _hold_ordschur_to_jax(T, Z, mask, J, jnp)
+    assert swaps == 1 and int(sel2.sum()) == 2 + n2
+    w2 = np.sort_complex(np.linalg.eigvals(T2[2:2 + n2, 2:2 + n2].astype(np.float64)))
+    w = np.sort_complex(np.linalg.eigvals(T[2 + n1:2 + n1 + n2, 2 + n1:2 + n1 + n2]
+                                          .astype(np.float64)))
+    assert np.abs(w2 - w).max() < ORD_EIG[dtype] * 4
+
+
+# A 2x2 to 2x2 swap that both packages reject: close spectra (the Sylvester
+# system near singular) and strongly anisotropic blocks, found by a seeded
+# search; the annihilated coupling reads 5.9e3 (float64) and 1.6e3 (float32)
+# times the threshold in the plain version
+REJECTED_SWAP = {
+    np.float64: ([[127.1385425787297, 200.29823611192407],
+                  [-78.97094112945011, -124.39864652307723]],
+                 [[-0.01171733098748834, 0.01489933173909488],
+                  [0.002631622297373081, 0.0005356923366558498]],
+                 [[5.82393587057546, 16.632433892017662],
+                  [-1.1915789103631635, -3.079551599046841]]),
+    np.float32: ([[20.626829244989427, 89.2752981434197],
+                  [-5.182090745772779, -22.390958831924095]],
+                 [[2.402463582574814, 2.8680934833900404],
+                  [3.209092213287196, -1.6650554285939745]],
+                 [[-15.990148385446398, 13.813891555321634],
+                  [-16.514161905132976, 14.217444684757032]]),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ordschur_plain_rejects_the_swap_jax_rejects(dtype, J, jnp):
+    """A swap both packages reject: the first swap (a selected 1x1 past an
+    unselected one) is applied, then the 2x2 to 2x2 swap is rejected, so
+    both stop with ``ok`` False and the same partial reorder."""
+    A11, A12, A22 = (np.array(b) for b in REJECTED_SWAP[dtype])
+    n = 6
+    T = np.triu(np.random.default_rng(6).standard_normal((n, n)) * 0.1)
+    T[0, 0], T[1, 1] = 0.3, 5.0
+    T[2:4, 2:4], T[2:4, 4:6], T[4:6, 4:6] = A11, A12, A22
+    Z, _ = np.linalg.qr(np.random.default_rng(7).standard_normal((n, n)))
+    mask = np.array([False, True, False, False, True, True])
+    T2, _, sel2, swaps = _hold_ordschur_to_jax(T.astype(dtype), Z.astype(dtype), mask, J, jnp,
+                                               want_ok=False)
+    assert swaps == 1 and sel2.tolist() == [True, False, False, False, True, True]
+    assert T2[0, 0] == pytest.approx(5.0, rel=1e-5)
+    _, resid, bad = H._swap_plain(T2[2:6, 2:6], 2, 2, np.abs(T2).max())
+    assert bad and resid > 30 * dtype(50) * np.finfo(dtype).eps * (np.abs(T2).max() + 1)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ordschur_plain_with_inactive_identity_positions(dtype, J, jnp):
+    """A block restart's reorder (``p > 1``): the Schur form of the active
+    ``k_eff`` block embedded with its dummy diagonal, and a mask with the
+    inactive positions deselected, as ``krylov_schur_device`` passes it."""
+    n, k = 24, 19
+    rng = np.random.default_rng(24)
+    A = np.triu(rng.standard_normal((n, n)), -2).astype(dtype)
+    T, Z, _, _, _ = H.schur_real(torch.from_numpy(A), k_eff=k)
+    mask = (rng.random(n) < 0.5) & (np.arange(n) < k)
+    _, _, sel2, _ = _hold_ordschur_to_jax(T.numpy(), Z.numpy(), mask, J, jnp)
+    assert int(sel2.sum()) >= int(mask.sum()) and not np.any(sel2[int(sel2.sum()):])
+
+
+@pytest.mark.parametrize("q", [1, 2, 4])
+def test_ordschur_elimination_matches_numpy_solve(q):
+    """The swap's explicit Gaussian elimination with partial pivoting
+    (``_solve_pivoted``, which ``csrc/ordschur.cu`` repeats) against
+    ``numpy.linalg.solve`` on the Sylvester system ``K`` of seeded windows,
+    and on a ``K`` whose first column needs a row exchange."""
+    n1, n2 = {1: (1, 1), 2: (2, 1), 4: (2, 2)}[q]
+    rng = np.random.default_rng(q)
+    for _ in range(5):
+        W = np.triu(rng.standard_normal((n1 + n2, n1 + n2)), -1)
+        K, rhs = H._sylvester_system(W, n1, n2)
+        assert K.shape == (q, q)
+        x = H._solve_pivoted(K, rhs)
+        assert np.linalg.norm(x - np.linalg.solve(K, rhs)) < 1e-13 * np.linalg.norm(x)
+    K = rng.standard_normal((q, q))
+    K[0, 0] = 0.0
+    b = rng.standard_normal(q)
+    if q > 1:
+        x = H._solve_pivoted(K, b)
+        assert np.linalg.norm(x - np.linalg.solve(K, b)) < 1e-13 * np.linalg.norm(x)
+
+
+def test_ordschur_wrapper_takes_the_plain_version_on_the_cpu(rng):
+    """On a CPU tensor ``ops.hessenberg.ordschur`` is its plain version,
+    counts no launch, and ``utils.hessenberg.ordschur_device`` returns its
+    first four outputs."""
+    A = torch.from_numpy(rng.standard_normal((12, 12)))
+    T, Z, _, _, _ = H.schur_real(A)
+    mask = torch.from_numpy(rng.random(12) < 0.5)
+    before = kernels.ordschur.LAUNCHES
+    got = kernels.ordschur(T, Z, mask)
+    want = kernels.ordschur_reference(T, Z, mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(H.ordschur_device(T, Z, mask), got[:4]))
+    assert kernels.ordschur.LAUNCHES == before and got[4].dtype == torch.int32
+
+
+@pytest.mark.parametrize("n, nz, itemsize, t_smem, z_smem", [
+    (119, 119, 8, True, True), (120, 120, 8, True, False),
+    (169, 169, 8, True, False), (170, 170, 8, False, False),
+    (169, 169, 4, True, True), (170, 170, 4, True, False),
+    (240, 240, 4, True, False), (241, 241, 4, False, False),
+    (40, 300, 8, True, True), (100, 300, 8, True, False)])
+def test_ordschur_geometry_places_t_and_z_by_the_shared_memory_limit(n, nz, itemsize, t_smem,
+                                                                      z_smem):
+    """The ordschur kernel keeps ``T`` in shared memory while it fits and
+    ``Z`` (``nz`` rows) while both do, each row of odd stride ``n | 1``."""
+    geo = kernels.ordschur_geometry(n, nz, itemsize)
+    assert (geo.h_smem, geo.z_smem) == (t_smem, z_smem)
+    assert geo.smem_bytes <= _BUDGET and geo.warps == min(8, -(-n // 32))
+    assert geo.smem_bytes == (n | 1) * itemsize * (n * t_smem + nz * z_smem)
+
+
+# -- the range prescale of the Schur core (ROADMAP F12) --------------------------
+
+@pytest.mark.parametrize("dtype, e", [(np.float32, -42), (np.float32, -45), (np.float32, -60),
+                                      (np.float32, -100), (np.float32, 60),
+                                      (np.float64, -520), (np.float64, 520)])
+def test_schur_prescales_a_block_out_of_range(dtype, e):
+    """A random Hessenberg scaled by ``2^e`` outside ``[sqrt(tiny) / eps,
+    eps / sqrt(tiny)]``: the Schur core scales its block into ``[0.5, 1)``
+    first (an exact power of two, as LAPACK ``xGEEV``), so the eigenvalues
+    come within 1e-5 (float32) / 1e-11 (float64) of the spectrum's scale
+    and ``T``, unscaled, keeps ``H = Z T Z^T``.  Unscaled, the reduction's
+    products ``u (u^T H)``, cubic in the scale, leave the range (float32:
+    1.9e-4 at 2^-42, non-finite at 2^-60 and 2^60).  The JAX package's f32
+    core fails from 2^-25 (F10)."""
+    A = (np.triu(np.random.default_rng(3).standard_normal((24, 24)), -1) * 2.0 ** e).astype(dtype)
+    s = 2.0 ** -e  # held at 2^0, an exact scale: numpy's eig need not hold at 2^-520
+    Ad = A.astype(np.float64) * s
+    w_ref = np.linalg.eigvals(Ad)
+    tol = 1e-5 if dtype == np.float32 else 1e-11
+    wr, wi, ok = H.hessenberg_eigvals(torch.from_numpy(A))
+    assert bool(ok) and _match(_w(wr, wi) * s, w_ref) < tol * np.abs(w_ref).max()
+    T, Z, wr, wi, ok = H.schur_real(torch.from_numpy(A))
+    T, Z = T.double().numpy() * s, Z.double().numpy()
+    assert bool(ok) and _match(_w(wr, wi) * s, w_ref) < tol * np.abs(w_ref).max()
+    assert np.linalg.norm(Z @ T @ Z.T - Ad, 2) < tol * np.linalg.norm(Ad, 2)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_schur_prescale_changes_no_bit_in_range(dtype, monkeypatch):
+    """At 2^0 (inside the range) the Schur core's outputs are bit-identical
+    with the prescale's code and without it."""
+    A = torch.from_numpy(np.triu(np.random.default_rng(3).standard_normal((24, 24)), -1)
+                         .astype(dtype))
+    got = H._schur_plain(A, 24, True, True)
+    monkeypatch.setattr(H, "_range_exponent", lambda *args: 0)
+    want = H._schur_plain(A, 24, True, True)
+    assert _bit_equal(got, want)
+
+
+def test_ritz_check_prescales_a_buffer_out_of_range():
+    """The device check in float32 on an Arnoldi buffer scaled by 2^-60: the
+    inverse iteration prescales the block and the eigenvalues as the Schur
+    core does, so its ridge ``eps (max |Hm| + 1)`` stays relative to the
+    block and the check reads as at 2^0 (the same converged count, values
+    and vectors of the same quality).  Unscaled, the ridge (1.2e-7) swamps
+    a block of 2^-60 (eigen-residuals 0.44 of ||H||)."""
+    He = _arnoldi_hessenberg(24, 1, ext=True).astype(np.float32)
+    out = {}
+    for e in (0, -60):
+        Ht = torch.from_numpy(He * np.float32(2.0 ** e))
+        wr, wi, res, Vr, Vi, n_conv, ok = H.hessenberg_ritz(Ht, 24, 1e-6 * 2.0 ** e, 16)
+        V = Vr.double().numpy() + 1j * Vi.double().numpy()
+        w = _w(wr, wi) * 2.0 ** -e
+        Ha = He[:24].astype(np.float64)
+        er = max(np.linalg.norm(Ha @ V[:, j] - w[j] * V[:, j]) for j in range(24))
+        out[e] = (bool(ok), int(n_conv), w, er / np.linalg.norm(Ha))
+    assert out[0][:2] == out[-60][:2] == (True, 4)
+    assert np.abs(out[0][2] - out[-60][2]).max() < 1e-5 * np.abs(out[0][2]).max()
+    assert out[-60][3] < 1e-5
+
+
+def test_filter_f32_at_2_pow_minus_60_needs_no_prescale():
+    """The IRAM filter in float32 on an Arnoldi Hessenberg scaled by 2^-60
+    keeps the leading spectrum as at 2^0 (its sweeps' vectors are scaled
+    already, F10; its shifts come from the prescaled Schur core), so it has
+    no prescale of its own."""
+    Hs = _filter_input(24, 1)
+    w = np.linalg.eigvals(Hs)
+    for e in (0, -60):
+        Ht = torch.from_numpy((Hs * 2.0 ** e).astype(np.float32))
+        Hf, Z, n, ok = H.francis_filter(Ht, 12)
+        n = int(n)
+        kept = np.linalg.eigvals(Hf.double().numpy()[:n, :n]) * 2.0 ** -e
+        assert bool(ok) and _match(kept, w[np.argsort(-np.abs(w))][:n]) < \
+            FILTER_TOL[torch.float32] * np.linalg.norm(Hs)
+
+
 @pytest.mark.parametrize("kdim", [16, 24])
 def test_francis_filter_matches_jax(kdim, rng, J, jnp):
     """The exact-shift filter: the same keep count and flag as the JAX
@@ -1075,3 +1363,163 @@ def test_cuda_wrappers_refuse_unsupported_tensors(cuda):
         kernels.ritz_check(torch.ones(4, 4, device=cuda), w, w, True, 4, 1e-6)
     with pytest.raises(TypeError):
         kernels.inverse_iteration(torch.eye(4, device=cuda, dtype=torch.float16), w, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, e", [(torch.float32, -60), (torch.float32, 60),
+                                      (torch.float64, -520)])
+def test_cuda_schur_kernel_prescale(cuda, dtype, e):
+    """The Schur kernel on a Hessenberg outside the range: it prescales the
+    block as the plain version does (``range_exp``), takes its sweeps and
+    chase steps, and unscales ``T`` and the eigenvalues."""
+    Ht = torch.from_numpy(np.triu(np.random.default_rng(3).standard_normal((24, 24)), -1)
+                          * 2.0 ** e).to(cuda, dtype)
+    T, Z, wr, wi, _, ok, work = kernels.hessenberg_schur(Ht, 24, with_z=True, split=True)
+    torch.cuda.synchronize()
+    _, _, pwr, pwi, _, pok, pwork = kernels.hessenberg_schur_reference(Ht, 24, True, True)
+    assert bool(ok) and bool(pok) and work.tolist() == pwork.tolist()
+    # held at 2^0 (an exact scale): numpy's eig need not hold at 2^-520
+    s = 2.0 ** -e
+    Ad = Ht.double().cpu().numpy() * s
+    norm = np.linalg.norm(Ad)
+    w = _w(wr.cpu(), wi.cpu()) * s
+    assert _match(w, _w(pwr.cpu(), pwi.cpu()) * s) < KERNEL_TOL[dtype] * norm
+    assert _match(w, np.linalg.eigvals(Ad)) < KERNEL_TOL[dtype] * norm
+    T, Z = T.double().cpu().numpy() * s, Z.double().cpu().numpy()
+    assert np.linalg.norm(Z @ T @ Z.T - Ad, 2) < SCHUR_ORTH[dtype] * np.linalg.norm(Ad, 2)
+    assert np.linalg.norm(Z.T @ Z - np.eye(24), 2) < SCHUR_ORTH[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_ritz_kernel_prescale(cuda):
+    """The Ritz kernel on a float32 Arnoldi buffer scaled by 2^-60 against its
+    plain version: both prescale the block and the eigenvalues."""
+    He = _arnoldi_hessenberg(40, 5, ext=True) * 2.0 ** -60
+    _hold_ritz_to_plain(cuda, torch.float32, He, 40, 1, 16, 1e-6 * 2.0 ** -60)
+
+
+# the ordschur kernel's edges: Z leaves shared memory (120 in f64, 170 in
+# f32), T does (170 in f64, 241 in f32), a thread owns two rows (257, 300)
+ORDSCHUR_NS = [16, 40, 64, 119, 120, 169, 170, 240, 241, 257, 300]
+
+
+def _ordschur_input(cuda, dtype, n, kind, nz=None):
+    """The Schur kernel's ``(T, Z)`` of the spiral operator's Arnoldi
+    Hessenberg at ``n`` on the card and a mask: the median selector's (the
+    larger half by modulus, as a custom-selector restart keeps) or a seeded
+    random one.  With ``nz``, ``Z`` gains ``nz - n`` rows."""
+    A = _arnoldi_hessenberg(n, n, 256 if n <= 128 else 512)
+    T, Z, wr, wi, _, ok, _ = kernels.hessenberg_schur(torch.from_numpy(A).to(cuda, dtype), n,
+                                                      with_z=True, split=True)
+    assert bool(ok)
+    if kind == "median":
+        mod = torch.sqrt(wr.double() ** 2 + wi.double() ** 2)
+        mask = mod > torch.median(mod)
+    else:
+        mask = torch.from_numpy(np.random.default_rng(n).random(n) < 0.5).to(cuda)
+    if nz is not None:
+        extra = torch.from_numpy(np.random.default_rng(1).standard_normal((nz - n, n)))
+        Z = torch.cat([Z, extra.to(cuda, dtype)])
+    return T, Z, mask
+
+
+def _hold_ordschur_to_plain(T, Z, mask):
+    """One launch of the ordschur kernel against its plain version (run on
+    the host, which rounds as the card does): ``sel'``, ``ok`` and the swap
+    count equal; ``T'`` within ``SCHUR_ORTH`` of ``||T||_F``, ``Z'`` within
+    ``SCHUR_ORTH`` (``Z`` orthogonal, entries at most 1).  Returns the swap
+    count."""
+    dtype = T.dtype
+    before = kernels.ordschur.LAUNCHES
+    got = kernels.ordschur(T, Z, mask)
+    torch.cuda.synchronize()
+    assert kernels.ordschur.LAUNCHES == before + 1
+    T2, Z2, sel2, ok2, swaps = (t.cpu() for t in got)
+    pT2, pZ2, psel2, pok2, pswaps = kernels.ordschur_reference(T.cpu(), Z.cpu(), mask.cpu())
+    assert torch.equal(sel2, psel2) and bool(ok2) == bool(pok2) and int(swaps) == int(pswaps)
+    norm = float(torch.linalg.norm(T.double()))
+    assert float((T2 - pT2).abs().max()) <= SCHUR_ORTH[dtype] * norm
+    assert float((Z2 - pZ2).abs().max()) <= SCHUR_ORTH[dtype]
+    assert _zero_pattern_ok(T2.double().numpy())
+    return int(swaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["median", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", ORDSCHUR_NS)
+def test_cuda_ordschur_kernel_matches_plain(cuda, n, dtype, kind):
+    T, Z, mask = _ordschur_input(cuda, dtype, n, kind)
+    swaps = _hold_ordschur_to_plain(T, Z, mask)
+    assert kind == "median" or swaps > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_ordschur_kernel_tall_z(cuda, dtype):
+    """``Z`` with more rows than ``T`` (in shared memory at n = 40, in global
+    memory beside a shared ``T`` at n = 100)."""
+    for n in (40, 100):
+        T, Z, mask = _ordschur_input(cuda, dtype, n, "random", nz=n + 37)
+        _hold_ordschur_to_plain(T, Z, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [40, 257])
+def test_cuda_ordschur_lagging_warp_build_is_bit_equal(cuda, n, dtype):
+    """The ordschur kernel's ``T'``, ``Z'``, ``sel'``, ``ok`` and swap count
+    from the lagging-warp build, bit for bit the shipping kernel's."""
+    from lightkrylov_tpu_torch.ops import _build
+
+    T, Z, mask = _ordschur_input(cuda, dtype, n, "random")
+    want = kernels.launch_ordschur(_build.load, T, Z, mask)
+    got = kernels.launch_ordschur(_build.load_lagging, T, Z, mask)
+    torch.cuda.synchronize()
+    assert int(want[4]) > 0 and _bit_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2])
+def test_cuda_krylov_schur_restart_makes_no_host_read(cuda, p):
+    """A device Krylov-Schur restart (the Schur kernel, the ordschur kernel
+    and the restart's small ops) under ``set_sync_debug_mode("error")``, with
+    the selection already on the card (and ``k_eff`` a 0-d tensor for
+    ``p = 2``)."""
+    from lightkrylov_tpu_torch.krylov.krylov_schur import krylov_schur_device
+
+    kdim, N = 30, 200
+    rng = np.random.default_rng(p)
+    He = np.triu(rng.standard_normal((kdim + p, kdim)), -p)
+    X = torch.from_numpy(rng.standard_normal((kdim + p, N))).to(cuda)
+    Ht = torch.from_numpy(He).to(cuda)
+    w = np.linalg.eigvals(He[:kdim])
+    w = w[np.argsort(-np.abs(w))]
+    sel_wr, sel_wi = (torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for v in (w.real, w.imag))
+    mask = torch.from_numpy(np.abs(w) > np.median(np.abs(w))).to(cuda)
+    k = torch.full((), kdim, device=cuda) if p > 1 else None
+    krylov_schur_device(X, Ht, sel_wr, sel_wi, mask, p=p, k_eff=k)
+    torch.cuda.synchronize()
+    before = kernels.ordschur.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        krylov_schur_device(X, Ht, sel_wr, sel_wi, mask, p=p, k_eff=k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.ordschur.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_ordschur_refuses_unsupported_tensors(cuda):
+    T = torch.eye(4, device=cuda)
+    sel = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.ordschur(T.half(), T.half(), sel)
+    with pytest.raises(ValueError):
+        kernels.ordschur(T, torch.eye(5, device=cuda), sel)
+    with pytest.raises(ValueError):
+        kernels.ordschur(T, T.double(), sel)
+    with pytest.raises(ValueError):
+        kernels.ordschur(T, T, sel[:3])
+    with pytest.raises(ValueError):
+        kernels.ordschur(T, T.cpu(), sel)
