@@ -9,7 +9,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 
 1. header: the GPU's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build the CUDA kernels from csrc/ into a clean _build/, timed, and the
-   lagging-warp build of phase 33 (h) beside it in a thread;
+   lagging-warp build of phase 33 (h) beside it in a thread (and, when a
+   git archive of the parent commit is unpacked in _parent/, the parent's
+   build of phase 33 (g)); print each kernel instance's registers, stack
+   frame and spill bytes as ptxas reports them, and fail if the ordschur
+   kernel has a stack frame or spills or the Ritz kernel spills;
 3. the kernel against its plain PyTorch version on the GPU, f32 and f64,
    at shapes up to the main path's 3072 x 3072;
 4. the main path: one GMRES(30) cycle on CudaPoisson2D(3072) in f32, with
@@ -153,15 +157,19 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     f64 on every input, in f32 on every Hessenberg one);
     francis_filter_sweeps against its plain version on Arnoldi Hessenbergs
     at kdim 16-300 (Z leaving shared memory at 120 / 170, H at 170 / 241,
-    f64 / f32); the plain versions of Hessenberg inputs run on the host, in
+    f64 / f32), and at kdim 40 scaled by 2^-100 and 2^60 (f32) and
+    2^-520 and 2^520 (f64), outside the range, against its plain version
+    and the 2^0 run (ROADMAP F14); the plain versions of Hessenberg inputs run on the host, in
     PLAIN_WORKERS spawned processes beside the kernels, those of the dense
     inputs on the card; one hessenberg_ritz check at kdim 40 under
     set_sync_debug_mode("error"); the Ritz kernel (csrc/ritz.cu, ritz_check:
     each eigenvalue's inverse iteration, residual, place in the order and
     the converged count) against its plain version, on the Schur kernel's
-    eigenvalues of Arnoldi buffers at kdim 16-300 (its working matrix
-    leaving shared memory at 120 in f64 and 170 in f32), k_eff < kdim,
-    block bands with p = 2 and 4, the arrow form and a triangle with exact
+    eigenvalues of Arnoldi buffers at kdim 16-321 (each edge of
+    ritz_geometry(): the columns a lane of the register path, the slots a
+    CTA, the staged block and the working matrices leaving shared memory),
+    k_eff < kdim, block bands with p = 2 and 4 (the general path) at kdim
+    40-300, the arrow form at 40 and 200 and a triangle with exact
     and near duplicates, a +-lambda tie and exact conjugate pairs, f32 and
     f64: values, order, count and zero rows exactly, eigen-residuals,
     overlaps, norms and residuals within 1e-5 / 1e-11, its plain versions on
@@ -175,7 +183,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     ||T||_F and Z' within 1e-5 / 1e-12, its plain versions on the host
     workers; (h) the lagging-warp build of the same
     sources against the shipping kernels, bit for bit, at n = 40 and 257
-    (the ordschur kernel on a random mask too);
+    (the ordschur kernel on a random mask, the Ritz kernel on an Arnoldi
+    buffer and a band too);
     (b) gl512 under projected="device" (the phase's main path, the kernels'
     launches zeroed before and read after): 16/16 inside the kappa budgets,
     no QR host redo, no host restart, matvecs, stride, checks, host reads a
@@ -201,7 +210,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     fill and the Ritz kernel), by torch.profiler; the ordschur kernel alone
     and a call at kdim 30-300 on a random mask, with its swaps, us a swap
     and bound, beside its plain version on the card and the host path's
-    reorder (read, LAPACK TRSEN, copy back).
+    reorder (read, LAPACK TRSEN, copy back); and, with the parent's tree
+    in _parent/, the Ritz kernel at kdim 30-300 and the ordschur kernel at
+    kdim 30-300 in turns with the parent commit's kernels on the same
+    inputs (parent, this tree, this tree, parent).
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -209,9 +221,11 @@ without the package beside it, the script fails before it prints any result.
 """
 
 import importlib
+import importlib.util
 import json
 import multiprocessing
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -296,6 +310,20 @@ SCHUR_ARNOLDI_N = (239, 240, 256, 257, 300)
 FILTER_KDIMS = (16, 40, 64, 119, 120, 169, 170, 240, 241, 256, 257, 300)
 # the lagging-warp build against the shipping one, both kernels, both dtypes
 LAG_NS = (40, 257)
+# phase 33 (g): the Ritz and ordschur kernels in turns with the parent
+# commit's, built from a git archive of it unpacked here (git-ignored);
+# without that tree the turns are not run
+PARENT_DIR = Path(__file__).resolve().parent / "_parent"
+TURN_RITZ_KDIMS = (30, 40, 64, 128, 300)
+# phase 2: the kernel functions of each entry of the kernels line, by the
+# names ptxas reports them under
+KERNEL_FUNCTIONS = {"stencil": ("stencil_kernel", "stencil_batched_kernel"),
+                    "bell_spmv": ("bell_spmv_kernel", "bell_spmm_kernel"),
+                    "copy_tiles": ("copy_tiles_kernel",), "copy_ring": ("copy_ring_kernel",),
+                    "reduce_8x128": ("reduce_partials_kernel", "reduce_final_kernel"),
+                    "hessenberg_schur": ("schur_kernel",),
+                    "francis_filter_sweeps": ("filter_kernel",),
+                    "ritz_check": ("ritz_kernel",), "ordschur": ("ordschur_kernel",)}
 # the kernels timed beside their bound at sizes where H leaves shared memory
 # and a thread owns two rows
 LARGE_KDIMS = (240, 257, 300)
@@ -306,11 +334,16 @@ PLAIN_WORKERS = 6
 SCHUR_EIG_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}   # of ||H||_F
 SCHUR_ORTH_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # 2-norms
 FILTER_EIG_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # of ||H||_F
+# the filter's range prescale (ROADMAP F14): the scales 2^e outside
+# [sqrt(tiny) / eps, eps / sqrt(tiny)] at which it runs in phase 33 (a)
+FILTER_PRESCALE = ((torch.float32, -100), (torch.float32, 60), (torch.float64, -520),
+                   (torch.float64, 520))
 RITZ_KDIMS = (30, 32, 40, 64, 128)
 # phase 33 (a): the Ritz kernel against its plain version on Arnoldi buffers
 # at these kdims (its working matrix leaves shared memory at 120 in f64 and
 # 170 in f32, a lane owns two rows from 33) and on special buffers
-RITZ_GATE_KDIMS = (16, 30, 32, 40, 64, 119, 120, 128, 169, 170, 240, 257, 300)
+RITZ_GATE_KDIMS = (16, 30, 32, 33, 40, 56, 63, 64, 65, 75, 79, 90, 97, 107, 119, 120, 128, 129,
+                   137, 168, 169, 170, 236, 240, 257, 300, 321)
 RITZ_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}
 # ||Hm v - lambda v|| / ||H||_F in f64; in f32 the method's own residual
 # grows with kdim (the JAX package's f32 vectors read 1.3e-5 to 3.5e-5 at
@@ -2167,6 +2200,65 @@ def match_dist(a, b):
     return float(cost[r, c].max()) if len(r) else 0.0
 
 
+def ptxas_figures(log):
+    """Each kernel instance's registers, stack frame and spill bytes as
+    ``ptxas -v`` reports them in the build log, by the entry of the kernels
+    line whose function it is (KERNEL_FUNCTIONS): ``{entry: [{"instance",
+    "registers", "stack_frame", "spill_stores", "spill_loads"}]}``.  Mangled
+    names are matched by their length-prefixed identifier and shown
+    demangled when ``c++filt`` is there."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)' for", line)
+        if m:
+            cur = {"mangled": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            entries.append(cur)
+            cur = None
+    names = [e["mangled"] for e in entries]
+    if shutil.which("c++filt") and names:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                     for n in out.stdout.splitlines()]
+    figures = {entry: [] for entry in KERNEL_FUNCTIONS}
+    for e, name in zip(entries, names):
+        for entry, fns in KERNEL_FUNCTIONS.items():
+            if any(f"{len(fn)}{fn}" in e["mangled"] for fn in fns):
+                figures[entry].append(dict(instance=name, registers=e["registers"],
+                                           stack_frame=e.get("stack_frame", 0),
+                                           spill_stores=e.get("spill_stores", 0),
+                                           spill_loads=e.get("spill_loads", 0)))
+    return figures
+
+
+def parent_ops():
+    """The parent commit's ``ops.hessenberg`` and ``ops._build`` modules,
+    imported from PARENT_DIR/lightkrylov_tpu_torch as the package
+    ``lk_parent`` (its own build directory and launch counts), or None
+    when that tree is not there."""
+    pkg = PARENT_DIR / "lightkrylov_tpu_torch"
+    if not (pkg / "__init__.py").is_file():
+        return None
+    if "lk_parent" not in sys.modules:
+        spec = importlib.util.spec_from_file_location("lk_parent", pkg / "__init__.py",
+                                                      submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["lk_parent"] = module
+        spec.loader.exec_module(module)
+    return (importlib.import_module("lk_parent.ops.hessenberg"),
+            importlib.import_module("lk_parent.ops._build"))
+
+
 def arnoldi_hessenberg(kdim, seed, n=512, real=None):
     """The ``(kdim + 1, kdim)`` Arnoldi Hessenberg of the spiral operator
     (with ``real``, one more real eigenvalue) from a seeded start vector, in
@@ -2371,6 +2463,49 @@ def filter_checks(dtype, cases, plain, out):
               f"orthogonality {orth:.2e} (gate {otol})")
 
 
+def filter_prescale_checks(dev, out):
+    """Phase 33 (a): the filter kernel on the Arnoldi Hessenberg at kdim
+    MAIN_KDIM scaled by 2^e outside the range (FILTER_PRESCALE): it scales H
+    and the shifts as its plain version does (ROADMAP F14), so it takes the
+    plain version's sweeps and chase steps and the 2^0 run's, keeps the
+    spectrum of the 2^0 run (scaled) and its Z; rows into out["filter"]."""
+    Hs = filter_hessenberg(MAIN_KDIM, seed=MAIN_KDIM)
+    norm = float(np.linalg.norm(Hs))
+    w = np.linalg.eigvals(Hs)
+    for dtype, e in FILTER_PRESCALE:
+        H0 = torch.from_numpy(Hs).to(dev, dtype)
+        Ht = torch.from_numpy(Hs * 2.0 ** e).to(dev, dtype)
+        shifts = hess._filter_shifts(Ht, MAIN_KDIM // 2)
+        Hf, Z, work = hess_ops.francis_filter_sweeps(Ht, *shifts[:5])
+        Hp, _, pwork = hess_ops.francis_filter_sweeps_reference(Ht, *shifts[:5])
+        _, Z0, work0 = hess_ops.francis_filter_sweeps(
+            H0, *hess._filter_shifts(H0, MAIN_KDIM // 2)[:5])
+        n, s = int(shifts[3]), 2.0 ** -e
+        # held at 2^0 (an exact scale): numpy's eig need not hold at 2^-520
+        kept = np.linalg.eigvals(Hf.double().cpu().numpy()[:n, :n] * s)
+        d_plain = match_dist(kept, np.linalg.eigvals(Hp.double().cpu().numpy()[:n, :n] * s)) / norm
+        d_lead = match_dist(kept, w[np.argsort(-np.abs(w))][:n]) / norm
+        d_z = float((Z - Z0).abs().max())
+        row = dict(kdim=MAIN_KDIM, dtype=str(dtype), scale_exp=e, n=n,
+                   ok=bool(shifts[5] & shifts[4]), sweeps=int(work[0]), steps=int(work[1]),
+                   plain_sweeps=int(pwork[0]), plain_steps=int(pwork[1]),
+                   sweeps_2_pow_0=int(work0[0]), kept_vs_plain=d_plain, kept_vs_lead=d_lead,
+                   z_vs_2_pow_0=d_z, finite=bool(torch.isfinite(Hf).all()),
+                   max_abs_err=d_plain * norm)
+        out["filter"].append(row)
+        print(f"francis_filter_sweeps kdim {MAIN_KDIM} {dtype} at 2^{e}: {row['sweeps']} sweeps "
+              f"({row['steps']} chase steps; plain {row['plain_sweeps']}, {row['plain_steps']}; "
+              f"at 2^0 {row['sweeps_2_pow_0']}), kept spectrum vs plain {d_plain:.2e} and vs "
+              f"the {n} largest {d_lead:.2e} of ||H||_F at 2^0, Z vs the 2^0 run's {d_z:.2e}")
+        check(row["ok"] and row["finite"]
+              and [row["sweeps"], row["steps"]] == [row["plain_sweeps"], row["plain_steps"]]
+              and row["sweeps"] == row["sweeps_2_pow_0"] > 0,
+              f"francis_filter_sweeps at 2^{e} {dtype}: {row}")
+        tol = FILTER_EIG_TOL[dtype]
+        check(d_plain <= tol and d_lead <= tol and d_z <= SCHUR_ORTH_TOL[dtype],
+              f"francis_filter_sweeps at 2^{e} {dtype}: kept spectrum or Z off (gate {tol}): {row}")
+
+
 def check_buffer(kind, kdim, p, k):
     """The ``(kdim + p, kdim)`` buffer of a check (tests/test_torch_hessenberg.py
     _check_buffer): a block Arnoldi band (``band``), the Krylov-Schur arrow
@@ -2415,7 +2550,9 @@ def ritz_inputs():
               for n, k in ((40, 29), (128, 100))]
     cases += [(f"{kind}{kdim}_p{p}_keff{k}", check_buffer(kind, kdim, p, k), k, p, kdim // 2, 0.3)
               for kind, kdim, p, k in (("band", 40, 2, 34), ("band", 64, 4, 60),
-                                       ("band", 170, 2, 165), ("arrow", 40, 1, 40),
+                                       ("band", 97, 2, 95), ("band", 170, 2, 165),
+                                       ("band", 300, 4, 296), ("arrow", 40, 1, 40),
+                                       ("arrow", 200, 1, 200),
                                        ("arrow", 40, 1, 37), ("dups", 40, 1, 36),
                                        ("dups", 40, 1, 40))]
     return cases
@@ -2655,6 +2792,7 @@ def hessenberg_kernels(dev, tag):
             filter_checks(dtype, filter_cases, plain, out)
             ritz_checks(dev, dtype, ritz_cases, plain, out)
             ordschur_checks(dtype, ordschur_cases[dtype], plain, out)
+        filter_prescale_checks(dev, out)
     finally:
         pool.shutdown(cancel_futures=True)
     for p in (1, 2):
@@ -2689,8 +2827,9 @@ def lagging_warp_check(dev, tag, build_s):
     (-DLK_LAG_WARP=1: one warp sleeps at the start of every stretch between
     two barriers; built in ``build_s`` seconds, in phase 2) against the
     shipping build, bit for bit, at LAG_NS in f32 and f64: the Schur kernel
-    with Z and the split and without, the filter, and the ordschur kernel on
-    a random mask.  A read that depends
+    with Z and the split and without, the filter, the ordschur kernel on
+    a random mask, and the Ritz kernel on an Arnoldi buffer (its register
+    path) and a band with p = 2 (its general path).  A read that depends
     on which warp gets there first gives other outputs under the lag."""
     lib = _build.load_lagging()
     check(lib is not _build.load(), "the lagging-warp build replaced the shipping library")
@@ -2714,6 +2853,13 @@ def lagging_warp_check(dev, tag, build_s):
             want = hess_ops.launch_ordschur(_build.load, T, Z, mask)
             got = hess_ops.launch_ordschur(_build.load_lagging, T, Z, mask)
             cases[f"ordschur{n}_{name}"] = bit_equal(got, want) and int(want[4]) > 0
+            for label, He, k, p in (("arnoldi", arnoldi_hessenberg(n, seed=n), n, 1),
+                                    ("band", check_buffer("band", n, 2, n - 2), n - 2, 2)):
+                He = torch.from_numpy(He).to(dev, dtype)
+                _, _, wr, wi, _, ok, _ = hess_ops.hessenberg_schur(He[:n].contiguous(), k)
+                want = hess_ops.launch_ritz(_build.load, He, wr, wi, k, ok, 1e-6, 16, p)
+                got = hess_ops.launch_ritz(_build.load_lagging, He, wr, wi, k, ok, 1e-6, 16, p)
+                cases[f"ritz_{label}{n}_{name}"] = bit_equal(got, want)
     torch.cuda.synchronize()
     print(f"{tag} lagging-warp build (-DLK_LAG_WARP=1) built in {build_s:.2f} s; outputs "
           f"bit-equal to the shipping kernels': {cases}")
@@ -2783,6 +2929,63 @@ def ordschur_times(dev, tag):
                   f"call, {swaps} swaps, {row['us_a_swap']:.3f} us a swap (bound "
                   f"{bound * 1e3:.3f} us by {bound_by}; {where}); plain on the card "
                   f"{plain_ms:.1f} ms; host path (read, TRSEN, copy back) {host_ms:.3f} ms")
+    return rows
+
+
+def kernel_turns(dev, tag):
+    """Phase 33 (g): the Ritz kernel (with the count's fill; Arnoldi
+    buffers at TURN_RITZ_KDIMS) and the ordschur kernel (a random mask at
+    ORDSCHUR_TIME_KDIMS) beside the parent commit's kernels, built from its
+    sources in PARENT_DIR, on the same inputs: ten calls a sample behind a
+    spacer, the two alternating sample by sample, in two rounds (parent
+    first, then this tree first), each side the mean of its two medians.
+    None, and said so, without the parent's tree."""
+    parent = parent_ops()
+    if parent is None:
+        print(f"{tag} no parent tree at {PARENT_DIR}: the kernels are not timed in turns with "
+              "the parent's")
+        return None
+    p_ops = parent[0]
+    rows = {}
+
+    def turns(key, fns, per_swap=1):
+        got = {"parent": [], "change": []}
+        for order in (("parent", "change"), ("change", "parent")):
+            ms = alternating_ms({k: fns[k] for k in order}, runs=10, per_run=10, spacer=True)
+            for k in order:
+                got[k].append(ms[k])
+        row = {f"{k}_ms": statistics.mean(v) for k, v in got.items()}
+        row.update({f"{k}_rounds_ms": v for k, v in got.items()})
+        row["change_over_parent"] = row["change_ms"] / row["parent_ms"]
+        if per_swap > 1:
+            row.update(swaps=per_swap, parent_us_a_swap=row["parent_ms"] * 1e3 / per_swap,
+                       change_us_a_swap=row["change_ms"] * 1e3 / per_swap)
+        rows[key] = row
+        print(f"{tag} turns {key}: parent {row['parent_ms']:.4f} ms {got['parent']}, this tree "
+              f"{row['change_ms']:.4f} ms {got['change']} ({row['change_over_parent']:.3f}x)"
+              + (f", {row['parent_us_a_swap']:.3f} -> {row['change_us_a_swap']:.3f} us a swap"
+                 if per_swap > 1 else ""))
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        for kdim in TURN_RITZ_KDIMS:
+            He = torch.from_numpy(arnoldi_hessenberg(kdim, seed=kdim)).to(dev, dtype)
+            wr, wi, ok = hess.hessenberg_eigvals(He[:kdim].contiguous(), kdim)
+            want = hess_ops.ritz_check(He, wr, wi, ok, kdim, 1e-6, 16)
+            got = p_ops.ritz_check(He, wr, wi, ok, kdim, 1e-6, 16)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[5], want[5]),
+                  f"ritz_check kdim {kdim} {dtype}: the parent's values or count differ")
+            turns(f"ritz{kdim}_{name}",
+                  {"parent": lambda: p_ops.ritz_check(He, wr, wi, ok, kdim, 1e-6, 16),
+                   "change": lambda: hess_ops.ritz_check(He, wr, wi, ok, kdim, 1e-6, 16)})
+        for n in ORDSCHUR_TIME_KDIMS:
+            T, Z, mask = ordschur_input(dev, dtype, n, "random")
+            want = hess_ops.ordschur(T, Z, mask)
+            got = p_ops.ordschur(T, Z, mask)
+            check(bit_equal(got, want), f"ordschur kdim {n} {dtype}: the parent's outputs differ")
+            turns(f"ordschur{n}_{name}", {"parent": lambda: p_ops.ordschur(T, Z, mask),
+                                          "change": lambda: hess_ops.ordschur(T, Z, mask)},
+                  per_swap=int(want[4]))
     return rows
 
 
@@ -3282,20 +3485,39 @@ def main():
     print(f"nvcc: {run([nvcc, '--version']).splitlines()[-1]}")
     tag = f"[{gpu}]"
 
-    # 2. build from the sources, into a clean build directory
-    # (and the lagging-warp build of phase 33 (h) beside it, in a thread)
+    # 2. build from the sources, into a clean build directory (and beside
+    # it, in threads, the lagging-warp build of phase 33 (h) and, when its
+    # tree is there, the parent commit's of phase 33 (g))
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
-    with ThreadPoolExecutor(1) as pool:
+    parent = parent_ops()
+    if parent is not None:
+        shutil.rmtree(parent[1].BUILD_DIR, ignore_errors=True)
+    with ThreadPoolExecutor(2) as pool:
         lag_build = pool.submit(timed, _build.build, "lag")
+        parent_build = pool.submit(timed, parent[1].build) if parent is not None else None
         t0 = time.perf_counter()
         lib_path = _build.build()
         _build.load()
         results["build_s"] = time.perf_counter() - t0
     results["lag_build_s"] = lag_build.result()[1]
-    print(f"build: {lib_path.name} in {results['build_s']:.2f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
-            print(f"  {line.strip()}")
+    results["parent_build_s"] = parent_build.result()[1] if parent_build is not None else None
+    print(f"build: {lib_path.name} in {results['build_s']:.2f} s; the lagging-warp build "
+          f"{results['lag_build_s']:.2f} s; the parent's "
+          + (f"{results['parent_build_s']:.2f} s" if parent is not None
+             else f"not built (no tree at {PARENT_DIR})"))
+    results["ptxas"] = ptxas_figures(lib_path.with_suffix(".log").read_text())
+    for name, rows in results["ptxas"].items():
+        for r in rows:
+            print(f"  ptxas {name}: {r['instance']}: {r['registers']} registers, "
+                  f"{r['stack_frame']} bytes stack frame, {r['spill_stores']} bytes spill stores, "
+                  f"{r['spill_loads']} bytes spill loads")
+    check(all(results["ptxas"].values()), f"a kernel of the kernels line is missing from the "
+          f"build log: {[k for k, v in results['ptxas'].items() if not v]}")
+    check(all(r["stack_frame"] == 0 and r["spill_stores"] == 0 == r["spill_loads"]
+              for r in results["ptxas"]["ordschur"]), "the ordschur kernel has a stack frame or "
+          f"spills: {results['ptxas']['ordschur']}")
+    check(all(r["spill_stores"] == 0 == r["spill_loads"] for r in results["ptxas"]["ritz_check"]),
+          f"the Ritz kernel spills: {results['ptxas']['ritz_check']}")
     assembler = "native C++" if native.available() else f"numpy ({native.unavailable_reason()})"
     print(f"Block-ELL host assembler: {assembler}")
 
@@ -3469,6 +3691,7 @@ def main():
     results["device_path"] = device_projected_path(dev, tag, results)
     results["hess_times"] = hessenberg_times(dev, tag)
     results["ordschur_times"] = ordschur_times(dev, tag)
+    results["turns"] = kernel_turns(dev, tag)
     print(f"phase 33: {time.perf_counter() - t33:.1f} s")
 
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
@@ -3637,6 +3860,8 @@ def main():
         "library_ms": ht[main_key]["eig_ms"],
         "library": "torch.linalg.eig",
         "check_ms": ht[main_key]["ritz_ms"],
+        "turns_with_parent": {k: v for k, v in (results["turns"] or {}).items()
+                              if k.startswith("ritz")} or None,
         "check_launches": ht["wrapper"]["check_launches"],
         "by_case": {case: {k: v for k, v in row.items()
                            if k.startswith("ritz") or k in ("host_read_eig_ms", "eig_ms")}
@@ -3667,6 +3892,8 @@ def main():
         "bound_by": ot[ORDSCHUR_MAIN]["bound_by"],
         "library_ms": None,
         "host_path_ms": ot[ORDSCHUR_MAIN]["host_path_ms"],
+        "turns_with_parent": {k: v for k, v in (results["turns"] or {}).items()
+                              if k.startswith("ordschur")} or None,
         "by_case": ot,
         "solves": {k: dp[k] for k in ("convdiff_iram", "convdiff_custom",
                                       "convdiff_custom_plain_reorder")},
@@ -3674,6 +3901,8 @@ def main():
             k: r[k] for k in ("ok", "swaps", "max_abs_err", "t_err", "z_err", "factorization")}
             for r in hk["ordschur"]},
     })
+    for entry in kernels["kernels"]:
+        entry["ptxas"] = results["ptxas"][entry["name"]]
     print(json.dumps(kernels))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

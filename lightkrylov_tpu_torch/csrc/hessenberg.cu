@@ -65,8 +65,9 @@
 // (pow2_exp), which leaves every other vector's arithmetic as it was; and an
 // active block whose largest entry lies outside [sqrt(tiny) / eps,
 // eps / sqrt(tiny)] is scaled into [0.5, 1) by a power of two first, T and
-// the eigenvalues unscaled after (range_exp, LAPACK xGEEV's prescale), which
-// changes nothing inside the range.  Scalar formulas round each operation
+// the eigenvalues unscaled after (range_exp, LAPACK xGEEV's prescale; the
+// filter scales H and its shifts alike and unscales Hf), which changes
+// nothing inside the range.  Scalar formulas round each operation
 // as numpy does, and the small products of the chase, the closing rotation and the
 // split are the plain version's ordered sums (utils/hessenberg.py
 // _ordered_rows: sum3 and sum2 below), so on a Hessenberg input the kernel
@@ -748,6 +749,7 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
               const void* nkeep_ptr, int nkeep_bytes, long long nkeep_val, const void* pure_ptr,
               int pure_bytes, long long pure_val, int* work, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[HS_MAX_WARPS];
   __shared__ Decision<T> dec[2];
   __shared__ T stage[6];
   const int ldh = HS ? (n | 1) : n, ldz = ZS ? (n | 1) : n;
@@ -760,9 +762,16 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
   }
   if constexpr (ZS) Z = base;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
+  // the range prescale of H and the shifts (range_exp; the sweeps' first
+  // vector is quadratic in the scale), undone on Hf; Z does not depend on it
+  T m = T(0);
+  for (int i = warp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) m = maxnan(m, fabs(Hin[i * n + j]));
+  const int e = range_exp(block_max(m, red));
   for (int i = warp; i < n; i += nw)
     for (int j = lane; j < n; j += 32) {
-      H[i * ldh + j] = Hin[i * n + j];
+      const T v = Hin[i * n + j];
+      H[i * ldh + j] = e ? ldexp(v, -e) : v;
       Z[i * ldz + j] = i == j ? T(1) : T(0);
     }
   const long long nkeep = int_arg(nkeep_ptr, nkeep_bytes, nkeep_val);
@@ -807,8 +816,15 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
             const int ja = 2 * j < n - 1 ? 2 * j : n - 1;
             const int jb = 2 * j + 1 < n - 1 ? 2 * j + 1 : n - 1;
             const long long ia = order[ja], ib = order[jb];
-            const T s = radd(wr[ia], wr[ib]);
-            const T t = rsub(rmul(wr[ia], wr[ib]), rmul(wi[ia], wi[ib]));
+            T ar = wr[ia], br = wr[ib], ai = wi[ia], bi = wi[ib];
+            if (e) {
+              ar = ldexp(ar, -e);
+              br = ldexp(br, -e);
+              ai = ldexp(ai, -e);
+              bi = ldexp(bi, -e);
+            }
+            const T s = radd(ar, br);
+            const T t = rsub(rmul(ar, br), rmul(ai, bi));
             first_vector(H, ldh, 0, s, t, d.x, d.y, d.z);
           }
         }
@@ -823,6 +839,11 @@ filter_kernel(const T* __restrict__ Hin, T* Hout, T* Zout, const T* __restrict__
     }
   }
   __syncthreads();
+  if (e) {  // Hf unscaled
+    for (int i = warp; i < n; i += nw)
+      for (int j = lane; j < n; j += 32) H[i * ldh + j] = ldexp(H[i * ldh + j], e);
+    __syncthreads();
+  }
   if constexpr (HS) copy_out(H, ldh, Hout, n, false);
   if constexpr (ZS)
     copy_out(Z, ldz, Zout, n, true);

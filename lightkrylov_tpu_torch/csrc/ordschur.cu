@@ -17,19 +17,27 @@
 // - One CTA, a thread a column of T for the row update and a thread a row
 //   of T and Z for the column update (ops/hessenberg.py ordschur_geometry():
 //   geometry()'s warps; T in shared memory when it fits, Z too when both
-//   do, rows of odd stride n | 1; else the output buffers).  Three barriers
-//   a swap, none inside the 4 x 4 work.
+//   do, rows of odd stride n | 1; else the output buffers).  Two barriers a
+//   swap, none inside the 4 x 4 work.
 // - Warp 0 finds the next swap with a ballot a chunk of 32 positions over
 //   the subdiagonal and the mask: the first block start whose block is
-//   unselected with a selected block right below it.  Its lane 0 forms the
-//   transform and the test and publishes them in shared memory.
+//   unselected with a selected block right below it.  A swap changes no
+//   block before its own, so the search starts at the block before the last
+//   swap's.  Every lane of warp 0 then forms the transform, specialised at
+//   compile time for the block sizes (n1, n2), every array at a fixed index
+//   (no stack frame), and lane e < m^2 one entry of the new window (Q^T W) Q
+//   and of the test's coupling; lane 0 publishes the transform.
+// - After the barrier, warp 0 writes the window, and the other entries of
+//   the four rows of T, the four columns of T above the window and those of
+//   Z are updated together: they are disjoint.
 // - The test holds the annihilated coupling resid to 50 eps (max |T| + 1).
-//   Lane 0 first holds it to 50 eps (L + 1), L = max |W| of the window, a
+//   Warp 0 first holds it to 50 eps (L + 1), L = max |W| of the window, a
 //   lower bound of max |T|: a swap that passes there passes the full test,
 //   so only the rest (none on the restarts' inputs, in practice) pays the
 //   CTA's reduction of max |T|, and the decision is the full test's.
-// - The mask is made pair-consistent in the kernel and kept in the sel
-//   output; nothing is read by the host, nothing allocated.
+// - The mask is made pair-consistent in the kernel and kept in shared
+//   memory while the loop runs, then in the sel output; nothing is read by
+//   the host, nothing allocated.
 //
 // The arithmetic is the plain version's (utils/hessenberg.py
 // _ordschur_plain, _swap_plain, _solve_pivoted, _householder_q), operation
@@ -112,82 +120,122 @@ template <typename T> __device__ T block_max(T v, T* red) {
   return m;
 }
 
-// A x = b for the q x q matrix A (row stride 4) by Gaussian elimination with
-// partial pivoting (the first largest |a| of the column), then back
-// substitution (utils/hessenberg.py _solve_pivoted); A and b are overwritten
-template <typename T> __device__ void solve_pivoted(T* A, T* b, int q, T* x) {
-  for (int j = 0; j < q; ++j) {
+// A x = b for the Q x Q matrix A by Gaussian elimination with partial
+// pivoting (the first largest |a| of the column), then back substitution
+// (utils/hessenberg.py _solve_pivoted); A and b are overwritten.  Every index
+// is fixed at compile time: the row swap is a select on the pivot's row.
+// Called by all of warp 0 on the same operands: a step's multipliers,
+// independent, are one division, row r's on lane r.
+template <typename T, int Q>
+__device__ __forceinline__ void solve_pivoted(T (&A)[Q][Q], T (&b)[Q], T (&x)[Q], int lane) {
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
     int p = j;
-    for (int r = j + 1; r < q; ++r)
-      if (fabs(A[r * 4 + j]) > fabs(A[p * 4 + j])) p = r;
-    if (p != j) {
-      for (int c = 0; c < q; ++c) {
-        const T t = A[j * 4 + c];
-        A[j * 4 + c] = A[p * 4 + c];
-        A[p * 4 + c] = t;
+    T best = fabs(A[j][j]);
+#pragma unroll
+    for (int r = j + 1; r < Q; ++r)
+      if (fabs(A[r][j]) > best) {
+        p = r;
+        best = fabs(A[r][j]);
       }
-      const T t = b[j];
-      b[j] = b[p];
-      b[p] = t;
-    }
-    for (int r = j + 1; r < q; ++r) {
-      const T l = A[r * 4 + j] / A[j * 4 + j];
-      for (int c = j + 1; c < q; ++c) A[r * 4 + c] = rsub(A[r * 4 + c], rmul(l, A[j * 4 + c]));
+#pragma unroll
+    for (int r = j + 1; r < Q; ++r)
+      if (p == r) {
+#pragma unroll
+        for (int c = 0; c < Q; ++c) {
+          const T t = A[j][c];
+          A[j][c] = A[r][c];
+          A[r][c] = t;
+        }
+        const T t = b[j];
+        b[j] = b[r];
+        b[r] = t;
+      }
+    T num = A[j + 1 < Q ? j + 1 : j][j];
+#pragma unroll
+    for (int r = j + 2; r < Q; ++r)
+      if (lane == r) num = A[r][j];
+    const T lq = num / A[j][j];
+#pragma unroll
+    for (int r = j + 1; r < Q; ++r) {
+      const T l = __shfl_sync(FULL, lq, r);
+#pragma unroll
+      for (int c = j + 1; c < Q; ++c) A[r][c] = rsub(A[r][c], rmul(l, A[j][c]));
       b[r] = rsub(b[r], rmul(l, b[j]));
     }
   }
-  for (int r = q - 1; r >= 0; --r) {
+#pragma unroll
+  for (int r = Q - 1; r >= 0; --r) {
     T acc = b[r];
-    for (int c = r + 1; c < q; ++c) acc = rsub(acc, rmul(A[r * 4 + c], x[c]));
-    x[r] = acc / A[r * 4 + r];
+#pragma unroll
+    for (int c = r + 1; c < Q; ++c) acc = rsub(acc, rmul(A[r][c], x[c]));
+    x[r] = acc / A[r][r];
   }
 }
 
-// Q (m x m, row stride 4) of the complete QR of the m x q matrix R (row
-// stride 2, q < m) by Householder reflectors in LAPACK's convention
-// (utils/hessenberg.py _householder_q); R is overwritten
-template <typename T> __device__ void householder_q(T* R, int m, int q, T* Q) {
-  T v[2][4], tau[2];
-  for (int j = 0; j < q; ++j) {
+// Q (M x M) of the complete QR of the M x NQ matrix R (NQ < M) by
+// Householder reflectors in LAPACK's convention (utils/hessenberg.py
+// _householder_q); R is overwritten.  Called by all of warp 0 on the same
+// operands: a reflector's tau and 1 / (alpha - beta) are one division, on
+// lanes 0 and 1.
+template <typename T, int M, int NQ>
+__device__ __forceinline__ void householder_q(T (&R)[M][NQ], T (&Qm)[M][M], int lane) {
+  T v[NQ][M], tau[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
     // ||x|| on the column scaled by the power of two of its largest entry
     T mx = T(0);
-    for (int r = j; r < m; ++r) mx = maxnan(mx, fabs(R[r * 2 + j]));
+#pragma unroll
+    for (int r = j; r < M; ++r) mx = maxnan(mx, fabs(R[r][j]));
     int e = 0;
     if (mx > T(0) && isfinite(mx)) frexp(mx, &e);
     T ss = T(0);
-    for (int r = j + 1; r < m; ++r) {
-      const T t = ldexp(R[r * 2 + j], -e);
+#pragma unroll
+    for (int r = j + 1; r < M; ++r) {
+      const T t = ldexp(R[r][j], -e);
       ss = radd(ss, rmul(t, t));
     }
-    for (int r = 0; r < 4; ++r) v[j][r] = r == j ? T(1) : T(0);
+#pragma unroll
+    for (int r = 0; r < M; ++r) v[j][r] = r == j ? T(1) : T(0);
     tau[j] = T(0);
     if (ss != T(0)) {
-      const T alpha = R[j * 2 + j];
+      const T alpha = R[j][j];
       const T a = ldexp(alpha, -e);
       const T h = ldexp(sqrt(radd(rmul(a, a), ss)), e);
       const T beta = alpha >= T(0) ? -h : h;
-      tau[j] = rsub(beta, alpha) / beta;
-      const T scl = T(1) / rsub(alpha, beta);
-      for (int r = j + 1; r < m; ++r) v[j][r] = rmul(R[r * 2 + j], scl);
-      for (int c = j + 1; c < q; ++c) {
+      const bool odd = lane & 1;
+      const T q = (odd ? T(1) : rsub(beta, alpha)) / (odd ? rsub(alpha, beta) : beta);
+      tau[j] = __shfl_sync(FULL, q, 0);
+      const T scl = __shfl_sync(FULL, q, 1);
+#pragma unroll
+      for (int r = j + 1; r < M; ++r) v[j][r] = rmul(R[r][j], scl);
+#pragma unroll
+      for (int c = j + 1; c < NQ; ++c) {
         T w = T(0);
-        for (int r = j; r < m; ++r) w = radd(w, rmul(v[j][r], R[r * 2 + c]));
-        for (int r = j; r < m; ++r)
-          R[r * 2 + c] = rsub(R[r * 2 + c], rmul(tau[j], rmul(v[j][r], w)));
+#pragma unroll
+        for (int r = j; r < M; ++r) w = radd(w, rmul(v[j][r], R[r][c]));
+#pragma unroll
+        for (int r = j; r < M; ++r) R[r][c] = rsub(R[r][c], rmul(tau[j], rmul(v[j][r], w)));
       }
     }
   }
-  for (int r = 0; r < 4; ++r)
-    for (int c = 0; c < 4; ++c) Q[r * 4 + c] = r == c ? T(1) : T(0);
-  for (int j = q - 1; j >= 0; --j)
-    for (int c = 0; c < m; ++c) {
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < M; ++c) Qm[r][c] = r == c ? T(1) : T(0);
+#pragma unroll
+  for (int j = NQ - 1; j >= 0; --j)
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
       T w = T(0);
-      for (int r = j; r < m; ++r) w = radd(w, rmul(v[j][r], Q[r * 4 + c]));
-      for (int r = j; r < m; ++r) Q[r * 4 + c] = rsub(Q[r * 4 + c], rmul(tau[j], rmul(v[j][r], w)));
+#pragma unroll
+      for (int r = j; r < M; ++r) w = radd(w, rmul(v[j][r], Qm[r][c]));
+#pragma unroll
+      for (int r = j; r < M; ++r) Qm[r][c] = rsub(Qm[r][c], rmul(tau[j], rmul(v[j][r], w)));
     }
 }
 
-// The decision lane 0 of warp 0 publishes: the swap (i, n1, n2), what to
+// What warp 0 publishes for the other warps: the swap (i, n1, n2), what to
 // do (-1 stop with ok, 1 apply, 2 hold resid to the full test first), the
 // transform Q (row stride 4) and the annihilated coupling resid
 template <typename T> struct Swap {
@@ -202,69 +250,112 @@ template <typename T> __device__ __forceinline__ T threshold(T x) {
   return rmul(rmul(T(50), eps_of<T>()), radd(x, T(1)));
 }
 
-// The direct swap of the blocks (n1, n2) leading the window at (i, i) of
-// T (row stride ld) into d: K = kron(I, A11) - kron(A22^T, I) plus the ridge
-// eps (max |K| + 1), K x = -vec(A12), Q of [X; I], then (Q^T W) Q's
-// lower-left block (utils/hessenberg.py _swap_plain)
-template <typename T>
-__device__ void form_swap(const T* Tm, int ld, int i, int n1, int n2, Swap<T>& d) {
-  const int m = n1 + n2, q = n1 * n2;
-  T W[16];
+// The direct swap of the blocks (N1, N2) leading the window at (i, i) of T
+// (row stride ld), by every lane of warp 0: K = kron(I, A11) - kron(A22^T, I)
+// plus the ridge eps (max |K| + 1), K x = -vec(A12), Q of [X; I]
+// (utils/hessenberg.py _swap_plain); then lane e < M^2 forms entry
+// (e / M, e % M) of the new window (Q^T W) Q, each entry's sums in the
+// plain version's order (the row update's, then the column update's), with
+// the exact zeros below the new block diagonal, into *wv.  The test's
+// resid is the warp's max of the lower-left (N1, N2) block.  Lane 0
+// publishes the swap into d.
+template <typename T, int N1, int N2>
+__device__ __forceinline__ void form_swap(const T* Tm, int ld, int i, int lane, Swap<T>& d,
+                                          T* wv, int* widx) {
+  constexpr int M = N1 + N2, Q = N1 * N2;
+  T W[M][M];
   T L = T(0);
-  for (int r = 0; r < m; ++r)
-    for (int c = 0; c < m; ++c) {
-      W[r * 4 + c] = Tm[(i + r) * ld + i + c];
-      L = maxnan(L, fabs(W[r * 4 + c]));
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      W[r][c] = Tm[(i + r) * ld + i + c];
+      L = maxnan(L, fabs(W[r][c]));
     }
-  T K[16], rhs[4], x[4];
-  T kmax = T(0);
-  for (int c = 0; c < n2; ++c)
-    for (int r = 0; r < n1; ++r) {
-      const int a = c * n1 + r;
-      rhs[a] = -W[r * 4 + n1 + c];
-      for (int c2 = 0; c2 < n2; ++c2)
-        for (int r2 = 0; r2 < n1; ++r2) {
-          const int b = c2 * n1 + r2;
+  T K[Q][Q], rhs[Q], x[Q];
+#pragma unroll
+  for (int c = 0; c < N2; ++c)
+#pragma unroll
+    for (int r = 0; r < N1; ++r) {
+      const int a = c * N1 + r;
+      rhs[a] = -W[r][N1 + c];
+#pragma unroll
+      for (int c2 = 0; c2 < N2; ++c2)
+#pragma unroll
+        for (int r2 = 0; r2 < N1; ++r2) {
           T k = T(0);
           if (c == c2 && r == r2)
-            k = rsub(W[r * 4 + r], W[(n1 + c) * 4 + n1 + c]);
+            k = rsub(W[r][r], W[N1 + c][N1 + c]);
           else if (c == c2)
-            k = W[r * 4 + r2];
+            k = W[r][r2];
           else if (r == r2)
-            k = -W[(n1 + c2) * 4 + n1 + c];
-          K[a * 4 + b] = k;
+            k = -W[N1 + c2][N1 + c];
+          K[a][c2 * N1 + r2] = k;
         }
     }
-  for (int a = 0; a < q; ++a)
-    for (int b = 0; b < q; ++b) kmax = maxnan(kmax, fabs(K[a * 4 + b]));
+  T kmax = T(0);
+#pragma unroll
+  for (int a = 0; a < Q; ++a)
+#pragma unroll
+    for (int b = 0; b < Q; ++b) kmax = maxnan(kmax, fabs(K[a][b]));
   const T reg = rmul(eps_of<T>(), radd(kmax, T(1)));
-  for (int a = 0; a < q; ++a) K[a * 4 + a] = radd(K[a * 4 + a], reg);
-  solve_pivoted(K, rhs, q, x);
-  T M[8];
-  for (int r = 0; r < 4; ++r)
-    for (int c = 0; c < 2; ++c) M[r * 2 + c] = T(0);
-  for (int c = 0; c < n2; ++c) {
-    for (int r = 0; r < n1; ++r) M[r * 2 + c] = x[c * n1 + r];
-    M[(n1 + c) * 2 + c] = T(1);
+#pragma unroll
+  for (int a = 0; a < Q; ++a) K[a][a] = radd(K[a][a], reg);
+  solve_pivoted<T, Q>(K, rhs, x, lane);
+  T Mx[M][N2];
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < N2; ++c) Mx[r][c] = T(0);
+#pragma unroll
+  for (int c = 0; c < N2; ++c) {
+#pragma unroll
+    for (int r = 0; r < N1; ++r) Mx[r][c] = x[c * N1 + r];
+    Mx[N1 + c][c] = T(1);
   }
-  householder_q(M, m, n2, d.q);
-  const T* Q = d.q;
-  T resid = T(0);
-  for (int r = n2; r < m; ++r) {
-    T U[4];  // row r of Q^T W
-    for (int c = 0; c < m; ++c) {
-      T acc = rmul(Q[r], W[c]);
-      for (int a = 1; a < m; ++a) acc = radd(acc, rmul(Q[a * 4 + r], W[a * 4 + c]));
-      U[c] = acc;
-    }
-    for (int c = 0; c < n2; ++c) {
-      T acc = rmul(U[0], Q[c]);
-      for (int b = 1; b < m; ++b) acc = radd(acc, rmul(U[b], Q[b * 4 + c]));
-      resid = maxnan(resid, fabs(acc));
+  T Qm[M][M];
+  householder_q<T, M, N2>(Mx, Qm, lane);
+  // this lane's entry (r, c) of the new window: Q's columns r and c picked
+  // by selects, so that every index stays fixed
+  const int r = lane / M < M ? lane / M : 0, c = lane % M;
+  T qr[M], qc[M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    qr[a] = Qm[a][0];
+    qc[a] = Qm[a][0];
+#pragma unroll
+    for (int t = 1; t < M; ++t) {
+      if (r == t) qr[a] = Qm[a][t];
+      if (c == t) qc[a] = Qm[a][t];
     }
   }
-  d.resid = resid;
-  d.action = resid <= threshold(L) ? 1 : 2;
+  T u[M];  // row r of Q^T W
+#pragma unroll
+  for (int b = 0; b < M; ++b) {
+    T acc = rmul(qr[0], W[0][b]);
+#pragma unroll
+    for (int a = 1; a < M; ++a) acc = radd(acc, rmul(qr[a], W[a][b]));
+    u[b] = acc;
+  }
+  T w = rmul(u[0], qc[0]);
+#pragma unroll
+  for (int b = 1; b < M; ++b) w = radd(w, rmul(u[b], qc[b]));
+  const bool mine = lane < M * M;
+  const T resid = warp_max(mine && r >= N2 && c < N2 ? fabs(w) : T(0));
+  const bool keep = (N2 == 2 && r == 1 && c == 0) || (N1 == 2 && r == N2 + 1 && c == N2);
+  *wv = r > c && !keep ? T(0) : w;
+  *widx = mine ? (i + r) * ld + i + c : -1;
+  if (lane == 0) {
+    d.resid = resid;
+    d.action = resid <= threshold(L) ? 1 : 2;
+#pragma unroll
+    for (int a = 0; a < M; ++a)
+#pragma unroll
+      for (int b = 0; b < M; ++b) d.q[a * 4 + b] = Qm[a][b];
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (e / 4 >= M || e % 4 >= M) d.q[e] = T(e / 4 == e % 4);
+  }
 }
 
 template <typename T, bool TS, bool ZS>
@@ -283,7 +374,11 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
     Tm = base;
     base += n * ldt;
   }
-  if constexpr (ZS) Zm = base;
+  if constexpr (ZS) {
+    Zm = base;
+    base += nz * ldz;
+  }
+  bool* sel_s = reinterpret_cast<bool*>(base);  // the mask while the loop runs
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
   for (int r = warp; r < n; r += nw)
@@ -292,42 +387,59 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
     for (int c = lane; c < n; c += 32) Zm[r * ldz + c] = Zin[r * n + c];
   // the mask made pair-consistent: a flag on either position of a 2x2 block
   for (int p = tid; p < n; p += nt)
-    sel[p] = sel_in[p] || (p + 1 < n && Tin[(p + 1) * n + p] != T(0) && sel_in[p + 1]) ||
-             (p > 0 && Tin[p * n + p - 1] != T(0) && sel_in[p - 1]);
+    sel_s[p] = sel_in[p] || (p + 1 < n && Tin[(p + 1) * n + p] != T(0) && sel_in[p + 1]) ||
+               (p > 0 && Tin[p * n + p - 1] != T(0) && sel_in[p - 1]);
   __syncthreads();
 
   const long long max_passes = 1LL * n * n + 4;
   long long passes = 0;
-  int swaps = 0;
+  int swaps = 0, last = 0;  // warp 0's: the last swap's position
   bool ok = false;
+  T wv = T(0);  // warp 0's lanes: an entry of the new window and its place
+  int widx = -1;
   for (int step = 0;; ++step) {
     lag(step, 0);
     if (warp == 0) {
-      // the first block start, unselected, with a selected block right below
+      // the first block start, unselected, with a selected block right
+      // below: none lies before the block that precedes the last swap
+      int from = 0;
+      if (last > 1) from = Tm[(last - 1) * ldt + last - 2] == T(0) ? last - 1 : last - 2;
       int i = n;
-      for (int i0 = 0; i0 < n && i == n; i0 += 32) {
-        const int c = i0 + lane;
-        bool cand = false;
-        if (c < n) {
-          const bool start = c == 0 || Tm[c * ldt + c - 1] == T(0);
-          const int nxt = c + 1 + (c + 1 < n && Tm[(c + 1) * ldt + c] != T(0));
-          cand = start && nxt < n && !sel[c] && sel[nxt];
-        }
+      for (int i0 = from; i0 < n && i == n; i0 += 32) {
+        // the loads at indices inside T and the mask, selected after, so
+        // that no branch orders them
+        const int c = i0 + lane < n ? i0 + lane : n - 1;
+        const T below = Tm[c * ldt + (c > 0 ? c - 1 : 0)];
+        const T sub = Tm[(c + 1 < n ? c + 1 : c) * ldt + c];
+        const bool sc = sel_s[c], s1 = sel_s[c + 1 < n ? c + 1 : c];
+        const bool s2 = sel_s[c + 2 < n ? c + 2 : c];
+        const bool start = c == 0 || below == T(0);
+        const int nxt = c + 1 + (c + 1 < n && sub != T(0));
+        const bool cand = i0 + lane < n && start && nxt < n && !sc && (nxt == c + 1 ? s1 : s2);
         const unsigned b = __ballot_sync(FULL, cand);
         if (b) i = i0 + __ffs(b) - 1;
       }
-      if (lane == 0) {
-        d.action = -1;
-        d.ok = i >= n;
-        if (i < n && passes < max_passes) {
-          const int n1 = 1 + (i + 1 < n && Tm[(i + 1) * ldt + i] != T(0));
-          const int j = i + n1 < n - 1 ? i + n1 : n - 1;
-          const int n2 = 1 + (j + 1 < n && Tm[(j + 1) * ldt + j] != T(0));
+      if (i < n && passes < max_passes) {
+        const int n1 = 1 + (i + 1 < n && Tm[(i + 1) * ldt + i] != T(0));
+        const int j = i + n1 < n - 1 ? i + n1 : n - 1;
+        const int n2 = 1 + (j + 1 < n && Tm[(j + 1) * ldt + j] != T(0));
+        if (n1 == 1 && n2 == 1)
+          form_swap<T, 1, 1>(Tm, ldt, i, lane, d, &wv, &widx);
+        else if (n1 == 1)
+          form_swap<T, 1, 2>(Tm, ldt, i, lane, d, &wv, &widx);
+        else if (n2 == 1)
+          form_swap<T, 2, 1>(Tm, ldt, i, lane, d, &wv, &widx);
+        else
+          form_swap<T, 2, 2>(Tm, ldt, i, lane, d, &wv, &widx);
+        if (lane == 0) {
           d.i = i;
           d.n1 = n1;
           d.n2 = n2;
-          form_swap(Tm, ldt, i, n1, n2, d);
         }
+        last = i;
+      } else if (lane == 0) {
+        d.action = -1;
+        d.ok = i >= n;
       }
     }
     cta_sync();
@@ -349,11 +461,15 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
     T q[16];
 #pragma unroll
     for (int e = 0; e < 16; ++e) q[e] = d.q[e];
-    // rows i..i+m-1 <- Q^T rows, over columns [i, n): a thread a column
-    for (int c = i + tid; c < n; c += nt) {
+    // the window, by warp 0; rows i..i+m-1 <- Q^T rows over columns
+    // [i+m, n), a thread a column; columns i..i+m-1 <- columns Q over rows
+    // [0, i) of T and every row of Z, a thread a row: disjoint, so no
+    // barrier between them
+    if (warp == 0 && widx >= 0) Tm[widx] = wv;
+    for (int c = i + m + tid; c < n; c += nt) {
       T a[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a[k] = k < m ? Tm[(i + k) * ldt + c] : T(0);
+      for (int k = 0; k < 4; ++k) a[k] = Tm[(i + (k < m ? k : 0)) * ldt + c];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (r >= m) break;
@@ -364,16 +480,11 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
         Tm[(i + r) * ldt + c] = acc;
       }
     }
-    cta_sync();
-    lag(step, 2);
-    // columns i..i+m-1 <- columns Q, over rows [0, i+m) of T, with the exact
-    // zeros below the new block diagonal (the block of size n2 leads, the
-    // block of size n1 follows), and over every row of Z
-    for (int r = tid; r < i + m; r += nt) {
+    for (int r = tid; r < i + nz; r += nt) {
+      T* row = r < i ? Tm + r * ldt : Zm + (r - i) * ldz;
       T a[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a[k] = k < m ? Tm[r * ldt + i + k] : T(0);
-      const int rw = r - i;
+      for (int k = 0; k < 4; ++k) a[k] = row[i + (k < m ? k : 0)];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c >= m) break;
@@ -381,31 +492,16 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
 #pragma unroll
         for (int k = 1; k < 4; ++k)
           if (k < m) acc = radd(acc, rmul(a[k], q[k * 4 + c]));
-        const bool keep = (n2 == 2 && rw == 1 && c == 0) || (n1 == 2 && rw == n2 + 1 && c == n2);
-        if (rw > c && !keep) acc = T(0);
-        Tm[r * ldt + i + c] = acc;
-      }
-    }
-    for (int r = tid; r < nz; r += nt) {
-      T a[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) a[k] = k < m ? Zm[r * ldz + i + k] : T(0);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c >= m) break;
-        T acc = rmul(a[0], q[c]);
-#pragma unroll
-        for (int k = 1; k < 4; ++k)
-          if (k < m) acc = radd(acc, rmul(a[k], q[k * 4 + c]));
-        Zm[r * ldz + i + c] = acc;
+        row[i + c] = acc;
       }
     }
     if (tid == 0)
-      for (int p = i; p < i + m; ++p) sel[p] = p < i + n2;
+      for (int p = i; p < i + m; ++p) sel_s[p] = p < i + n2;
     ++swaps;
     cta_sync();
   }
   __syncthreads();
+  for (int p = tid; p < n; p += nt) sel[p] = sel_s[p];
   if constexpr (TS)
     for (int r = warp; r < n; r += nw)
       for (int c = lane; c < n; c += 32) Tout[r * n + c] = Tm[r * ldt + c];
@@ -419,11 +515,11 @@ ordschur_kernel(const T* __restrict__ Tin, const T* __restrict__ Zin,
 }
 
 // Shared memory the kernel needs for a geometry: T and Z where they live
-// there, rows of odd stride.  ops/hessenberg.py ordschur_geometry() computes
-// the same.
+// there, rows of odd stride, then the mask (n bytes).  ops/hessenberg.py
+// ordschur_geometry() computes the same.
 long long smem_need(int n, int nz, int elt, bool t_smem, bool z_smem) {
   const long long ld = n | 1;
-  return (t_smem ? 1LL * n * ld * elt : 0) + (z_smem ? 1LL * nz * ld * elt : 0);
+  return (t_smem ? 1LL * n * ld * elt : 0) + (z_smem ? 1LL * nz * ld * elt : 0) + n;
 }
 
 template <typename K> cudaError_t allow_smem(K kernel, bool* done) {

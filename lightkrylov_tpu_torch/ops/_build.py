@@ -11,8 +11,9 @@ raises :class:`KernelCompileError`; nothing falls back to another path.
 
 :func:`load_lagging` builds and loads, beside it and through a handle of its
 own, the same sources with ``-DLK_LAG_WARP=1``: the Francis-QR kernels of
-``csrc/hessenberg.cu`` and the reordering of ``csrc/ordschur.cu`` with one
-warp made to lag in every stretch between two barriers, whose outputs the
+``csrc/hessenberg.cu``, the Ritz kernel's staging in ``csrc/ritz.cu`` and
+the reordering of ``csrc/ordschur.cu`` with one warp made to lag in every
+stretch between two barriers, whose outputs the
 tests hold bit-equal to the shipping kernels' (a check for ordering hazards
 between warps).
 """
@@ -203,7 +204,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                                                 ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
                                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for name in ("lk_ordschur_f32", "lk_ordschur_f64"):
         fn = getattr(lib, name)

@@ -17,7 +17,8 @@ chip:
 - :func:`francis_filter_sweeps` applies the ``kdim // 2`` sweeps of
   ``francis_filter`` (its ``hessenberg.py:687-714``) for a given shift
   order, keep count and ``pure`` flag, all read from device memory;
-- :func:`ritz_check` (``csrc/ritz.cu``, a warp an eigenvalue) solves each
+- :func:`ritz_check` (``csrc/ritz.cu``, a warp an eigenvalue, up to four a
+  CTA) solves each
   eigenvalue's inverse iteration and writes its residual, its place in the
   modulus-descending order and the converged count: ``hessenberg_eigvecs``
   and ``hessenberg_ritz`` of the JAX module after its eigenvalues, the
@@ -128,12 +129,25 @@ def geometry(n: int, itemsize: int, with_z: bool, schur: bool = True) -> Geometr
     return Geometry(warps, h_smem, z_smem, vec + mat * (int(h_smem) + int(z_smem)))
 
 
-class RitzGeometry(NamedTuple):
-    """How one launch of the Ritz kernel lays out (a CTA of one warp an
-    eigenvalue slot): whether its working matrix lives in shared memory, and
-    the dynamic shared memory a CTA takes in bytes."""
+#: Eigenvalue slots (a warp each) a CTA of the Ritz kernel holds at most
+RITZ_MAX_SLOTS = 4
+#: Columns a lane of the Ritz kernel's register path can hold: its
+#: instantiations (``32 * cols >= kdim``); beyond 320 it has none
+RITZ_COLS = (1, 2, 4, 10)
 
+
+class RitzGeometry(NamedTuple):
+    """How one launch of the Ritz kernel lays out: ``slots`` eigenvalue slots
+    (a warp each) a CTA; whether the active block is staged in shared memory
+    (``h_smem``) and the slots' working matrices live there (``w_smem``, else
+    in a global scratch slice a slot); the columns a lane holds on the
+    register path (``cols``, 0 beyond kdim 320: the general path alone); the
+    dynamic shared memory a CTA takes in bytes."""
+
+    slots: int
+    h_smem: bool
     w_smem: bool
+    cols: int
     smem_bytes: int
 
 
@@ -141,27 +155,44 @@ def ordschur_geometry(n: int, nz: int, itemsize: int) -> Geometry:
     """The ordschur kernel's layout for an ``n x n`` ``T`` and an ``nz x n``
     ``Z``: :func:`geometry`'s warps (a thread a column of ``T``'s rows and a
     row of ``T``'s and ``Z``'s columns), ``T`` in shared memory when it fits
-    (rows of odd stride ``n | 1``), ``Z`` too when both do; ``h_smem`` is
-    ``T``'s place.  With ``nz = n``: ``Z`` leaves shared memory at ``n = 120``
-    in f64 and 170 in f32, ``T`` at 170 and 241."""
+    (rows of odd stride ``n | 1``) beside the mask (``n`` bytes), ``Z`` too
+    when all do; ``h_smem`` is ``T``'s place.  With ``nz = n``: ``Z`` leaves
+    shared memory at ``n = 120`` in f64 and 170 in f32, ``T`` at 170 and
+    241."""
     ld = n | 1
     t, z = n * ld * itemsize, nz * ld * itemsize
-    budget = SMEM_LIMIT - SMEM_RESERVED
+    budget = SMEM_LIMIT - SMEM_RESERVED - n
     t_smem = t <= budget
     z_smem = t_smem and t + z <= budget
     warps = min(MAX_WARPS, max(1, -(-n // 32)))
-    return Geometry(warps, t_smem, z_smem, t * int(t_smem) + z * int(z_smem))
+    return Geometry(warps, t_smem, z_smem, t * int(t_smem) + z * int(z_smem) + n)
 
 
 def ritz_geometry(n: int, itemsize: int) -> RitzGeometry:
-    """The Ritz kernel's layout at ``kdim = n``: a CTA's working matrix
-    (``n`` rows of odd stride ``(n + 1) | 1``, real and imaginary parts
-    apart, the right-hand side in its last column) in shared memory when it
-    fits beside the rows' profile (``4 n`` bytes): to ``n = 169`` in f32 and
-    119 in f64; else in a global scratch slice a CTA."""
-    w = 2 * n * ((n + 1) | 1) * itemsize
-    w_smem = w + 4 * n <= SMEM_LIMIT - SMEM_RESERVED
-    return RitzGeometry(w_smem, 4 * n + (w if w_smem else 0))
+    """The Ritz kernel's layout at ``kdim = n``.  A CTA's shared memory holds
+    the prescaled eigenvalues and right-hand side (``4 n`` entries), the
+    profile, its entering rows and counts (``16 n`` bytes), optionally the
+    staged active block (``n`` rows of stride ``n | 1``) and, a slot, the
+    working matrix (``n`` rows of odd stride ``(n + 1) | 1``, real and
+    imaginary parts apart, the right-hand side in its last column) and a copy
+    of the profile (``4 n`` bytes).  Preferred in this order: block and
+    working matrices in shared memory (f32 to n = 136, f64 to 96), the
+    working matrices alone (f32 to 167, f64 to 118), the block alone (f32 to
+    235, f64 to 167), neither; each with as many slots as fit, at most
+    RITZ_MAX_SLOTS and n."""
+    ld = (n + 1) | 1
+    h = n * (n | 1) * itemsize
+    w = 2 * n * ld * itemsize
+    shared = 4 * n * itemsize + 16 * n
+    budget = SMEM_LIMIT - SMEM_RESERVED
+    cols = next((c for c in RITZ_COLS if 32 * c >= n), 0)
+    for h_smem, w_smem in ((True, True), (False, True), (True, False), (False, False)):
+        base = shared + h * h_smem
+        per_slot = w * w_smem + 4 * n
+        slots = min(RITZ_MAX_SLOTS, n, (budget - base) // per_slot)
+        if slots >= 1:
+            return RitzGeometry(slots, h_smem, w_smem, cols, base + slots * per_slot)
+    raise ValueError(f"ritz kernel: kdim {n} leaves no room for one slot's profile")
 
 
 def _check(H, what):
@@ -380,7 +411,8 @@ def launch_ritz(load, H, wr, wi, k_eff=None, ok=True, tol=None, nev=None, p: int
         H.data_ptr(), wr.data_ptr(), wi.data_ptr(), _ptr(okt), okbytes, okval, _ptr(keff),
         kbytes, kval, float(tol) if ritz else 0.0, n if nev is None else int(nev), p, int(ritz),
         _ptr(wr_o), _ptr(wi_o), _ptr(res), Vr.data_ptr(), Vi.data_ptr(), _ptr(n_conv),
-        _ptr(scratch), n, int(geo.w_smem), geo.smem_bytes, _stream(dev))
+        _ptr(scratch), n, geo.slots, int(geo.h_smem), int(geo.w_smem), geo.cols,
+        geo.smem_bytes, _stream(dev))
     _raise_on(err, lib, what)
     return (wr_o, wi_o, res, Vr, Vi, n_conv) if ritz else (Vr, Vi)
 

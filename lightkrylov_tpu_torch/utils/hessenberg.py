@@ -56,9 +56,10 @@ Two departures from the JAX package, in the plain versions and the
 kernels alike: a reflector's or rotation's vector too small to square is
 scaled by a power of two first (:func:`_pow2_scaled`, ROADMAP F10), and a
 block whose largest entry lies outside ``[sqrt(tiny) / eps, eps /
-sqrt(tiny)]`` is scaled into ``[0.5, 1)`` before the Schur core and the
-inverse iteration (:func:`_range_exponent`, LAPACK ``xGEEV``'s prescale,
-ROADMAP F12).  Neither changes a bit inside its range.
+sqrt(tiny)]`` is scaled into ``[0.5, 1)`` before the Schur core, the
+filter's sweeps and the inverse iteration (:func:`_range_exponent`, LAPACK
+``xGEEV``'s prescale, ROADMAP F12 and F14).  Neither changes a bit inside
+its range.
 
 Real dtypes only, as in the JAX package: a complex input raises
 ``TypeError`` (complex projected problems take the host path).
@@ -401,13 +402,19 @@ def _sweeps_plain(H, wr, wi, shift_order, n_keep, pure):
     """The plain version of :func:`francis_filter`'s ``kdim // 2`` sweeps:
     each does its own explicit deflation (the ``dlahqr`` threshold) and
     chases only the top-connected block with the next pair of shifts.
+    ``H`` and the shifts are prescaled as the Schur core's block
+    (:func:`_range_exponent`; the sweeps' first vector is quadratic in the
+    scale) and ``Hf`` unscaled after; ``Z`` does not depend on the scale.
     Returns ``(Hf, Z, work)``, ``work`` (int32) the number of sweeps that
     chased and their chase steps."""
     kdim = H.shape[0]
-    Hc = H.clone()
+    e = _range_exponent(H, kdim)
+    Hc = _ldexp(H, -e).clone()
     Z = _eye(kdim, H)
     n, pure = int(torch.as_tensor(n_keep)), bool(torch.as_tensor(pure))
     wr, wi, order = _np(wr), _np(wi), _np(shift_order)
+    if e:
+        wr, wi = np.ldexp(wr, -e), np.ldexp(wi, -e)
     eps = np.finfo(wr.dtype).eps
     ii = np.arange(kdim - 1)
     active_sweeps = steps = 0
@@ -431,7 +438,8 @@ def _sweeps_plain(H, wr, wi, shift_order, n_keep, pure):
             t = wr[ia] * wr[ib] - wi[ia] * wi[ib]
             steps += _chase(Hc, 0, hi, s, t, Z)
             active_sweeps += 1
-    return Hc, Z, torch.tensor([active_sweeps, steps], dtype=torch.int32, device=H.device)
+    return (_ldexp(Hc, e), Z,
+            torch.tensor([active_sweeps, steps], dtype=torch.int32, device=H.device))
 
 
 def _cmul(ar, ai, br, bi):

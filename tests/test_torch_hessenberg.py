@@ -646,11 +646,12 @@ def test_ordschur_wrapper_takes_the_plain_version_on_the_cpu(rng):
 def test_ordschur_geometry_places_t_and_z_by_the_shared_memory_limit(n, nz, itemsize, t_smem,
                                                                       z_smem):
     """The ordschur kernel keeps ``T`` in shared memory while it fits and
-    ``Z`` (``nz`` rows) while both do, each row of odd stride ``n | 1``."""
+    ``Z`` (``nz`` rows) while both do, each row of odd stride ``n | 1``,
+    beside the mask (``n`` bytes)."""
     geo = kernels.ordschur_geometry(n, nz, itemsize)
     assert (geo.h_smem, geo.z_smem) == (t_smem, z_smem)
     assert geo.smem_bytes <= _BUDGET and geo.warps == min(8, -(-n // 32))
-    assert geo.smem_bytes == (n | 1) * itemsize * (n * t_smem + nz * z_smem)
+    assert geo.smem_bytes == (n | 1) * itemsize * (n * t_smem + nz * z_smem) + n
 
 
 # -- the range prescale of the Schur core (ROADMAP F12) --------------------------
@@ -716,9 +717,10 @@ def test_ritz_check_prescales_a_buffer_out_of_range():
 
 def test_filter_f32_at_2_pow_minus_60_needs_no_prescale():
     """The IRAM filter in float32 on an Arnoldi Hessenberg scaled by 2^-60
-    keeps the leading spectrum as at 2^0 (its sweeps' vectors are scaled
-    already, F10; its shifts come from the prescaled Schur core), so it has
-    no prescale of its own."""
+    keeps the leading spectrum as at 2^0.  It did so before it had a
+    prescale of its own (its sweeps' vectors are scaled already, F10; its
+    shifts come from the prescaled Schur core); the range fault showed
+    further out (test_filter_prescales_a_hessenberg_out_of_range)."""
     Hs = _filter_input(24, 1)
     w = np.linalg.eigvals(Hs)
     for e in (0, -60):
@@ -728,6 +730,40 @@ def test_filter_f32_at_2_pow_minus_60_needs_no_prescale():
         kept = np.linalg.eigvals(Hf.double().numpy()[:n, :n]) * 2.0 ** -e
         assert bool(ok) and _match(kept, w[np.argsort(-np.abs(w))][:n]) < \
             FILTER_TOL[torch.float32] * np.linalg.norm(Hs)
+
+
+@pytest.mark.parametrize("e", [-100, 60])
+def test_filter_prescales_a_hessenberg_out_of_range(e):
+    """The IRAM filter in float32 on an Arnoldi Hessenberg scaled by 2^-100
+    and 2^60 (outside [2^-40, 2^40]): its sweeps scale ``H`` and the shifts
+    into the range first, as the Schur core does (ROADMAP F14), so it keeps
+    the keep count, the sweeps and the kept spectrum of the 2^0 run, scaled,
+    and ``Z`` is that run's.  Unscaled, the sweeps' first vector, quadratic
+    in the scale, left the kept spectrum 0.18 of ||H|| off at 2^-100 and
+    non-finite at 2^60."""
+    Hs = _filter_input(24, 1)
+    H0 = torch.from_numpy(Hs.astype(np.float32))
+    Hf0, Z0, n0, ok0 = H.francis_filter(H0, 12)
+    Hf, Z, n, ok = H.francis_filter(torch.from_numpy((Hs * 2.0 ** e).astype(np.float32)), 12)
+    n = int(n)
+    assert bool(ok) and bool(ok0) and n == int(n0)
+    kept = np.linalg.eigvals(Hf.double().numpy()[:n, :n]) * 2.0 ** -e
+    kept0 = np.linalg.eigvals(Hf0.double().numpy()[:n, :n])
+    assert _match(kept, kept0) < FILTER_TOL[torch.float32] * np.linalg.norm(Hs)
+    assert bool(torch.isfinite(Hf).all())
+    assert np.abs(Z.numpy() - Z0.numpy()).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_filter_prescale_changes_no_bit_in_range(dtype, monkeypatch):
+    """At 2^0 (inside the range) the filter's sweeps give bit-identical
+    outputs with the prescale's code and without it."""
+    A = torch.from_numpy(_filter_input(24, 1).astype(dtype))
+    wr, wi, order, n, pure, _ = H._filter_shifts(A, 12)
+    got = kernels.francis_filter_sweeps_reference(A, wr, wi, order, n, pure)
+    monkeypatch.setattr(H, "_range_exponent", lambda *args: 0)
+    want = kernels.francis_filter_sweeps_reference(A, wr, wi, order, n, pure)
+    assert _bit_equal(got, want) and int(got[2][0]) > 0
 
 
 @pytest.mark.parametrize("kdim", [16, 24])
@@ -967,16 +1003,54 @@ def test_geometry_warps(n, warps, rows):
 
 
 @pytest.mark.parametrize("n, itemsize, w_smem", [
-    (40, 4, True), (40, 8, True), (119, 8, True), (120, 8, False), (169, 4, True),
-    (170, 4, False), (300, 4, False), (300, 8, False)])
+    (40, 4, True), (40, 8, True), (118, 8, True), (119, 8, False), (167, 4, True),
+    (168, 4, False), (300, 4, False), (300, 8, False)])
 def test_ritz_geometry_places_w_by_the_shared_memory_limit(n, itemsize, w_smem):
-    """The Ritz kernel's working matrix (n rows of odd stride, real and
-    imaginary parts) stays in shared memory to n = 169 in f32 and 119 in
-    f64, and never asks for more than a CTA may take."""
+    """The Ritz kernel's working matrices (n rows of odd stride, real and
+    imaginary parts, one a slot) stay in shared memory to n = 167 in f32 and
+    118 in f64, and a launch never asks for more than a CTA may take."""
     g = kernels.ritz_geometry(n, itemsize)
     assert g.w_smem == w_smem
     w = 2 * n * ((n + 1) | 1) * itemsize
-    assert g.smem_bytes == 4 * n + (w if w_smem else 0) <= _BUDGET
+    h = n * (n | 1) * itemsize
+    need = h * g.h_smem + 4 * n * itemsize + 16 * n + g.slots * (w * w_smem + 4 * n)
+    assert g.smem_bytes == need <= _BUDGET
+
+
+# (n, itemsize) -> (slots, h_smem, w_smem, cols) at each edge of the Ritz
+# kernel's geometry: the slots a CTA, the staged block and the working
+# matrices leaving shared memory, the columns a lane of the register path
+RITZ_GEOMETRY_ROWS = {
+    (32, 4): (4, True, True, 1), (33, 4): (4, True, True, 2), (64, 4): (4, True, True, 2),
+    (65, 4): (4, True, True, 4), (78, 4): (4, True, True, 4), (79, 4): (3, True, True, 4),
+    (89, 4): (3, True, True, 4), (90, 4): (2, True, True, 4), (106, 4): (2, True, True, 4),
+    (107, 4): (1, True, True, 4), (128, 4): (1, True, True, 4), (129, 4): (1, True, True, 10),
+    (136, 4): (1, True, True, 10), (137, 4): (1, False, True, 10),
+    (167, 4): (1, False, True, 10), (168, 4): (4, True, False, 10),
+    (234, 4): (4, True, False, 10), (235, 4): (3, True, False, 10),
+    (236, 4): (4, False, False, 10), (320, 4): (4, False, False, 10),
+    (321, 4): (4, False, False, 0),
+    (32, 8): (4, True, True, 1), (33, 8): (4, True, True, 2), (55, 8): (4, True, True, 2),
+    (56, 8): (3, True, True, 2), (62, 8): (3, True, True, 2), (63, 8): (2, True, True, 2),
+    (65, 8): (2, True, True, 4), (74, 8): (2, True, True, 4), (75, 8): (1, True, True, 4),
+    (96, 8): (1, True, True, 4), (97, 8): (1, False, True, 4), (118, 8): (1, False, True, 4),
+    (119, 8): (4, True, False, 4), (129, 8): (4, True, False, 10),
+    (165, 8): (4, True, False, 10), (166, 8): (3, True, False, 10),
+    (167, 8): (1, True, False, 10), (168, 8): (4, False, False, 10),
+    (321, 8): (4, False, False, 0)}
+
+
+@pytest.mark.parametrize("n, itemsize", sorted(RITZ_GEOMETRY_ROWS))
+def test_ritz_geometry_rows(n, itemsize):
+    """The Ritz kernel's layout at each edge: block and working matrices in
+    shared memory while both fit (with as many slots as fit, at most 4),
+    then the working matrices alone, then the staged block alone, then
+    neither; 1, 2, 4 or 10 columns a lane on the register path, none beyond
+    kdim 320."""
+    g = kernels.ritz_geometry(n, itemsize)
+    assert (g.slots, g.h_smem, g.w_smem, g.cols) == RITZ_GEOMETRY_ROWS[n, itemsize]
+    assert g.slots <= kernels.RITZ_MAX_SLOTS and g.smem_bytes <= _BUDGET
+    assert g.cols == 0 or 32 * g.cols >= n
 
 
 # -- the CUDA kernels (need a GPU) --------------------------------------------
@@ -1296,9 +1370,13 @@ def _hold_ritz_to_plain(cuda, dtype, He, k, p, nev, tol):
     assert np.all(d <= tol_k * max(scale, 1e-300))
 
 
-# kdim: the phase's sizes; the working matrix leaves shared memory at 120
-# (f64) and 170 (f32), a lane owns two rows or columns from 33
-RITZ_NS = [16, 30, 32, 40, 64, 119, 120, 128, 169, 170, 240, 257, 300]
+# kdim: the phase's sizes and each edge of ritz_geometry() (RITZ_GEOMETRY_ROWS):
+# the columns a lane (33, 65, 129, 321), the slots a CTA (f32 79, 90, 107;
+# f64 56, 63, 75), the staged block and the working matrices leaving shared
+# memory (f32 137, 168, 236; f64 97, 119, 168)
+RITZ_NS = [16, 30, 32, 33, 40, 55, 56, 62, 63, 64, 65, 74, 75, 78, 79, 89, 90, 96, 97, 106,
+           107, 118, 119, 120, 128, 129, 136, 137, 167, 168, 169, 170, 235, 236, 240, 257, 300,
+           321]
 
 
 @pytest.mark.cuda
@@ -1330,7 +1408,39 @@ def test_cuda_ritz_kernel_special_cases(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind, n", [("dense", 40), ("dense", 120), ("arrow", 64)])
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("kdim", [16, 64, 97, 128, 168, 240, 300])
+def test_cuda_ritz_kernel_general_path(cuda, dtype, kdim, p):
+    """Block Arnoldi bands (p + 1 candidate rows a step) take the general
+    path, at each layout of ritz_geometry(): the same gates as the register
+    path's Hessenberg and arrow inputs."""
+    He, k, p, nev, tol = _check_buffer(("band", kdim, p, kdim - p))
+    _hold_ritz_to_plain(cuda, dtype, He, k, p, nev, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [40, 97, 168, 257])
+def test_cuda_ritz_lagging_warp_build_is_bit_equal(cuda, n, dtype):
+    """The Ritz kernel's outputs from the lagging-warp build (a warp sleeps
+    at the start of each stretch of the CTA's staging), bit for bit the
+    shipping kernel's, on an Arnoldi buffer (the register path) and a band
+    (the general path)."""
+    from lightkrylov_tpu_torch.ops import _build
+
+    for He, k, p in ((_arnoldi_hessenberg(n, n, 256 if n <= 128 else 512, ext=True), n, 1),
+                     _check_buffer(("band", n, 2, n - 2))[:3]):
+        Ht = torch.from_numpy(He).to(cuda, dtype)
+        _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(Ht[:n].contiguous(), k)
+        want = kernels.launch_ritz(_build.load, Ht, wr, wi, k, ok, 1e-6, 16, p)
+        got = kernels.launch_ritz(_build.load_lagging, Ht, wr, wi, k, ok, 1e-6, 16, p)
+        torch.cuda.synchronize()
+        assert _bit_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind, n", [("dense", 40), ("dense", 120), ("arrow", 64), ("arrow", 200)])
 def test_cuda_inverse_iteration_matches_plain(cuda, dtype, kind, n):
     """``inverse_iteration`` (the kernel's vectors alone, slot order) on a
     dense matrix and the arrow form against its plain version, up to a unit
@@ -1388,6 +1498,34 @@ def test_cuda_schur_kernel_prescale(cuda, dtype, e):
     T, Z = T.double().cpu().numpy() * s, Z.double().cpu().numpy()
     assert np.linalg.norm(Z @ T @ Z.T - Ad, 2) < SCHUR_ORTH[dtype] * np.linalg.norm(Ad, 2)
     assert np.linalg.norm(Z.T @ Z - np.eye(24), 2) < SCHUR_ORTH[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, e", [(torch.float32, -100), (torch.float32, 60),
+                                      (torch.float64, -520), (torch.float64, 520)])
+def test_cuda_filter_kernel_prescale(cuda, dtype, e):
+    """The filter kernel on an Arnoldi Hessenberg outside the range: it
+    prescales ``H`` and the shifts as the plain version does, takes its
+    sweeps and chase steps, and unscales ``Hf``; ``Z`` is the 2^0 run's."""
+    A = _filter_input(40, 1)
+    H0 = torch.from_numpy(A).to(cuda, dtype)
+    Ht = torch.from_numpy(A * 2.0 ** e).to(cuda, dtype)
+    wr, wi, order, n, pure, ok = H._filter_shifts(Ht, 20)
+    Hf, Z, work = kernels.francis_filter_sweeps(Ht, wr, wi, order, n, pure)
+    torch.cuda.synchronize()
+    Hp, Zp, pwork = kernels.francis_filter_sweeps_reference(Ht, wr, wi, order, n, pure)
+    _, Z0, work0 = kernels.francis_filter_sweeps(H0, *H._filter_shifts(H0, 20)[:5])
+    n, s = int(n), 2.0 ** -e
+    assert bool(ok & pure) and work.tolist() == pwork.tolist() == work0.tolist()
+    assert bool(torch.isfinite(Hf).all())
+    # held at 2^0 (an exact scale): numpy's eig need not hold at 2^-520
+    kept = np.linalg.eigvals(Hf.double().cpu().numpy()[:n, :n] * s)
+    norm = np.linalg.norm(A)
+    assert _match(kept, np.linalg.eigvals(Hp.double().cpu().numpy()[:n, :n] * s)) < \
+        FILTER_TOL[dtype] * norm
+    w = np.linalg.eigvals(A)
+    assert _match(kept, w[np.argsort(-np.abs(w))][:n]) < FILTER_TOL[dtype] * norm
+    assert float((Z - Z0).abs().max()) < SCHUR_ORTH[dtype]
 
 
 @pytest.mark.cuda
