@@ -105,8 +105,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     to the uninterrupted run, bit for bit;
 28. the batched stencil kernel (stencil_matvec_batched, one launch for a
     (p, ny, nx) stack) against its plain version at STENCIL_SHAPES and the
-    3162^2 shard shape, p = 2 and 4, f32 and f64; at 3072^2, p = 2, timed
-    cold against two single stencil launches and cuDNN conv2d with batch 2;
+    3162^2 shard shape, p = 2 and 4, f32 and f64; at 3072^2, p = 2 and 4,
+    timed cold against p single stencil launches and cuDNN conv2d with
+    batch p, beside its bound;
 29. block eigs through it: (a) probe block_eigs_r5, a DenseOperator of the
     64-dim spiral spectrum in f32, kdim 12, tol 5e-5, blksize 2 against 1,
     errors against the exact spectrum (blksize 2 within 10x of blksize 1);
@@ -116,8 +117,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     same sweep on the plain Poisson2D, the sweep timed beside phase 15's and
     profiled;
 30. the batched Block-ELL kernel (bell_spmm) against its plain version on
-    the full-size matrix, p = 2 and 4, timed against p single bell_spmv
-    launches and cuSPARSE CSR SpMM; block eigs f64 at blksize 2 on
+    the full-size matrix, p = 2, 4 and 8 (MAX_SPMM_COLUMNS, its widest
+    launch), timed against p single bell_spmv launches and cuSPARSE CSR SpMM,
+    beside its bound; block eigs f64 at blksize 2 on
     ConvectionDiffusion2D(64) through bell_spmm, by true residual, and after
     6 cycles against the CPU stencil operator;
 31. in the rank processes of phases 25 and 26: an eighs on a sharded Poisson
@@ -213,7 +215,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     reorder (read, LAPACK TRSEN, copy back); and, with the parent's tree
     in _parent/, the Ritz kernel at kdim 30-300 and the ordschur kernel at
     kdim 30-300 in turns with the parent commit's kernels on the same
-    inputs (parent, this tree, this tree, parent).
+    inputs (parent, this tree, this tree, parent);
+34. the timing layer on the card: phase 15's eigs_3072 sweep with timing
+    on, then global_watch.reset_all() (soft), the same sweep again, and
+    global_watch.print_summary() through the package logger; every timer of
+    the sweep counts the second sweep alone and holds the first's record in
+    its history, the summary reaches the logger, and a hard
+    reset_all(soft=False) leaves every count 0 and every history empty.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -223,6 +231,7 @@ without the package beside it, the script fails before it prints any result.
 import importlib
 import importlib.util
 import json
+import logging
 import multiprocessing
 import queue
 import re
@@ -247,7 +256,8 @@ from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
 from lightkrylov_tpu_torch.ops import hessenberg as hess_ops
 from lightkrylov_tpu_torch.ops import probes as probe_ops
-from lightkrylov_tpu_torch.ops.spmv import bell_spmm_reference, bell_spmv_reference
+from lightkrylov_tpu_torch.ops.spmv import (MAX_SPMM_COLUMNS, bell_spmm_reference,
+                                            bell_spmv_reference)
 from lightkrylov_tpu_torch.ops.stencil import stencil_matvec_reference
 from lightkrylov_tpu_torch.parallel.stencil import LinearApply, halo_rows
 from lightkrylov_tpu_torch.probes import (copy_shape, deep_buffer, manual_out, roofline,
@@ -297,6 +307,12 @@ RANK_TIMEOUT_S = 300
 # phases 28-30: the block sizes the batched kernels are held at, the shard
 # shape of phase 25, and probe block_eigs_r5 (benchmarks/results_tpu.json:61)
 BATCH_PS = (2, 4)
+# the widths the batched kernels are timed at, beside phase 28's parity
+# widths BATCH_PS: the batched stencil at p = 2 and 4, bell_spmm (held to its
+# plain version at each) up to its widest launch, MAX_SPMM_COLUMNS, which a
+# block solve with blksize >= 8 launches
+STENCIL_TIME_PS = (2, 4)
+BELL_TIME_PS = BATCH_PS + (MAX_SPMM_COLUMNS,)
 R5_N, R5_NEV, R5_KDIM, R5_TOL = 64, 4, 12, 5e-5
 # phase 33: the device projected path
 # the Schur kernel's sizes: the warp counts' edges (31-33, 64-65), Z leaving
@@ -1329,7 +1345,7 @@ def checkpoint_resume(dev, tag):
 
 def batched_stencil(dev, tag):
     """Phase 28: stencil_matvec_batched against its plain version, then
-    timed cold at 3072^2, p = 2, against two single launches and cuDNN."""
+    timed cold at 3072^2, p = 2 and 4, against p single launches and cuDNN."""
     out = {"parity": []}
     main_err = None
     shapes = STENCIL_SHAPES + [(N_SHARDED, N_SHARDED)]
@@ -1355,32 +1371,37 @@ def batched_stencil(dev, tag):
             print(f"batched stencil parity {shape} {dtype}, p {BATCH_PS}: rel "
                   + ", ".join(f"{r['rel_err']:.3e}" for r in out["parity"][-len(BATCH_PS):]))
     torch.cuda.empty_cache()
-    n, p = N_MAIN, 2
-    nbytes = 8 * p * n * n
-    nbuf = max(1, -(-4 * L2_BYTES // nbytes))
-    stacks = [seeded((p, n, n), torch.float32, dev, seed=30 + s) for s in range(nbuf)]
-    args = stencil_args(stacks[0][0])
-    w = torch.tensor([[0.0, -args["ihy2"], 0.0],
-                      [-args["ihx2"], 2.0 * (args["ihx2"] + args["ihy2"]), -args["ihx2"]],
-                      [0.0, -args["ihy2"], 0.0]], device=dev)[None, None]
-    conv = lambda u: torch.nn.functional.conv2d(u[:, None], w, padding=1)[:, 0]  # noqa: E731
-    rel = rel_err(conv(stacks[0]), stencil_matvec_reference(stacks[0], **args))
-    check(rel <= REL_TOL[torch.float32], f"conv2d batch-2 stencil rel err {rel:.3e}")
-    fns = {"batched": lambda u: lt.stencil_matvec_batched(u, **args),
-           "two_single": lambda u: [lt.stencil_matvec(u[i], **args) for i in range(p)],
-           "plain": lambda u: stencil_matvec_reference(u, **args),
-           "conv2d": conv}
-    ms = {name: median_ms(lambda i: fn(stacks[i % nbuf]), per_run=nbuf * 2)
-          for name, fn in fns.items()}
-    bound = bound_ms(nbytes)
-    print(f"{tag} batched stencil {p}x{n}x{n} f32 cold ({nbuf} stacks rotated): one batched "
-          f"launch {ms['batched'] * 1e3:.1f} us, two single launches {ms['two_single'] * 1e3:.1f} us, "
-          f"plain {ms['plain'] * 1e3:.1f} us, cuDNN conv2d batch {p} {ms['conv2d'] * 1e3:.1f} us "
-          f"(rel err vs plain {rel:.2e}); bound {bound * 1e3:.1f} us (8 B/point, {p} fields, "
-          f"3.35 TB/s): batched at {100 * bound / ms['batched']:.0f}% of its bound")
-    del stacks
-    torch.cuda.empty_cache()
-    out.update(ms=ms, bound_ms=bound, conv2d_rel_err=rel, max_abs_err=main_err, p=p, n=n)
+    n, by_p = N_MAIN, {}
+    for p in STENCIL_TIME_PS:
+        nbytes = 8 * p * n * n
+        nbuf = max(1, -(-4 * L2_BYTES // nbytes))
+        stacks = [seeded((p, n, n), torch.float32, dev, seed=30 + s) for s in range(nbuf)]
+        args = stencil_args(stacks[0][0])
+        w = torch.tensor([[0.0, -args["ihy2"], 0.0],
+                          [-args["ihx2"], 2.0 * (args["ihx2"] + args["ihy2"]), -args["ihx2"]],
+                          [0.0, -args["ihy2"], 0.0]], device=dev)[None, None]
+        conv = lambda u: torch.nn.functional.conv2d(u[:, None], w, padding=1)[:, 0]  # noqa: E731
+        rel = rel_err(conv(stacks[0]), stencil_matvec_reference(stacks[0], **args))
+        check(rel <= REL_TOL[torch.float32], f"conv2d batch-{p} stencil rel err {rel:.3e}")
+        fns = {"batched": lambda u: lt.stencil_matvec_batched(u, **args),
+               "single": lambda u: [lt.stencil_matvec(u[i], **args) for i in range(p)],
+               "plain": lambda u: stencil_matvec_reference(u, **args),
+               "conv2d": conv}
+        ms = {name: median_ms(lambda i: fn(stacks[i % nbuf]), per_run=nbuf * 2)
+              for name, fn in fns.items()}
+        bound = bound_ms(nbytes)
+        print(f"{tag} batched stencil {p}x{n}x{n} f32 cold ({nbuf} stacks rotated): one batched "
+              f"launch {ms['batched'] * 1e3:.1f} us, {p} single launches {ms['single'] * 1e3:.1f} us, "
+              f"plain {ms['plain'] * 1e3:.1f} us, cuDNN conv2d batch {p} {ms['conv2d'] * 1e3:.1f} us "
+              f"(rel err vs plain {rel:.2e}); bound {bound * 1e3:.1f} us (8 B/point, {p} fields, "
+              f"3.35 TB/s): batched at {100 * bound / ms['batched']:.0f}% of its bound")
+        by_p[p] = dict(ms, bound_ms=bound, conv2d_rel_err=rel)
+        del stacks
+        torch.cuda.empty_cache()
+    p2 = by_p[2]
+    out.update(ms={"batched": p2["batched"], "two_single": p2["single"], "plain": p2["plain"],
+                   "conv2d": p2["conv2d"]}, bound_ms=p2["bound_ms"],
+               conv2d_rel_err=p2["conv2d_rel_err"], max_abs_err=main_err, p=2, n=n, by_p=by_p)
     return out
 
 
@@ -1474,14 +1495,14 @@ def block_eigs_stencil(dev, tag, eigs_out):
 
 def batched_bell(dev, tag):
     """Phase 30: bell_spmm against its plain version on the full-size
-    matrix, timed, then block eigs f64 on the convection-diffusion operator
+    matrix at p = 2, 4 and MAX_SPMM_COLUMNS, timed, then block eigs f64 on the convection-diffusion operator
     through it."""
     out = {"parity": [], "ms": {}}
     bell = bell_main_matrix(dev)
     csr = bell_csr(bell)
     n = bell.shape[0]
     mat_bytes = (bell.data.numel() + bell.cols.numel()) * 4
-    for p in BATCH_PS:
+    for p in BELL_TIME_PS:
         X = seeded((p, n), torch.float32, dev, seed=40 + p)
         before = (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES)
         got = lt.bell_spmm(bell.data, bell.cols, X)
@@ -3470,6 +3491,75 @@ def convdiff_device_solves(dev, tag, results):
     return out
 
 
+# -- 34: the timing layer ------------------------------------------------------
+
+class _KeepRecords(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def timing_layer(dev, tag):
+    """Phase 34: phase 15's eigs_3072 sweep twice with timing on, a soft
+    reset_all between them, print_summary through the package logger, then
+    a hard reset_all."""
+    t_phase = time.perf_counter()
+    n = N_EIGHS
+    op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
+    x0 = seeded((n, n), torch.float32, dev, seed=7)
+    opts = lt.EigsOptions(maxiter=1)
+    watch = lt.timer.global_watch
+
+    def sweep():
+        lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0, options=opts)
+        torch.cuda.synchronize()
+
+    watch.reset_all(soft=False)
+    lt.set_timing(True)
+    try:
+        sweep()
+        first = {name: (t.etime, t.tmin, t.tmax, t.count)
+                 for name, t in watch._timers.items() if t.count}
+        watch.reset_all()
+        sweep()
+    finally:
+        lt.set_timing(False)
+    timers = {name: t for name, t in watch._timers.items() if name in first}
+    second = {name: [t.etime, t.tmin, t.tmax, t.count] for name, t in timers.items()}
+    check("eigs" in first and first["eigs"][3] == 1,
+          f"the first sweep's timers {sorted(first)}: no single 'eigs' call")
+    for name, t in timers.items():
+        check(t.count == first[name][3] and not t.running and t.etime > 0,
+              f"timer {name}: count {t.count} after the soft reset and one sweep, "
+              f"the first sweep's {first[name][3]}")
+        check(t.history == [first[name]], f"timer {name}: history {t.history}, "
+              f"the first sweep's record {first[name]}")
+    if not lt.utils.logger.logger.handlers:
+        lt.logger_setup(log_timestamp=False)
+    keep = _KeepRecords()
+    lt.utils.logger.logger.addHandler(keep)
+    try:
+        watch.print_summary()
+    finally:
+        lt.utils.logger.logger.removeHandler(keep)
+    check(keep.messages == [watch.summary()], "print_summary did not reach the package logger")
+    watch.reset_all(soft=False)
+    check(all(t.count == 0 and t.history == [] and t.etime == 0.0 for t in watch._timers.values()),
+          "a hard reset_all left a count or a history")
+    seconds = time.perf_counter() - t_phase
+    print(f"{tag} timing layer: {len(timers)} timers of the eigs_3072 sweep ("
+          + ", ".join(f"{k} n={v[3]}" for k, v in first.items())
+          + f"), the second sweep's counts alone, the first's record in each history; "
+          f"eigs {second['eigs'][0] * 1e3:.2f} ms after the soft reset, "
+          f"{first['eigs'][0] * 1e3:.2f} ms before; a hard reset clears all; phase 34: "
+          f"{seconds:.2f} s")
+    return dict(first={k: list(v) for k, v in first.items()},
+                second=second, seconds=seconds)
+
+
 def main():
     results = {}
 
@@ -3694,6 +3784,9 @@ def main():
     results["turns"] = kernel_turns(dev, tag)
     print(f"phase 33: {time.perf_counter() - t33:.1f} s")
 
+    # 34. the timing layer's soft and hard resets and its summary
+    results["timing_layer"] = timing_layer(dev, tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -3731,6 +3824,7 @@ def main():
             "launches": {"eigs_3072_block": beig["eigs_3072_block"]["launches"]["batched"]},
             "max_abs_err": bst["max_abs_err"],
             "shape": [bst["p"], bst["n"], bst["n"]],
+            "by_p": {str(p): v for p, v in bst["by_p"].items()},
             "ms": bst["ms"]["batched"],
             "two_single_ms": bst["ms"]["two_single"],
             "plain_ms": bst["ms"]["plain"],

@@ -61,7 +61,7 @@ def main(argv=None):
             prop, args.nev, x0=x0, kdim=args.kdim, tolerance=1e-8,
             transpose=True, options=lt.EigsOptions(maxiter=30))
     print(f"\nadjoint propagator converged={meta_a.converged}")
-    print(lt.global_watch.summary())
+    lt.global_watch.print_summary()
     lt.set_timing(False)
 
 

@@ -136,8 +136,8 @@ class GinzburgLandauReal(LinearOperator):
         """Realified rhs: ``u[0]`` the real part, ``u[1]`` the imaginary."""
         return _realified_rhs(u, self.mu, self.dx, -NU, GAMMA)
 
-    def rmatvec(self, u):
-        return _realified_rhs(u, self.mu, self.dx, np.conj(NU), np.conj(GAMMA))
+    def rmatvec(self, y):
+        return _realified_rhs(y, self.mu, self.dx, np.conj(NU), np.conj(GAMMA))
 
     def dense(self):
         """Real ``2nx``-square dense form, as numpy (small ``nx`` only)."""

@@ -146,6 +146,12 @@ class SolverMetadata:
             f"{self.history[-1] if len(self.history) else float('nan'):.3e}"
         )
 
+    def reset(self) -> None:
+        self.converged = False
+        self.n_iter = 0
+        self.n_inner = 0
+        self.info = 0
+        self.residuals = np.zeros(0)
 
 
 @dataclass

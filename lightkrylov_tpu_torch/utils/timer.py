@@ -19,11 +19,13 @@ import time
 import weakref
 from collections import defaultdict
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from . import logger as _logger
 
 __all__ = [
     "Timer",
@@ -60,7 +62,9 @@ def set_timing(enabled: bool) -> None:
 @dataclass
 class Timer:
     """Atomic named timer (reference: ``lightkrylov_timer``,
-    Timer_Utils.f90:12-74)."""
+    Timer_Utils.f90:12-74).  :meth:`stop` and :meth:`pause` read the host
+    clock and do not wait for the device: time device work with
+    :func:`timed` (``device=True``) or :func:`timed_fn`."""
 
     name: str
     etime: float = 0.0
@@ -69,6 +73,7 @@ class Timer:
     count: int = 0
     running: bool = False
     _t0: float = 0.0
+    history: list = field(default_factory=list)
 
     def start(self):
         if not self.running:
@@ -83,6 +88,23 @@ class Timer:
             self.tmax = max(self.tmax, dt)
             self.count += 1
             self.running = False
+
+    def pause(self):
+        """Add the running interval to ``etime`` without counting a call."""
+        if self.running:
+            self.etime += time.perf_counter() - self._t0
+            self.running = False
+
+    def reset(self, soft: bool = True):
+        """A soft reset archives ``(etime, tmin, tmax, count)`` to
+        ``history``; a hard reset clears ``history`` too (reference: soft
+        and hard reset, Timer_Utils.f90:221-419)."""
+        if soft and self.count:
+            self.history.append((self.etime, self.tmin, self.tmax, self.count))
+        self.etime, self.tmin, self.tmax, self.count = 0.0, float("inf"), 0.0, 0
+        self.running = False
+        if not soft:
+            self.history.clear()
 
     @property
     def avg(self) -> float:
@@ -104,15 +126,25 @@ class Watch:
             self._groups[group].append(name)
         return self._timers[name]
 
+    def remove_timer(self, name: str) -> None:
+        self._timers.pop(name, None)
+        for names in self._groups.values():
+            if name in names:
+                names.remove(name)
+
     def timer(self, name: str) -> Timer:
         return self.add_timer(name)
+
+    def reset_all(self, soft: bool = True) -> None:
+        for t in self._timers.values():
+            t.reset(soft=soft)
 
     def summary(self) -> str:
         """Grouped min/avg/max/count report
         (reference: ``print_timer_summary``, Timer_Utils.f90:221-419)."""
         lines = [f"== {self.name} timing summary =="]
         for group, names in self._groups.items():
-            active = [self._timers[n] for n in names if self._timers[n].count]
+            active = [self._timers[n] for n in names if n in self._timers and self._timers[n].count]
             if not active:
                 continue
             lines.append(f"-- {group} --")
@@ -122,6 +154,9 @@ class Watch:
                     f"min={t.tmin:.4e}s avg={t.avg:.4e}s max={t.tmax:.4e}s"
                 )
         return "\n".join(lines)
+
+    def print_summary(self) -> None:
+        _logger.log_message(self.summary())
 
 
 #: Global watch, mirroring ``global_lightkrylov_timer`` (Timer.fypp:30-41).

@@ -39,6 +39,9 @@ def test_ginzburg_landau_example(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "direct spectrum (converged=True" in out
     assert "adjoint propagator converged=True" in out
+    # the timing summary goes through the package logger, which the
+    # example's logger_setup() points at stdout
+    assert "timing summary" in out and "gl_direct_eigs" in out
     assert np.load(out_path).shape == (2, 3)
 
 
