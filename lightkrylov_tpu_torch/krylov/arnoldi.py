@@ -12,7 +12,11 @@ is a host loop, as in :mod:`.lanczos`.  The breakdown flag ``info`` stays a
 0-d int32 tensor on the device; the loop reads it once per step, except
 after the last, through :func:`..utils.timer.host_read`, which counts every
 read.  Columns of ``X`` and ``H`` are written in place; unfilled columns
-stay exactly zero, and on a breakdown the next column is zero too.
+stay exactly zero, and on a breakdown the next column is zero too.  A sweep
+counts the operator applications of the steps it ran (a step that breaks
+down has applied its operator), with timing on or off.  While timing is
+on, a step is a span ``arnoldi.step`` holding ``arnoldi.matvec`` and
+``arnoldi.orth``.
 """
 
 from __future__ import annotations
@@ -21,24 +25,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import constants, vectors
-from ..utils.timer import count_applications, host_read, time_lightkrylov, timed_fn
+from ..utils.timer import count_applications, host_read, timed, timed_fn
 from .gram_schmidt import double_gram_schmidt_step
 from .qr import qr as _qr
 
 __all__ = ["arnoldi", "arnoldi_block", "arnoldi_block_step", "arnoldi_step",
            "initialize_arnoldi", "initialize_arnoldi_block"]
-
-
-def _count_steps(A, info, kstart, kend, n_per_step, kind):
-    """Execution-accurate matvec counting for a standalone factorization
-    call (reference brackets arnoldi itself: arnoldi.fypp:18,75).  It reads
-    ``info`` to the host, so it runs only when ``time_lightkrylov()`` is
-    on, and is free when instrumentation is off (as in the JAX package)."""
-    if not time_lightkrylov():
-        return
-    i = int(host_read(info))
-    stop = abs(i) if i != 0 else int(kend)
-    count_applications(A, max(0, stop - int(kstart) + 1) * n_per_step, kind)
 
 
 def _device(x):
@@ -82,18 +74,21 @@ def _step_at(A, X, H, k, transpose, tol):
     whose columns past ``k`` are exactly zero and add exactly zero
     coefficients (the buffer invariant)."""
     k = k.reshape(1).long()
-    xk = pytree.tree_map(lambda l: l.index_select(0, k)[0], X)
-    v = A.rmatvec(xk) if transpose else A.matvec(xk)
-    v, proj = double_gram_schmidt_step(v, X)
-    beta = vectors.norm(v)
-    ok = beta > tol
-    inv = torch.where(ok, 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta),
-                      torch.zeros_like(beta))
-    v = vectors.scal(inv, v)
-    pytree.tree_map(lambda Xl, vl: Xl.index_copy_(0, k + 1, vl.unsqueeze(0)), X, v)
-    col = proj.to(H.dtype).clone()
-    col.index_copy_(0, k + 1, torch.where(ok, beta, torch.zeros_like(beta)).to(H.dtype).reshape(1))
-    H.index_copy_(1, k, col.reshape(-1, 1))
+    with timed("arnoldi.matvec", "BaseKrylov", device=True):
+        xk = pytree.tree_map(lambda l: l.index_select(0, k)[0], X)
+        v = A.rmatvec(xk) if transpose else A.matvec(xk)
+    with timed("arnoldi.orth", "BaseKrylov", device=True):
+        v, proj = double_gram_schmidt_step(v, X)
+        beta = vectors.norm(v)
+        ok = beta > tol
+        inv = torch.where(ok, 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta),
+                          torch.zeros_like(beta))
+        v = vectors.scal(inv, v)
+        pytree.tree_map(lambda Xl, vl: Xl.index_copy_(0, k + 1, vl.unsqueeze(0)), X, v)
+        col = proj.to(H.dtype).clone()
+        col.index_copy_(0, k + 1,
+                        torch.where(ok, beta, torch.zeros_like(beta)).to(H.dtype).reshape(1))
+        H.index_copy_(1, k, col.reshape(-1, 1))
     return X, H, beta
 
 
@@ -106,20 +101,23 @@ def arnoldi_step(A, X, H, k, transpose: bool = False, tol: float = 0.0):
     arnoldi.fypp:34-73 for p = 1).  ``k`` may be a 0-d integer tensor on the
     device, as a device restart leaves it; the step then projects against
     the whole buffer."""
-    if isinstance(k, torch.Tensor):
-        return _step_at(A, X, H, k, transpose, tol)
-    xk = vectors.get_column(X, k)
-    v = A.rmatvec(xk) if transpose else A.matvec(xk)
-    v, proj = double_gram_schmidt_step(v, vectors.lead(X, k + 1))
-    beta = vectors.norm(v)
-    ok = beta > tol
-    inv = torch.where(ok, 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta),
-                      torch.zeros_like(beta))
-    vectors.set_column(X, k + 1, vectors.scal(inv, v))
-    H[:, k] = 0
-    H[: k + 1, k] = proj.to(H.dtype)
-    H[k + 1, k] = torch.where(ok, beta, torch.zeros_like(beta)).to(H.dtype)
-    return X, H, beta
+    with timed("arnoldi.step", "BaseKrylov", device=True):
+        if isinstance(k, torch.Tensor):
+            return _step_at(A, X, H, k, transpose, tol)
+        with timed("arnoldi.matvec", "BaseKrylov", device=True):
+            xk = vectors.get_column(X, k)
+            v = A.rmatvec(xk) if transpose else A.matvec(xk)
+        with timed("arnoldi.orth", "BaseKrylov", device=True):
+            v, proj = double_gram_schmidt_step(v, vectors.lead(X, k + 1))
+            beta = vectors.norm(v)
+            ok = beta > tol
+            inv = torch.where(ok, 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta),
+                              torch.zeros_like(beta))
+            vectors.set_column(X, k + 1, vectors.scal(inv, v))
+            H[:, k] = 0
+            H[: k + 1, k] = proj.to(H.dtype)
+            H[k + 1, k] = torch.where(ok, beta, torch.zeros_like(beta)).to(H.dtype)
+        return X, H, beta
 
 
 @timed_fn("krylov.arnoldi", "BaseKrylov")
@@ -145,7 +143,7 @@ def arnoldi(A, X, H, kstart: int = 1, kend: int | None = None, transpose: bool =
         k += 1
         if k < kend and int(host_read(info)) != 0:
             break
-    _count_steps(A, info, kstart, kend, 1, "rmatvec" if transpose else "matvec")
+    count_applications(A, k - (kstart - 1), "rmatvec" if transpose else "matvec")
     return X, H, info
 
 
@@ -162,15 +160,18 @@ def arnoldi_block_step(A, X, H, s: int, p: int, transpose: bool = False,
     ``res`` the smallest ``|R[j, j]|`` of the new block as a 0-d tensor,
     the block breakdown indicator (reference: arnoldi.fypp:34-73 with
     blksize p > 1)."""
-    blk_in = pytree.tree_map(lambda l: l[s:s + p], X)
-    blk = A.rmatvec_basis(blk_in) if transpose else A.matvec_basis(blk_in)
-    blk, proj = double_gram_schmidt_step(blk, vectors.lead(X, s + p))
-    H[:, s:s + p] = 0
-    H[: s + p, s:s + p] = proj.to(H.dtype)
-    Q, R, _ = _qr(blk, tol=tol, generator=generator)
-    vectors.set_columns_block(X, s + p, Q)
-    H[s + p:s + 2 * p, s:s + p] = R.to(H.dtype)
-    return X, H, torch.min(torch.abs(torch.diagonal(R)))
+    with timed("arnoldi.step", "BaseKrylov", device=True):
+        with timed("arnoldi.matvec", "BaseKrylov", device=True):
+            blk_in = pytree.tree_map(lambda l: l[s:s + p], X)
+            blk = A.rmatvec_basis(blk_in) if transpose else A.matvec_basis(blk_in)
+        with timed("arnoldi.orth", "BaseKrylov", device=True):
+            blk, proj = double_gram_schmidt_step(blk, vectors.lead(X, s + p))
+            H[:, s:s + p] = 0
+            H[: s + p, s:s + p] = proj.to(H.dtype)
+            Q, R, _ = _qr(blk, tol=tol, generator=generator)
+            vectors.set_columns_block(X, s + p, Q)
+            H[s + p:s + 2 * p, s:s + p] = R.to(H.dtype)
+        return X, H, torch.min(torch.abs(torch.diagonal(R)))
 
 
 @timed_fn("krylov.arnoldi_block", "BaseKrylov")
@@ -200,8 +201,5 @@ def arnoldi_block(A, X, H, p: int, kstart: int = 1, kend: int | None = None,
         b += 1
         if b < b1 and int(host_read(info)) != 0:
             break
-    if time_lightkrylov():
-        i = int(host_read(info))
-        stop = -(-abs(i) // p) if i != 0 else b1  # ceil to a block index
-        count_applications(A, max(0, stop - b0) * p, "rmatvec" if transpose else "matvec")
+    count_applications(A, (b - b0) * p, "rmatvec" if transpose else "matvec")
     return X, H, info

@@ -22,7 +22,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import constants, vectors
-from ..utils.timer import count_applications, host_read, time_lightkrylov, timed_fn
+from ..utils.timer import count_applications, host_read, timed_fn
 from .gram_schmidt import double_gram_schmidt_step
 
 __all__ = ["bidiagonalization", "bidiag_step", "initialize_bidiag"]
@@ -87,8 +87,8 @@ def bidiagonalization(A, U, V, B, kstart: int = 1, kend: int | None = None,
     ``k`` (``alpha`` or ``beta`` at most ``tol``), ``-k`` on a NaN norm, else
     0 (reference: golub_kahan.fypp:7-61; qr.fypp:72-78).
 
-    Each step applies one ``rmatvec`` and one ``matvec``; with timing on
-    both are counted (the JAX package's ``bidiag.py:107-116``)."""
+    Each step applies one ``rmatvec`` and one ``matvec``; both are counted
+    for every step run, with timing on or off."""
     kdim = B.shape[1]
     if kend is None:
         kend = kdim
@@ -104,9 +104,6 @@ def bidiagonalization(A, U, V, B, kstart: int = 1, kend: int | None = None,
         k += 1
         if k < kend and int(host_read(info)) != 0:
             break
-    if time_lightkrylov():
-        i = int(host_read(info))
-        steps = max(0, (abs(i) if i != 0 else kend) - kstart + 1)
-        count_applications(A, steps, "matvec")
-        count_applications(A, steps, "rmatvec")
+    count_applications(A, k - (kstart - 1), "matvec")
+    count_applications(A, k - (kstart - 1), "rmatvec")
     return U, V, B, info

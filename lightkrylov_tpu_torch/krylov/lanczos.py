@@ -11,7 +11,8 @@ this is a host loop.  The breakdown flag ``info`` stays a 0-d int32 tensor
 on the device; the loop reads it once per step, except after the last,
 through :func:`..utils.timer.host_read`, which counts every read.  Basis
 columns and ``T`` are written in place, and each CGS2 reads only the filled
-columns ``X[:k+1]``.
+columns ``X[:k+1]``.  A sweep counts the operator applications of the steps
+it ran, with timing on or off.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import constants, vectors
-from ..utils.timer import host_read, timed_fn
-from .arnoldi import _count_steps
+from ..utils.timer import count_applications, host_read, timed_fn
 from .gram_schmidt import double_gram_schmidt_step
 
 __all__ = ["lanczos", "lanczos_step", "initialize_lanczos"]
@@ -79,5 +79,5 @@ def lanczos(A, X, T, kstart: int = 1, kend: int | None = None, tol: float | None
         k += 1
         if k < kend and int(host_read(info)) != 0:
             break
-    _count_steps(A, info, kstart, kend, 1, "matvec")
+    count_applications(A, k - (kstart - 1), "matvec")
     return X, T, info

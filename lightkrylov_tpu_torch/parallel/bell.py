@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 from ..linops import LinearOperator
 from ..ops.spmv import BellMatrix, bell_spmv
-from ..utils.timer import count_collective, host_read
+from ..utils.timer import count_collective, host_read, timed
 from .mesh import Mesh, shard_rows
 from .stencil import linear_apply
 
@@ -86,7 +86,8 @@ class ShardedBellOperator(LinearOperator):
             if mesh.group is not None:
                 count_collective("operator_collectives")
                 parts = [torch.empty_like(v) for _ in range(mesh.size)]
-                dist.all_gather(parts, v.contiguous(), group=mesh.group)
+                with timed("halo", "parallel", device=True):
+                    dist.all_gather(parts, v.contiguous(), group=mesh.group)
                 x_full = torch.cat(parts)
             return bell_spmv(self.data, self.cols, x_full, interpret=self.interpret)
         nbr, K, bm, bn = self.data.shape
@@ -96,5 +97,6 @@ class ShardedBellOperator(LinearOperator):
         out = out.reshape(-1)
         if mesh.group is not None:
             count_collective("operator_collectives")
-            dist.all_reduce(out, group=mesh.group)
+            with timed("halo", "parallel", device=True):
+                dist.all_reduce(out, group=mesh.group)
         return out[shard_rows(mesh, self.shape[1])]

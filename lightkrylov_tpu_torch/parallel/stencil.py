@@ -44,7 +44,7 @@ from ..constants import as_torch_dtype
 from ..linops import LinearOperator
 from ..models.ginzburg_landau import GAMMA, NU, _mu
 from ..ops.stencil import stencil_matvec
-from ..utils.timer import count_collective
+from ..utils.timer import count_collective, timed
 from .mesh import Mesh, shard_rows
 
 __all__ = ["ShardedPoisson2D", "ShardedGinzburgLandau", "halo_rows", "linear_apply"]
@@ -54,14 +54,16 @@ def halo_rows(u, mesh: Mesh):
     """``(above, below)``: the last row of the previous rank's block and the
     first row of the next rank's, zeros beyond the global edges.  One
     ``all_gather`` of every rank's ``(first, last)`` rows, counted as an
-    operator collective; none without a group."""
+    operator collective, and a span ``halo`` while timing is on; none
+    without a group."""
     zero = torch.zeros_like(u[0])
     if mesh.group is None:
         return zero, zero
     count_collective("operator_collectives")
     edges = torch.stack([u[0], u[-1]])
     parts = [torch.empty_like(edges) for _ in range(mesh.size)]
-    dist.all_gather(parts, edges, group=mesh.group)
+    with timed("halo", "parallel", device=True):
+        dist.all_gather(parts, edges, group=mesh.group)
     above = parts[mesh.rank - 1][1] if mesh.rank > 0 else zero
     below = parts[mesh.rank + 1][0] if mesh.rank < mesh.size - 1 else zero
     return above, below

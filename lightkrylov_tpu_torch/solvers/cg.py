@@ -8,7 +8,8 @@ be symmetric/Hermitian positive definite.
 
 A host loop: its one wait per iteration is the convergence flag
 (``res >= tol``, through :func:`..utils.timer.host_read`), plus one batched
-fetch of the metadata at the end.
+fetch of the metadata at the end.  While timing is on, an iteration is a
+span ``cg.matvec`` (the operator) and a span ``cg.update`` (the rest).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from .. import constants, vectors
 from ..linops import IdentityOperator, Preconditioner, aslinop
 from ..utils.logger import check_info
 from ..utils.options import CGOptions, SolverMetadata
-from ..utils.timer import count_applications, host_read, timed_fn
+from ..utils.timer import count_applications, host_read, timed, timed_fn
 
 __all__ = ["cg"]
 
@@ -40,7 +41,9 @@ def _cg_impl(A, b, x0, M, tol, maxiter):
         return M.matvec(r)
 
     x = x0
-    r = vectors.axpby(1.0, b, -1.0, A.matvec(x0))
+    with timed("cg.matvec", "IterativeSolvers", device=True):
+        r = A.matvec(x0)
+    r = vectors.axpby(1.0, b, -1.0, r)
     res = vectors.norm(r).to(rdt)
     z = precond(r, 0, res)
     p = z
@@ -48,16 +51,18 @@ def _cg_impl(A, b, x0, M, tol, maxiter):
     hist = torch.zeros(maxiter, dtype=rdt, device=pytree.tree_leaves(b)[0].device)
     k = 0
     while k < maxiter and bool(host_read(res >= tol)):
-        Ap = A.matvec(p)
-        alpha = rz / _nonzero(vectors.dot(p, Ap))
-        x = vectors.axpby(1.0, x, alpha, p)
-        r = vectors.axpby(1.0, r, -alpha, Ap)
-        res = vectors.norm(r).to(rdt)
-        z = precond(r, k + 1, res)
-        rz_new = vectors.dot(r, z)
-        p = vectors.axpby(1.0, z, rz_new / _nonzero(rz), p)
-        rz = rz_new
-        hist[k] = res
+        with timed("cg.matvec", "IterativeSolvers", device=True):
+            Ap = A.matvec(p)
+        with timed("cg.update", "IterativeSolvers", device=True):
+            alpha = rz / _nonzero(vectors.dot(p, Ap))
+            x = vectors.axpby(1.0, x, alpha, p)
+            r = vectors.axpby(1.0, r, -alpha, Ap)
+            res = vectors.norm(r).to(rdt)
+            z = precond(r, k + 1, res)
+            rz_new = vectors.dot(r, z)
+            p = vectors.axpby(1.0, z, rz_new / _nonzero(rz), p)
+            rz = rz_new
+            hist[k] = res
         k += 1
     return x, res, hist[:k], k
 

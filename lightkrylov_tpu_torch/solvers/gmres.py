@@ -21,7 +21,9 @@ converge?), and one batched fetch of the metadata at the end.  All of them
 go through :func:`..utils.timer.host_read`.  ``tol``, the Givens state and
 the residual history stay on the device in the working dtype.  Basis
 columns are written in place, and every reduction reads only the filled
-columns ``V[:k+1]``.
+columns ``V[:k+1]``.  While timing is on, each restart cycle is a span
+``gmres.cycle`` holding ``gmres.matvec``, ``gmres.orth``, ``gmres.lsq`` and
+``gmres.update`` spans (:mod:`..utils.timer`).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..linops import IdentityOperator, Preconditioner, aslinop
 from ..utils import linalg
 from ..utils.logger import check_info
 from ..utils.options import GMRESOptions, SolverMetadata
-from ..utils.timer import count_applications, host_read, timed_fn
+from ..utils.timer import count_applications, host_read, timed, timed_fn
 
 __all__ = ["gmres", "fgmres"]
 
@@ -121,36 +123,40 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
         k = 0
         while k < kdim and bool(host_read(res >= tol)):
             u_k = vectors.get_column(V, k)
-            w = matvec(precond(u_k, k, res))
-            z, p, sigma, tau, wTw = dcgs2_measure(V, u_k, w, k)
-            eta, inv_eta = pythag_eta(sigma, z)
-            t = (tau - torch.vdot(z, p)) * inv_eta
-            if k > 0:  # finish true-H column k-1
-                h_col = hp + z * fac_prev
-                h_col[k] = eta * fac_prev
-                Ht[:, k - 1] = h_col
-                c, s, res = givens_col(h_col, R, c, s, e, k - 1)
-                hist[nin] = res
+            with timed("gmres.matvec", "IterativeSolvers", device=True):
+                w = matvec(precond(u_k, k, res))
+            with timed("gmres.orth", "IterativeSolvers", device=True):
+                z, p, sigma, tau, wTw = dcgs2_measure(V, u_k, w, k)
+                eta, inv_eta = pythag_eta(sigma, z)
+                t = (tau - torch.vdot(z, p)) * inv_eta
+                if k > 0:  # finish true-H column k-1
+                    h_col = hp + z * fac_prev
+                    h_col[k] = eta * fac_prev
+                    Ht[:, k - 1] = h_col
+                # provisional column k, exact for the corrected q_k
+                pt = p.clone()
+                pt[k] = t
+                hp = (pt - Ht @ z[:kdim]) * inv_eta
+                gamma2 = wTw - torch.vdot(p, p).real.to(rdt) - torch.abs(t) ** 2
+                gamma = torch.sqrt(torch.maximum(gamma2, eps_r * eps_r * wTw))
+                inv_gamma = safe_inverse(gamma)
+                c_q = -z * inv_eta
+                c_q[k] = inv_eta
+                c_u = (p - (t * inv_eta) * z) * inv_gamma
+                c_u[k] = t * inv_eta * inv_gamma
+                # D is a new tensor, computed in full before V[k] (which u_k
+                # views) is overwritten
+                D = vectors.linear_combination_vpu(
+                    vectors.lead(V, k + 1), torch.stack([c_q, c_u], dim=1)[: k + 1])
+                u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
+                vectors.set_column(V, k, vectors.get_column(D, 0))
+                vectors.set_column(V, k + 1, u_next)
+                fac_prev = (gamma * inv_eta).to(rdt)
+            if k > 0:  # column k-1 into the least squares (reads no basis data)
+                with timed("gmres.lsq", "IterativeSolvers", device=True):
+                    c, s, res = givens_col(h_col, R, c, s, e, k - 1)
+                    hist[nin] = res
                 nin += 1
-            # provisional column k, exact for the corrected q_k
-            pt = p.clone()
-            pt[k] = t
-            hp = (pt - Ht @ z[:kdim]) * inv_eta
-            gamma2 = wTw - torch.vdot(p, p).real.to(rdt) - torch.abs(t) ** 2
-            gamma = torch.sqrt(torch.maximum(gamma2, eps_r * eps_r * wTw))
-            inv_gamma = safe_inverse(gamma)
-            c_q = -z * inv_eta
-            c_q[k] = inv_eta
-            c_u = (p - (t * inv_eta) * z) * inv_gamma
-            c_u[k] = t * inv_eta * inv_gamma
-            # D is a new tensor, computed in full before V[k] (which u_k
-            # views) is overwritten
-            D = vectors.linear_combination_vpu(
-                vectors.lead(V, k + 1), torch.stack([c_q, c_u], dim=1)[: k + 1])
-            u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
-            vectors.set_column(V, k, vectors.get_column(D, 0))
-            vectors.set_column(V, k + 1, u_next)
-            fac_prev = (gamma * inv_eta).to(rdt)
             k += 1
         k_exit = k
         # stopped early only on convergence; at kdim the flag is unread yet
@@ -158,30 +164,36 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
             # the k_exit-1 finished columns already beat tol
             return c, s, res, nin, k_exit - 1, k_exit
         # finish the pending column k_exit-1: one reduction, no matvec
-        u_last = vectors.get_column(V, k_exit)
-        zf = _padded(vectors.innerprod(vectors.lead(V, k_exit + 1), u_last).to(dt), kdim + 1)
-        sigma = zf[k_exit].real.to(rdt, copy=True)
-        zf[k_exit] = 0
-        eta, _ = pythag_eta(sigma, zf)
-        h_col = hp + zf * fac_prev
-        h_col[k_exit] = eta * fac_prev
-        c, s, res = givens_col(h_col, R, c, s, e, k_exit - 1)
-        hist[nin] = res
+        with timed("gmres.lsq", "IterativeSolvers", device=True):
+            u_last = vectors.get_column(V, k_exit)
+            zf = _padded(vectors.innerprod(vectors.lead(V, k_exit + 1), u_last).to(dt),
+                         kdim + 1)
+            sigma = zf[k_exit].real.to(rdt, copy=True)
+            zf[k_exit] = 0
+            eta, _ = pythag_eta(sigma, zf)
+            h_col = hp + zf * fac_prev
+            h_col[k_exit] = eta * fac_prev
+            c, s, res = givens_col(h_col, R, c, s, e, k_exit - 1)
+            hist[nin] = res
         return c, s, res, nin + 1, k_exit, k_exit
 
     def cgs2_cycle(V, Z, R, c, s, e, res, hist, nin):
         k = 0
         while k < kdim and bool(host_read(res >= tol)):
-            z = precond(vectors.get_column(V, k), k, res)
-            if flexible:
-                vectors.set_column(Z, k, z)
-            w, proj = double_gram_schmidt_step(matvec(z), vectors.lead(V, k + 1))
-            beta = vectors.norm(w)
-            h_col = _padded(proj.to(dt), kdim + 1)
-            h_col[k + 1] = beta
-            vectors.set_column(V, k + 1, vectors.scal(safe_inverse(beta).to(rdt), w))
-            c, s, res = givens_col(h_col, R, c, s, e, k)
-            hist[nin] = res
+            with timed("gmres.matvec", "IterativeSolvers", device=True):
+                z = precond(vectors.get_column(V, k), k, res)
+                w = matvec(z)
+            with timed("gmres.orth", "IterativeSolvers", device=True):
+                if flexible:
+                    vectors.set_column(Z, k, z)
+                w, proj = double_gram_schmidt_step(w, vectors.lead(V, k + 1))
+                beta = vectors.norm(w)
+                h_col = _padded(proj.to(dt), kdim + 1)
+                h_col[k + 1] = beta
+                vectors.set_column(V, k + 1, vectors.scal(safe_inverse(beta).to(rdt), w))
+            with timed("gmres.lsq", "IterativeSolvers", device=True):
+                c, s, res = givens_col(h_col, R, c, s, e, k)
+                hist[nin] = res
             nin += 1
             k += 1
         return c, s, res, nin, k, k
@@ -191,41 +203,47 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
     hist = zeros(maxiter * kdim, dtype=rdt)
     outer = nin = n_iter = nmv = 0
     while outer < maxiter and bool(host_read(res >= tol)):
-        r = vectors.axpby(1.0, b, -1.0, matvec(x))  # r0 = b - A x (:134-143)
-        beta = vectors.norm(r)
-        V = vectors.zeros_basis(b, kdim + 1)
-        vectors.set_column(V, 0, vectors.scal(safe_inverse(beta).to(rdt), r))
-        R = zeros(kdim, kdim)
-        c = zeros(kdim, dtype=rdt)
-        s = zeros(kdim)
-        e = zeros(kdim + 1)
-        e[0] = beta
-        if orth == "dcgs2":
-            c, s, res_in, nin, k, mv_inner = dcgs2_cycle(
-                V, R, c, s, e, beta.to(rdt), hist, nin)
-            Z = None
-        else:
-            Z = vectors.zero_like(V) if flexible else None
-            c, s, res_in, nin, k, mv_inner = cgs2_cycle(
-                V, Z, R, c, s, e, beta.to(rdt), hist, nin)
+        with timed("gmres.cycle", "IterativeSolvers", device=True):
+            with timed("gmres.matvec", "IterativeSolvers", device=True):
+                r = matvec(x)
+            r = vectors.axpby(1.0, b, -1.0, r)  # r0 = b - A x (:134-143)
+            beta = vectors.norm(r)
+            V = vectors.zeros_basis(b, kdim + 1)
+            vectors.set_column(V, 0, vectors.scal(safe_inverse(beta).to(rdt), r))
+            R = zeros(kdim, kdim)
+            c = zeros(kdim, dtype=rdt)
+            s = zeros(kdim)
+            e = zeros(kdim + 1)
+            e[0] = beta
+            if orth == "dcgs2":
+                c, s, res_in, nin, k, mv_inner = dcgs2_cycle(
+                    V, R, c, s, e, beta.to(rdt), hist, nin)
+                Z = None
+            else:
+                Z = vectors.zero_like(V) if flexible else None
+                c, s, res_in, nin, k, mv_inner = cgs2_cycle(
+                    V, Z, R, c, s, e, beta.to(rdt), hist, nin)
 
-        # back-substitution on the rotated Hessenberg (gmres.fypp:199-202)
-        if k > 0:
-            y = linalg.solve_triangular(R[:k, :k], e[:k])
-            dx = vectors.linear_combination(vectors.lead(Z if flexible else V, k), y)
-            if not flexible:
-                dx = M.matvec(dx)  # right-preconditioned correction (:201-202)
-            x = vectors.add(x, dx)
+            # back-substitution on the rotated Hessenberg (gmres.fypp:199-202)
+            if k > 0:
+                with timed("gmres.update", "IterativeSolvers", device=True):
+                    y = linalg.solve_triangular(R[:k, :k], e[:k])
+                    dx = vectors.linear_combination(vectors.lead(Z if flexible else V, k), y)
+                    if not flexible:
+                        dx = M.matvec(dx)  # right-preconditioned correction (:201-202)
+                    x = vectors.add(x, dx)
 
-        if sanity_check:
-            res = vectors.norm(vectors.axpby(1.0, b, -1.0, matvec(x))).to(rdt)
-            mv_cycle = mv_inner + 2
-        else:
-            res = res_in
-            mv_cycle = mv_inner + 1
-        outer += 1
-        n_iter += k
-        nmv += mv_cycle
+            if sanity_check:
+                with timed("gmres.matvec", "IterativeSolvers", device=True):
+                    r = matvec(x)
+                res = vectors.norm(vectors.axpby(1.0, b, -1.0, r)).to(rdt)
+                mv_cycle = mv_inner + 2
+            else:
+                res = res_in
+                mv_cycle = mv_inner + 1
+            outer += 1
+            n_iter += k
+            nmv += mv_cycle
     return x, res, hist[:nin], nin, n_iter, outer, nmv
 
 

@@ -1,24 +1,54 @@
-"""Timers, operator call counters, the host-read and the collective counts.
+"""Timers, spans, operator call counters, the host-read and the collective counts.
 
 Counterpart of :mod:`lightkrylov_tpu.utils.timer` (reference:
 src/Utilities/Timer_Utils.f90, Timer.fypp): named timers with
 elapsed/min/max/count, a registry with groups, and a global enable flag that
 makes the instrumentation free when off (Timer.fypp:24,45-47).
 
-PyTorch launches CUDA work asynchronously, so a timer must wait for the
-device before it stops.  Where the JAX package called ``block_until_ready``
-on the routine's outputs, :func:`timed_fn` records a CUDA event on the
-current stream and synchronises on it.  ``torch.profiler`` ranges carry the
-timer names into device traces.
+**Spans.**  While timing is on (:func:`set_timing`, the reference's
+``time_lightkrylov`` flag), every :func:`timed` bracket and every
+:func:`timed_fn` routine records a :class:`Span`: its name, an ``id``, the
+``parent`` (innermost open span) and ``root`` (outermost open span: the
+solve) ids, and host stamps ``t0_ns``/``t1_ns`` from :func:`time.time_ns`,
+the clock ``torch.profiler`` stamps its events on, so spans line up with a
+device trace.  A ``device`` span in a process that uses CUDA records a CUDA
+event on the current stream when it opens and when it closes and never
+waits for the device: the events are read when the spans are read, and the
+span's timer takes the device time between them.  PyTorch launches CUDA
+work asynchronously, so the host stamps of a device span measure the
+dispatch and its events the device's work.  :func:`host_read` records a
+host-only span ``host_read``.  With timing off a bracket costs one flag
+test.  Read them with :func:`spans` (the closed spans, device times read)
+and :func:`span_summary` (per name: count, host time, self host time,
+device time); :func:`reset_counters` clears them with the counters::
+
+    lt.set_timing(True)
+    lt.gmres(A, b)
+    lt.timer.span_summary()["gmres.orth"]["device_ms"]
+
+The solvers' spans: ``gmres``, ``fgmres``, ``cg`` (one a solve, the root);
+``gmres.cycle`` (a restart cycle) with ``gmres.matvec`` (preconditioner and
+operator), ``gmres.orth`` (the basis work of a step), ``gmres.lsq`` (the
+Givens update) and ``gmres.update`` (the cycle's correction); ``cg.matvec``
+and ``cg.update`` (the rest of an iteration); ``arnoldi.step`` with
+``arnoldi.matvec`` and ``arnoldi.orth``; ``allreduce`` (a vector reduction
+over the process group) and ``halo`` (an operator's collective); and
+``host_read``.  The benchmark reads them in its traced runs,
+``python3 bench_port/run.py --workload <cell> --seed <n> --seconds <s>
+--trace 1`` (``bench_port/metrics/``).
+
+While a ``torch.profiler`` run is active, each span also opens a
+``record_function`` range of its name, so an operator's own profile shows
+the solver's layers around the kernels.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import time
 import weakref
-from collections import defaultdict
-from contextlib import contextmanager
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -35,6 +65,9 @@ __all__ = [
     "set_timing",
     "timed",
     "timed_fn",
+    "Span",
+    "spans",
+    "span_summary",
     "matvec_counter",
     "operator_label",
     "count_applications",
@@ -64,7 +97,8 @@ class Timer:
     """Atomic named timer (reference: ``lightkrylov_timer``,
     Timer_Utils.f90:12-74).  :meth:`stop` and :meth:`pause` read the host
     clock and do not wait for the device: time device work with
-    :func:`timed` (``device=True``) or :func:`timed_fn`."""
+    :func:`timed` (``device=True``) or :func:`timed_fn`, whose timers take
+    the device time between two CUDA events."""
 
     name: str
     etime: float = 0.0
@@ -82,11 +116,7 @@ class Timer:
 
     def stop(self):
         if self.running:
-            dt = time.perf_counter() - self._t0
-            self.etime += dt
-            self.tmin = min(self.tmin, dt)
-            self.tmax = max(self.tmax, dt)
-            self.count += 1
+            _tally(self, time.perf_counter() - self._t0)
             self.running = False
 
     def pause(self):
@@ -133,15 +163,18 @@ class Watch:
                 names.remove(name)
 
     def timer(self, name: str) -> Timer:
+        _read_events(wait=True)
         return self.add_timer(name)
 
     def reset_all(self, soft: bool = True) -> None:
+        _read_events(wait=True)
         for t in self._timers.values():
             t.reset(soft=soft)
 
     def summary(self) -> str:
         """Grouped min/avg/max/count report
         (reference: ``print_timer_summary``, Timer_Utils.f90:221-419)."""
+        _read_events(wait=True)
         lines = [f"== {self.name} timing summary =="]
         for group, names in self._groups.items():
             active = [self._timers[n] for n in names if n in self._timers and self._timers[n].count]
@@ -163,36 +196,139 @@ class Watch:
 global_watch = Watch()
 
 
-def _wait_for_device() -> None:
-    """Block until the current CUDA stream has run everything enqueued so
-    far; a no-op when CUDA was never used in this process."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
+# -- spans -------------------------------------------------------------------
 
 
-@contextmanager
+class Span:
+    """One recorded :func:`timed` bracket.  ``id`` is unique in the process;
+    ``parent`` is the id of the innermost span open when it opened (``None``
+    for a root) and ``root`` that of the outermost (its own id for a root):
+    the solve.  ``t0_ns``/``t1_ns`` are host stamps from
+    :func:`time.time_ns`.  ``device_ms`` is the device time between the
+    span's two CUDA events, ``None`` for a host-only span and until the
+    events are read (:func:`spans` reads them)."""
+
+    __slots__ = ("name", "id", "parent", "root", "t0_ns", "t1_ns", "device_ms",
+                 "_timer", "_device", "_events", "_range")
+
+    def __init__(self, name: str, group: str, device: bool):
+        self.name = name
+        self._timer = global_watch._timers.get(name) or global_watch.add_timer(name, group)
+        self._device = device
+        self.device_ms = self._events = self._range = None
+
+    def __enter__(self):
+        self.id = next(_span_ids)
+        if _open:
+            self.parent, self.root = _open[-1].id, _open[0].id
+        else:
+            self.parent = None
+            self.root = self.id
+        _open.append(self)
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.t0_ns = time.time_ns()
+        if self._device and torch.cuda.is_initialized():
+            self._events = _event_pair()
+            self._events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[1].record()
+        self.t1_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if _open[-1] is self:
+            _open.pop()
+        else:  # a bracket inside was left open
+            _open.remove(self)
+        _finished.append(self)
+        if self._events is None:
+            _tally(self._timer, (self.t1_ns - self.t0_ns) * 1e-9)
+        else:
+            _pending.append(self)
+        return False
+
+
+class _Off:
+    """What :func:`timed` returns while timing is off: a bracket that does
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_span_ids = itertools.count(1)
+_open: list[Span] = []          # the open spans, outermost first
+_finished: list[Span] = []      # closed spans, in closing order
+_pending: deque[Span] = deque()  # closed device spans whose events are unread
+_event_pool: list = []          # recorded-and-read CUDA events, for reuse
+
+
+def _tally(t: Timer, dt: float) -> None:
+    """Count one call of ``dt`` seconds on ``t``, as :meth:`Timer.stop` does."""
+    t.etime += dt
+    if dt < t.tmin:
+        t.tmin = dt
+    if dt > t.tmax:
+        t.tmax = dt
+    t.count += 1
+
+
+def _event_pair():
+    """Two timing CUDA events: read ones from the pool where the device has
+    passed them, new ones otherwise.  ``torch.Event`` records on the current
+    stream without the Python stream object that ``torch.cuda.Event.record``
+    builds on every call."""
+    if len(_event_pool) < 2:
+        _read_events(wait=False)
+    if len(_event_pool) >= 2:
+        return _event_pool.pop(), _event_pool.pop()
+    return (torch.Event(device="cuda", enable_timing=True),
+            torch.Event(device="cuda", enable_timing=True))
+
+
+def _read_events(wait: bool) -> None:
+    """Read the device time of the closed device spans, oldest first, into
+    the spans and their timers, and return their events to the pool.
+    Without ``wait`` it stops at the first span the device has not passed
+    yet (``Event.query`` of its closing event: both are on one stream); with
+    ``wait`` it waits for each."""
+    while _pending:
+        span = _pending[0]
+        start, end = span._events
+        if wait:
+            end.synchronize()
+            start.synchronize()
+        elif not end.query():
+            return
+        _pending.popleft()
+        span.device_ms = start.elapsed_time(end)
+        span._events = None
+        _event_pool.extend((start, end))
+        _tally(span._timer, span.device_ms * 1e-3)
+
+
 def timed(name: str, group: str = "user", device: bool = False):
-    """Bracket a stage with a named timer and a profiler range (reference:
-    the ``timer%start/stop`` brackets, e.g. arnoldi.fypp:18,75).  With
-    ``device``, the stage's device work is timed too: the span waits for the
-    device when it opens and when it closes (two synchronizations, so only
-    while timing is enabled)."""
+    """Bracket a stage with a named timer and a span, for ``with`` (reference:
+    the ``timer%start/stop`` brackets, e.g. arnoldi.fypp:18,75).  While
+    timing is off it returns a bracket that does nothing.  With ``device``,
+    on a process that uses CUDA, the span records a CUDA event on the
+    current stream when it opens and when it closes, and its timer takes the
+    device time between them once they are read; nothing waits for the
+    device."""
     if not _timing_enabled:
-        yield
-        return
-    t = global_watch.add_timer(name, group)
-    with torch.profiler.record_function(name):
-        if device:
-            _wait_for_device()
-        t.start()
-        try:
-            yield
-            if device:
-                _wait_for_device()
-        finally:
-            t.stop()
+        return _OFF
+    return Span(name, group, device)
 
 
 def timed_fn(name: str, group: str = "user"):
@@ -202,10 +338,43 @@ def timed_fn(name: str, group: str = "user"):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with timed(name, group, device=True):
+            if not _timing_enabled:
+                return fn(*args, **kwargs)
+            with Span(name, group, True):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+def spans() -> list[Span]:
+    """The closed spans since the last :func:`reset_counters`, in closing
+    order, their device times read (this waits for the device to pass the
+    last span's events)."""
+    _read_events(wait=True)
+    return list(_finished)
+
+
+def span_summary() -> dict[str, dict]:
+    """Per span name: ``count``, ``host_s`` (host time inside), ``self_host_s``
+    (host time inside minus the part its child spans cover) and
+    ``device_ms`` (the sum of its event times; ``None`` for host-only
+    spans)."""
+    recs = spans()
+    covered: dict[int, int] = defaultdict(int)
+    for s in recs:
+        if s.parent is not None:
+            covered[s.parent] += s.t1_ns - s.t0_ns
+    out: dict[str, dict] = {}
+    for s in recs:
+        row = out.setdefault(s.name, {"count": 0, "host_s": 0.0, "self_host_s": 0.0,
+                                      "device_ms": None})
+        dur = s.t1_ns - s.t0_ns
+        row["count"] += 1
+        row["host_s"] += dur * 1e-9
+        row["self_host_s"] += (dur - covered.get(s.id, 0)) * 1e-9
+        if s.device_ms is not None:
+            row["device_ms"] = (row["device_ms"] or 0.0) + s.device_ms
+    return out
 
 
 # -- call counters -----------------------------------------------------------
@@ -290,9 +459,15 @@ def count_applications(A, n: int, kind: str = "matvec") -> None:
 def host_read(t: torch.Tensor) -> np.ndarray:
     """Copy ``t`` to the host as a numpy array.  This waits until the
     device has computed it; every such wait in the solvers goes through here
-    and is counted under ``"host_reads"``."""
+    and is counted under ``"host_reads"``, and is a host-only span
+    ``host_read`` while timing is on, in which the events of the device spans
+    the device has passed are read."""
     _counters["host_reads"] += 1
-    return t.detach().cpu().numpy()
+    if not _timing_enabled:
+        return t.detach().cpu().numpy()
+    with Span("host_read", "host", False):
+        _read_events(wait=False)  # while the device runs what the copy waits for
+        return t.detach().cpu().numpy()
 
 
 def count_collective(kind: str) -> None:
@@ -316,7 +491,10 @@ def count_event(name: str, n: int = 1) -> None:
 
 
 def reset_counters() -> None:
-    """Clear all counters and the per-instance naming epoch."""
+    """Clear all counters, the per-instance naming epoch and the closed
+    spans (their device times are read into their timers first)."""
+    _read_events(wait=True)
+    _finished.clear()
     _counters.clear()
     _instance_names.clear()
     _class_counts.clear()

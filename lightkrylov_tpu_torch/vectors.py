@@ -45,7 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from .utils.timer import count_collective
+from .utils.timer import count_collective, timed
 
 __all__ = [
     "set_reduction_group",
@@ -135,17 +135,20 @@ def _shard():
 def allreduce_sum(*parts):
     """Each tensor of ``parts`` summed over the reduction group, in a tuple,
     by ONE counted all-reduce: several parts travel in one buffer, in their
-    promoted dtype.  Without a group the parts come back as they are."""
+    promoted dtype.  Without a group the parts come back as they are.  The
+    collective is a span ``allreduce`` while timing is on."""
     if _group is None:
         return parts
     count_collective("all_reduces")
     if len(parts) == 1:
         buf = parts[0].contiguous()  # the caller's fresh local result
-        dist.all_reduce(buf, group=_group)
+        with timed("allreduce", "parallel", device=True):
+            dist.all_reduce(buf, group=_group)
         return (buf,)
     dt = reduce(torch.promote_types, (p.dtype for p in parts))
     buf = torch.cat([p.reshape(-1).to(dt) for p in parts])
-    dist.all_reduce(buf, group=_group)
+    with timed("allreduce", "parallel", device=True):
+        dist.all_reduce(buf, group=_group)
     out, start = [], 0
     for p in parts:
         out.append(buf[start:start + p.numel()].reshape(p.shape).to(p.dtype))
