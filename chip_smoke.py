@@ -221,7 +221,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     global_watch.print_summary() through the package logger; every timer of
     the sweep counts the second sweep alone and holds the first's record in
     its history, the summary reaches the logger, and a hard
-    reset_all(soft=False) leaves every count 0 and every history empty.
+    reset_all(soft=False) leaves every count 0 and every history empty;
+35. CG's fused update (csrc/cg.cu): cg_pdot, cg_xr and cg_p against their
+    plain versions at 3162^2 f32 and f64 (1e-6 / 1e-13; the dot against
+    ||p|| ||Ap||), each timed cold through a FusedCG bound once to its inputs
+    (CUDA events behind a spinning kernel, two input sets rotated, each set
+    beyond L2) beside its bound (2, 6 and 3 passes over 3.35 TB/s), its
+    plain version and, for cg_pdot, torch.dot; then one CudaPoisson2D(3162)
+    f64 solve to rtol 1e-4 through them, its launches and
+    cg.fused_iterations counted, beside the same solve by separate vector
+    operations.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -230,6 +239,7 @@ without the package beside it, the script fails before it prints any result.
 
 import importlib
 import importlib.util
+import itertools
 import json
 import logging
 import multiprocessing
@@ -254,6 +264,7 @@ from scipy.optimize import linear_sum_assignment
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
+from lightkrylov_tpu_torch.ops import cg as fused_cg
 from lightkrylov_tpu_torch.ops import hessenberg as hess_ops
 from lightkrylov_tpu_torch.ops import probes as probe_ops
 from lightkrylov_tpu_torch.ops.spmv import (MAX_SPMM_COLUMNS, bell_spmm_reference,
@@ -339,7 +350,8 @@ KERNEL_FUNCTIONS = {"stencil": ("stencil_kernel", "stencil_batched_kernel"),
                     "reduce_8x128": ("reduce_partials_kernel", "reduce_final_kernel"),
                     "hessenberg_schur": ("schur_kernel",),
                     "francis_filter_sweeps": ("filter_kernel",),
-                    "ritz_check": ("ritz_kernel",), "ordschur": ("ordschur_kernel",)}
+                    "ritz_check": ("ritz_kernel",), "ordschur": ("ordschur_kernel",),
+                    "cg": ("cg_pdot_kernel", "cg_xr_kernel", "cg_p_kernel")}
 # the kernels timed beside their bound at sizes where H leaves shared memory
 # and a thread owns two rows
 LARGE_KDIMS = (240, 257, 300)
@@ -3563,6 +3575,116 @@ def timing_layer(dev, tag):
                 second=second, seconds=seconds)
 
 
+def cg_kernels(dev, tag, n=3162):
+    """Phase 35: the fused CG update's kernels against their plain versions
+    and timed cold on n^2 grids (the benchmark's 3162^2), then a whole solve
+    through them beside the unfused loop."""
+    cg_solver = importlib.import_module("lightkrylov_tpu_torch.solvers.cg")
+    passes = {"cg_pdot": 2, "cg_xr": 6, "cg_p": 3}
+    out = {"parity": {}, "times": {}}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        nbytes = n * n * dtype.itemsize
+        sets = [[seeded((n, n), dtype, dev, seed=4 * i + j) for j in range(4)] for i in range(2)]
+        x, r, p, ap = sets[0]
+        rz = torch.dot(r.reshape(-1), r.reshape(-1))
+        s = fused_cg.scalars(rz, torch.sqrt(rz), torch.sqrt(rz) * 0.5)
+        s[fused_cg.PAP] = torch.dot(p.reshape(-1), ap.reshape(-1))
+        s[fused_cg.BETA] = 0.75
+        hist = torch.zeros(4, dtype=dtype, device=dev)
+        scale = float(torch.linalg.norm(p.double()) * torch.linalg.norm(ap.double()))
+        s1, s2 = s.clone(), s.clone()
+        fused_cg.cg_pdot(fused_cg.FusedCG(x.clone(), r.clone(), p, s1, hist.clone()), ap)
+        fused_cg.cg_pdot_reference(p, ap, s2)
+        (x1, r1, s3), (x2, r2, s4) = (x.clone(), r.clone(), s.clone()), (x.clone(), r.clone(), s.clone())
+        fused_cg.cg_xr(fused_cg.FusedCG(x1, r1, p, s3, hist), ap, 0)
+        fused_cg.cg_xr_reference(x2, r2, p, ap, s4, hist.clone(), 0)
+        p1, p2 = p.clone(), p.clone()
+        fused_cg.cg_p(fused_cg.FusedCG(x.clone(), r, p1, s, hist.clone()))
+        fused_cg.cg_p_reference(r, p2, s)
+        torch.cuda.synchronize()
+        errs = {"cg_pdot": abs(float(s1[fused_cg.PAP] - s2[fused_cg.PAP])) / scale,
+                "cg_xr": max(rel_err(x1, x2), rel_err(r1, r2),
+                             *(abs(float(s3[k] - s4[k])) / abs(float(s4[k]))
+                               for k in (fused_cg.RR, fused_cg.RES, fused_cg.BETA))),
+                "cg_p": rel_err(p1, p2)}
+        for kernel, err in errs.items():
+            check(err <= REL_TOL[dtype], f"{kernel} {name} at {n}^2: rel err {err:.3e}")
+        out["parity"][name] = errs
+        # cold: alternate two input sets, each bound once as a solve binds its buffers;
+        # alpha = rz / inf = 0 and a fixed beta keep the values bounded over the repeated
+        # in-place updates, and move the same bytes
+        s_pdot = [s.clone() for _ in sets]  # cg_pdot and cg_p (beta 0.75)
+        s_xr = [s.clone() for _ in sets]
+        for si in s_xr:
+            si[fused_cg.PAP] = float("inf")
+        hist = torch.zeros(1, dtype=dtype, device=dev)
+        bound = [(fused_cg.FusedCG(*st[:3], s_pdot[i], hist), fused_cg.FusedCG(*st[:3], s_xr[i], hist))
+                 for i, st in enumerate(sets)]
+        kernel_call = {"cg_pdot": lambda i: fused_cg.cg_pdot(bound[i][0], sets[i][3]),
+                       "cg_xr": lambda i: fused_cg.cg_xr(bound[i][1], sets[i][3], 0),
+                       "cg_p": lambda i: fused_cg.cg_p(bound[i][0])}
+        plain_call = {
+            "cg_pdot": lambda i: fused_cg.cg_pdot_reference(sets[i][2], sets[i][3], s_pdot[i]),
+            "cg_xr": lambda i: fused_cg.cg_xr_reference(*sets[i], s_xr[i], hist, 0),
+            "cg_p": lambda i: fused_cg.cg_p_reference(sets[i][1], sets[i][2], s_pdot[i])}
+
+        turn = itertools.count()
+        for kernel in passes:
+            # behind a spinning kernel, so that the wrappers' host time stays out
+            fns = {"kernel_ms": lambda: kernel_call[kernel](next(turn) % 2),
+                   "plain_ms": lambda: plain_call[kernel](next(turn) % 2)}
+            if kernel == "cg_pdot":  # one library call computes it
+                fns["library_ms"] = lambda: torch.dot(*(v.reshape(-1) for v in
+                                                        sets[next(turn) % 2][2:]))
+            ms = alternating_ms(fns, per_run=8, spacer=True)
+            row = {**ms, "bound_ms": passes[kernel] * nbytes / HBM_BYTES_PER_S * 1e3}
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["kernel_ms"]
+            out["times"][f"{kernel}_{name}"] = row
+            library = f", torch.dot {row['library_ms'] * 1e3:.1f} us" if "library_ms" in row else ""
+            print(f"{tag} {kernel} {n}^2 {name} cold: kernel {row['kernel_ms'] * 1e3:.1f} us, "
+                  f"bound {row['bound_ms'] * 1e3:.1f} us ({row['roofline_pct']:.1f}%), "
+                  f"plain {row['plain_ms'] * 1e3:.1f} us{library}; rel err {errs[kernel]:.3e}")
+        del sets, bound, x1, r1, x2, r2, p1, p2
+    op = lt.CudaPoisson2D(n, dtype=torch.float64, device=dev)
+    b = seeded((n, n), torch.float64, dev, seed=11)
+    opts = lt.CGOptions(maxiter=40000)
+    solves = {}
+    for route in ("fused", "unfused"):
+        fits = cg_solver._fits_fused
+        if route == "unfused":
+            cg_solver._fits_fused = lambda *args: False
+        try:
+            fused_cg.cg_pdot.LAUNCHES = fused_cg.cg_xr.LAUNCHES = fused_cg.cg_p.LAUNCHES = 0
+            iters = lt.timer.get_counter("cg.fused_iterations")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info, meta = lt.cg(op, b, rtol=1e-4, atol=0.0, options=opts)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            cg_solver._fits_fused = fits
+        relres = float(torch.linalg.norm(b - op.matvec(x)) / torch.linalg.norm(b))
+        solves[route] = dict(n_iter=meta.n_iter, relres=relres, seconds=seconds,
+                             fused_iterations=lt.timer.get_counter("cg.fused_iterations") - iters,
+                             launches={k: getattr(fused_cg, k).LAUNCHES for k in passes})
+        print(f"{tag} cg {n}^2 f64 rtol 1e-4 {route}: {meta.n_iter} iterations, true relres "
+              f"{relres:.3e}, {seconds:.3f} s, launches {solves[route]['launches']}, "
+              f"cg.fused_iterations {solves[route]['fused_iterations']}")
+        check(info > 0 and relres <= 4e-4, f"cg {route}: info {info}, relres {relres:.3e}")
+    k = solves["fused"]["n_iter"]
+    check(solves["fused"]["fused_iterations"] == k
+          and all(v == k for v in solves["fused"]["launches"].values()),
+          f"the fused solve's counts {solves['fused']} for {k} iterations")
+    check(solves["unfused"]["fused_iterations"] == 0
+          and not any(solves["unfused"]["launches"].values()),
+          f"the unfused solve went through the kernels: {solves['unfused']}")
+    check(abs(k - solves["unfused"]["n_iter"]) <= 0.01 * solves["unfused"]["n_iter"],
+          f"iterations {k} fused against {solves['unfused']['n_iter']} unfused")
+    out["solves"] = solves
+    return out
+
+
 def main():
     results = {}
 
@@ -3790,6 +3912,10 @@ def main():
     # 34. the timing layer's soft and hard resets and its summary
     results["timing_layer"] = timing_layer(dev, tag)
 
+    # 35. CG's fused update: its kernels against their plain versions, timed,
+    # and a solve through them
+    results["cg_kernels"] = cg_kernels(dev, tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -3997,6 +4123,28 @@ def main():
         "gates": {f"{r['case']}_{r['dtype'][6:]}": {
             k: r[k] for k in ("ok", "swaps", "max_abs_err", "t_err", "z_err", "factorization")}
             for r in hk["ordschur"]},
+    })
+    ck = results["cg_kernels"]
+    kernels["kernels"].append({
+        "name": "cg",
+        "route": "cuda",
+        "source": "lightkrylov_tpu_torch/csrc/cg.cu",
+        "replaces": None,
+        "why": "CG's update after the operator, which the JAX package leaves to XLA",
+        "launches": ck["solves"]["fused"]["launches"],
+        "path_launches": {"cg_3162_f64_rtol1e-4": ck["solves"]["fused"]["launches"]},
+        "rel_err": ck["parity"],
+        "main_case": "3162^2 f64",
+        "ms": {k: ck["times"][f"{k}_float64"]["kernel_ms"] for k in ("cg_pdot", "cg_xr", "cg_p")},
+        "plain_ms": {k: ck["times"][f"{k}_float64"]["plain_ms"]
+                     for k in ("cg_pdot", "cg_xr", "cg_p")},
+        "bound_ms": {k: ck["times"][f"{k}_float64"]["bound_ms"]
+                     for k in ("cg_pdot", "cg_xr", "cg_p")},
+        "bound_by": "bytes",
+        "library_ms": {"cg_pdot": ck["times"]["cg_pdot_float64"]["library_ms"],
+                       "cg_xr": None, "cg_p": None},
+        "by_case": ck["times"],
+        "solves": ck["solves"],
     })
     for entry in kernels["kernels"]:
         entry["ptxas"] = results["ptxas"][entry["name"]]

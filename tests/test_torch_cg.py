@@ -32,9 +32,13 @@ def test_cg_on_poisson_matches_jax(precond):
     opts = lk.CGOptions(maxiter=200)
     xj, infoj, metaj = lk.cg(op_j, jnp.asarray(b), rtol=1e-10, preconditioner=M_j,
                              options=opts)
+    fused_before = lt.timer.get_counter("cg.fused_iterations")
     xt, infot, metat = lt.cg(port_operator(op_j), torch.from_numpy(b), rtol=1e-10,
                              preconditioner=port_operator(M_j) if precond else None,
                              options=port_options(opts))
+    # without a preconditioner the update runs as the fused kernels' plain versions
+    fused = lt.timer.get_counter("cg.fused_iterations") - fused_before
+    assert fused == (0 if precond else metat.n_iter)
     assert metaj.converged and infot == infoj > 0
     assert (metat.n_iter, metat.n_inner, metat.converged) == \
         (metaj.n_iter, metaj.n_inner, metaj.converged)

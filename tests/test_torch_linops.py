@@ -122,6 +122,7 @@ def test_check_info_and_counters():
         lt.check_info(-3, "gram_schmidt")
     lt.check_info(-3, "gmres")   # not converged: a warning only
     lt.timer.reset_counters()
+    lt.global_watch.reset_all(soft=False)  # whatever solves ran before in this process
     op = lt.Poisson2D(8)
     lt.timer.count_applications(op, 3)
     assert lt.timer.get_counter("Poisson2D.matvec") == 3

@@ -38,6 +38,8 @@ def _cpu_default_device():
     yield
     lt.set_timing(False)
     timer.reset_counters()
+    # the solves' timers too, so that no later test in this process sees them
+    lt.global_watch.reset_all(soft=False)
     lt.constants.set_default_device(prev)
 
 
@@ -234,7 +236,10 @@ def test_each_solver_emits_its_spans(case, names):
         assert all(s.parent in cycles for s in recs if s.name in ("gmres.orth", "gmres.update"))
     if root_name == "cg":
         assert counts["cg.matvec"] == timer.get_counter("Poisson2D.matvec") == meta.n_iter + 1
-        assert counts["cg.update"] == meta.n_iter
+        # an unpreconditioned real solve takes the fused route, whose update
+        # is two spans an iteration, one on each side of the flag's read
+        assert timer.get_counter("cg.fused_iterations") == meta.n_iter
+        assert counts["cg.update"] == 2 * meta.n_iter
     if root_name == "eigs":
         steps = {s.id for s in recs if s.name == "arnoldi.step"}
         assert counts["arnoldi.step"] == meta.n_iter
