@@ -173,13 +173,20 @@ def iram_restart(X, H, n_target):
     result is a pure Arnoldi factorization: ``H'`` Hessenberg with the
     single coupling ``H'[n, n-1] = ||f||``, columns past ``n`` zero.
 
+    The filter runs in float64 whatever ``H``'s dtype, and its ``Hf`` and
+    ``Z`` return to that dtype: a float32 filter takes its shifts from
+    eigenvalues in error by ``~kdim eps ||H||``, which on a clustered
+    spectrum is the size of the gaps, and keeps another subspace than the
+    exact shifts would.
+
     Returns ``(X', H', n, ok)``, ``n`` a 0-d int64 tensor (the next sweep
     starts at ``n + 1``), ``ok`` a 0-d bool tensor, False when the filter
     applied no sweep (the factorization is exact either way) (the JAX
     package's ``krylov_schur.py:59-118``)."""
     kdim = H.shape[1]
     dev, dt = H.device, H.dtype
-    Hf, Z, n, ok = francis_filter(H[:kdim, :kdim], n_target)
+    Hf, Z, n, ok = francis_filter(H[:kdim, :kdim].double(), n_target)
+    Hf, Z = Hf.to(dt), Z.to(dt)
     idx = torch.arange(kdim, device=dev)
     beta = H[kdim, kdim - 1]
     nm1 = torch.clamp(n - 1, min=0)

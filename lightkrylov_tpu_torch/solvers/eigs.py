@@ -29,7 +29,9 @@ Two projected paths, as in the JAX package (``options.projected``):
   Krylov-Schur restart, with host LAPACK as the last resort; a final
   float64 host recheck settles a working-dtype residual floor
   (:func:`_eigs_device_cycles`; the JAX package's ``eigs.py:479-607,
-  658-699``).
+  658-699``).  With timing on, a cycle is the span ``eigs.cycle``, holding
+  each check as ``eigs.check`` and the restart as ``eigs.restart``; the
+  host path's restarts are ``eigs.restart`` spans too.
 
 Block mode (``blksize = p > 1``, the JAX package's ``_eigs_block``,
 ``eigs.py:738-918``) runs block Arnoldi sweeps at column offsets ``s0, s0 +
@@ -257,9 +259,17 @@ def _fused_sweep(A, X, H, kstart, kend, nev, tol, btol, transpose, stride):
     and its read carries ``kstart`` too.  Returns ``(X, H, k_fin, kstart,
     info, n_conv, wr, wi, res, Vr, Vi, ok)``, ``k_fin`` and ``kstart`` ints,
     the rest device tensors; ``ok`` False means the QR sweep budget ran out
-    at the last check."""
+    at the last check.
+
+    A check solves the projected problem in float64 whatever the basis
+    dtype: in float32 the Schur kernel's eigenvalues of a kdim-64 ``H`` err
+    by ``~kdim eps ||H||``, as much as the gaps of a clustered spectrum, and
+    the inverse iteration from such a shift returns a neighbour's vector (on
+    the 3162^2 Poisson grid a float32 check returned Ritz vectors 0.3 from
+    orthogonal, whose reported residuals missed their own by 1e-5 of
+    ``|lambda_1|``)."""
     kdim = H.shape[1]
-    dev, rdt = H.device, H.dtype
+    dev, rdt = H.device, torch.float64
     n_conv = torch.zeros((), dtype=torch.int32, device=dev)
     ritz = (torch.zeros(kdim, dtype=rdt, device=dev), torch.zeros(kdim, dtype=rdt, device=dev),
             torch.full((kdim,), float("inf"), dtype=rdt, device=dev),
@@ -279,9 +289,10 @@ def _fused_sweep(A, X, H, kstart, kend, nev, tol, btol, transpose, stride):
 
         def ritz_check():
             count_event("ritz_checks")
-            out = hessenberg_ritz(H, k_eff, tol, nev)
-            # a fatal NaN: the count means nothing (the loop exits on info)
-            return out[:5] + (torch.where(info < 0, 0, out[5]).to(torch.int32), out[6])
+            with timed("eigs.check", "IterativeSolvers", device=True):
+                out = hessenberg_ritz(H.double(), k_eff, tol, nev)
+                # a fatal NaN: the count means nothing (the loop exits on info)
+                return out[:5] + (torch.where(info < 0, 0, out[5]).to(torch.int32), out[6])
 
         if check:
             ritz = ritz_check()
@@ -332,85 +343,87 @@ def _eigs_device_cycles(A, nev, kdim, tol, transpose, select, opts, check_every,
     device_ks_ok = True
     adapt = _AdaptiveStride(kdim, name) if not check_every else None
     for cycle in range(cycle0, opts.maxiter):
-        dstride = check_every if check_every else adapt.next_stride()
-        t0 = time.perf_counter()
-        X, H, k_fin, kstart_h, info_d, nconv_d, wr_d, wi_d, res_d, Vr, Vi, dok = _fused_sweep(
-            A, X, H, kstart, kdim, nev, tol, btol, transpose, dstride)
-        out = _read(info_d, nconv_d, dok, *[f for _, f in pending], wr_d, wi_d, res_d)
-        m = 3 + len(pending)
-        ainfo, n_conv, dok_h = int(out[0]), int(out[1]), bool(out[2])
-        flags = [bool(v) for v in out[3:m]]
-        wr_h, wi_h, r_all = (out[m + i * kdim:m + (i + 1) * kdim].astype(rdt) for i in range(3))
-        steps = k_fin - (kstart_h - 1)
-        if adapt is not None:
-            adapt.record(time.perf_counter() - t0, steps, dstride)
-        for (what, _), ok in zip(pending, flags):
-            if what == "iram":
-                iram_fail = 0 if ok else iram_fail + 1
-                if not ok:
-                    log_warning(f"{name}: device IRAM filter applied no spectral filtering (a "
-                                f"pure truncation; {iram_fail} consecutive)", "solvers", name)
-            elif what == "ks" and not ok:
-                device_ks_ok = False
-                log_warning(f"{name}: device Schur reordering rejected a block swap; routing "
-                            "restarts to host LAPACK", "solvers", name)
-        pending = []
-        check_info(ainfo, "arnoldi", "solvers", name)
-        k_eff = ainfo if ainfo > 0 else k_fin
-        st.niter += steps
-        count_applications(A, steps, kind)
-        if dok_h or k_eff == 0:
-            w = (wr_h + 1j * wi_h)[:k_eff]
-            r = r_all[:k_eff]
-            st.evecs_device, st.evecs = (Vr, Vi), None
-        else:
-            log_warning(f"{name}: device Hessenberg QR did not converge; host fallback for this "
-                        "check", "solvers", name)
-            count_event("qr_host_redos")
-            Hh = host_read(H)
-            w, V = np.linalg.eig(Hh[:k_eff, :k_eff])
-            r = _ritz_residuals(Hh, V, k_eff)
-            order = np.argsort(-np.abs(w))
-            w, V, r = w[order], V[:, order], r[order]
-            n_conv = int(np.sum(r[:nev] < tol))
-            st.evecs, st.evecs_device = V, None
-        if ainfo > 0:
-            st.invariant = True  # residuals are exactly zero (beta = 0)
-        res_history.append(r[: min(nev, len(r))].copy())
-        if opts.write_intermediate and constants.io_rank():
-            _write_intermediate(opts.outpost, w, r)
-        st.evals, st.res, st.k_final, st.n_conv = w, r, k_eff, n_conv
-        ckpt.check()
-        if n_conv >= nev or st.invariant:
-            break
-        if cycle == opts.maxiter - 1:
-            break
-        if select is median_selector and h_is_hessenberg and iram_fail < 2:
-            X, H, n_dev, rok = iram_restart(X, H, kdim // 2)
-            pending.append(("iram", rok))
-            kstart = n_dev + 1
-            count_event(f"restarts.{name}.iram")
-        elif device_ks_ok and dok_h:
-            mask = np.zeros(kdim, bool)
-            mask[:k_eff] = np.asarray(select(w), bool)
-            X, H, n_dev, ksok = krylov_schur_device(X, H, wr_d, wi_d,
-                                                    torch.from_numpy(mask).to(dev))
-            pending.append(("ks", ksok))
-            h_is_hessenberg = False
-            kstart = n_dev + 1
-            count_event(f"restarts.{name}.schur_device")
-            log_information(f"{name}: device Schur restart cycle {cycle + 1}, {n_conv}/{nev} "
-                            "converged", "solvers", name)
-        else:
-            X, H, n = krylov_schur(X, H, select)
-            h_is_hessenberg = False
-            kstart = n + 1
-            count_event(f"restarts.{name}.host")
-            log_information(f"{name}: host restart cycle {cycle + 1}, compressed to n={n}, "
-                            f"{n_conv}/{nev} converged", "solvers", name)
-        if ckpt.due:  # a checkpoint needs the concrete restart index
-            kstart = int(host_read(kstart)) if isinstance(kstart, torch.Tensor) else kstart
-            ckpt.save(_solver_state({"X": X, "H": H}, kstart, cycle + 1, st.niter))
+        with timed("eigs.cycle", "IterativeSolvers", device=True):
+            dstride = check_every if check_every else adapt.next_stride()
+            t0 = time.perf_counter()
+            X, H, k_fin, kstart_h, info_d, nconv_d, wr_d, wi_d, res_d, Vr, Vi, dok = _fused_sweep(
+                A, X, H, kstart, kdim, nev, tol, btol, transpose, dstride)
+            out = _read(info_d, nconv_d, dok, *[f for _, f in pending], wr_d, wi_d, res_d)
+            m = 3 + len(pending)
+            ainfo, n_conv, dok_h = int(out[0]), int(out[1]), bool(out[2])
+            flags = [bool(v) for v in out[3:m]]
+            wr_h, wi_h, r_all = (out[m + i * kdim:m + (i + 1) * kdim].astype(rdt) for i in range(3))
+            steps = k_fin - (kstart_h - 1)
+            if adapt is not None:
+                adapt.record(time.perf_counter() - t0, steps, dstride)
+            for (what, _), ok in zip(pending, flags):
+                if what == "iram":
+                    iram_fail = 0 if ok else iram_fail + 1
+                    if not ok:
+                        log_warning(f"{name}: device IRAM filter applied no spectral filtering (a "
+                                    f"pure truncation; {iram_fail} consecutive)", "solvers", name)
+                elif what == "ks" and not ok:
+                    device_ks_ok = False
+                    log_warning(f"{name}: device Schur reordering rejected a block swap; routing "
+                                "restarts to host LAPACK", "solvers", name)
+            pending = []
+            check_info(ainfo, "arnoldi", "solvers", name)
+            k_eff = ainfo if ainfo > 0 else k_fin
+            st.niter += steps
+            count_applications(A, steps, kind)
+            if dok_h or k_eff == 0:
+                w = (wr_h + 1j * wi_h)[:k_eff]
+                r = r_all[:k_eff]
+                st.evecs_device, st.evecs = (Vr, Vi), None
+            else:
+                log_warning(f"{name}: device Hessenberg QR did not converge; host fallback for "
+                            "this check", "solvers", name)
+                count_event("qr_host_redos")
+                Hh = host_read(H)
+                w, V = np.linalg.eig(Hh[:k_eff, :k_eff])
+                r = _ritz_residuals(Hh, V, k_eff)
+                order = np.argsort(-np.abs(w))
+                w, V, r = w[order], V[:, order], r[order]
+                n_conv = int(np.sum(r[:nev] < tol))
+                st.evecs, st.evecs_device = V, None
+            if ainfo > 0:
+                st.invariant = True  # residuals are exactly zero (beta = 0)
+            res_history.append(r[: min(nev, len(r))].copy())
+            if opts.write_intermediate and constants.io_rank():
+                _write_intermediate(opts.outpost, w, r)
+            st.evals, st.res, st.k_final, st.n_conv = w, r, k_eff, n_conv
+            ckpt.check()
+            if n_conv >= nev or st.invariant:
+                break
+            if cycle == opts.maxiter - 1:
+                break
+            with timed("eigs.restart", "IterativeSolvers", device=True):
+                if select is median_selector and h_is_hessenberg and iram_fail < 2:
+                    X, H, n_dev, rok = iram_restart(X, H, kdim // 2)
+                    pending.append(("iram", rok))
+                    kstart = n_dev + 1
+                    count_event(f"restarts.{name}.iram")
+                elif device_ks_ok and dok_h:
+                    mask = np.zeros(kdim, bool)
+                    mask[:k_eff] = np.asarray(select(w), bool)
+                    X, H, n_dev, ksok = krylov_schur_device(X, H, wr_d, wi_d,
+                                                            torch.from_numpy(mask).to(dev))
+                    pending.append(("ks", ksok))
+                    h_is_hessenberg = False
+                    kstart = n_dev + 1
+                    count_event(f"restarts.{name}.schur_device")
+                    log_information(f"{name}: device Schur restart cycle {cycle + 1}, "
+                                    f"{n_conv}/{nev} converged", "solvers", name)
+                else:
+                    X, H, n = krylov_schur(X, H, select)
+                    h_is_hessenberg = False
+                    kstart = n + 1
+                    count_event(f"restarts.{name}.host")
+                    log_information(f"{name}: host restart cycle {cycle + 1}, compressed to n={n}, "
+                                    f"{n_conv}/{nev} converged", "solvers", name)
+            if ckpt.due:  # a checkpoint needs the concrete restart index
+                kstart = int(host_read(kstart)) if isinstance(kstart, torch.Tensor) else kstart
+                ckpt.save(_solver_state({"X": X, "H": H}, kstart, cycle + 1, st.niter))
     st.X, st.H = X, H
 
 
@@ -550,7 +563,8 @@ def eigs(A, nev: int, x0=None, kdim: int | None = None, tolerance: float | None 
         if n_conv >= nev or invariant:
             break
         if cycle < opts.maxiter - 1:
-            X, H, n = krylov_schur(X, H, select)  # (:1099-1100)
+            with timed("eigs.restart", "IterativeSolvers", device=True):
+                X, H, n = krylov_schur(X, H, select)  # (:1099-1100)
             kstart = n + 1
             # a restart boundary: resuming starts the next cycle at n + 1
             ckpt.save(_solver_state({"X": X, "H": H}, kstart, cycle + 1, niter))

@@ -30,8 +30,11 @@ The solvers' spans: ``gmres``, ``fgmres``, ``cg`` (one a solve, the root);
 ``gmres.cycle`` (a restart cycle) with ``gmres.matvec`` (preconditioner and
 operator), ``gmres.orth`` (the basis work of a step), ``gmres.lsq`` (the
 Givens update) and ``gmres.update`` (the cycle's correction); ``cg.matvec``
-and ``cg.update`` (the rest of an iteration); ``arnoldi.step`` with
-``arnoldi.matvec`` and ``arnoldi.orth``; ``allreduce`` (a vector reduction
+and ``cg.update`` (the rest of an iteration); ``eigs`` (the root) with
+``eigs.cycle`` (a restart cycle of the device projected path) holding
+``eigs.check`` (a device Ritz check) and ``eigs.restart`` (a restart, also
+on the host path, whose checks are ``eigs.projected_eig``); ``arnoldi.step``
+with ``arnoldi.matvec`` and ``arnoldi.orth``; ``allreduce`` (a vector reduction
 over the process group) and ``halo`` (an operator's collective); and
 ``host_read``.  The benchmark reads them in its traced runs,
 ``python3 bench_port/run.py --workload <cell> --seed <n> --seconds <s>

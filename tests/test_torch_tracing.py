@@ -247,6 +247,47 @@ def test_each_solver_emits_its_spans(case, names):
                                                                    "arnoldi.orth"))
 
 
+def _eigs_budget(projected):
+    """``eigs`` at ``tolerance = 0``: no pair converges, so it runs its 4
+    cycles and restarts 3 times."""
+    return lambda: lt.eigs(_dense(), 3, x0=_vec(), kdim=10, tolerance=0.0, check_every=3,
+                           options=lt.EigsOptions(maxiter=4, projected=projected))
+
+
+def test_eigs_device_spans_a_cycle_a_restart_and_a_check():
+    """The device projected path opens one ``eigs.cycle`` a cycle, one
+    ``eigs.restart`` a restart and one ``eigs.check`` a check, each check and
+    restart inside its cycle and every cycle under the root ``eigs``; and
+    its counters, the checks included, are those of a run with timing off."""
+    run = _eigs_budget("device")
+    timer.reset_counters()
+    run()
+    off = {**_counted(), "ritz_checks": timer.get_counter("ritz_checks")}
+    _, recs = _traced(run)
+    assert {**_counted(), "ritz_checks": timer.get_counter("ritz_checks")} == off
+    [root] = _check_tree(recs)
+    assert root.name == "eigs"
+    counts = Counter(s.name for s in recs)
+    assert counts["eigs.cycle"] == 4
+    assert counts["eigs.restart"] == 3 == timer.get_counter("restarts.eigs.iram")
+    assert counts["eigs.check"] == timer.get_counter("ritz_checks") > 4
+    cycles = {s.id for s in recs if s.name == "eigs.cycle"}
+    assert all(s.parent == root.id for s in recs if s.name == "eigs.cycle")
+    assert all(s.parent in cycles for s in recs if s.name in ("eigs.check", "eigs.restart"))
+
+
+def test_eigs_host_path_spans_each_restart():
+    """The host projected path's restarts are ``eigs.restart`` spans too, one
+    a restart, beside its ``eigs.projected_eig`` checks; it has no cycle or
+    device check span."""
+    _, recs = _traced(_eigs_budget("host"))
+    [root] = _check_tree(recs)
+    counts = Counter(s.name for s in recs)
+    assert counts["eigs.restart"] == 3 and counts["eigs.projected_eig"] >= 4
+    assert counts["eigs.cycle"] == counts["eigs.check"] == 0
+    assert all(s.parent == root.id for s in recs if s.name == "eigs.restart")
+
+
 def test_a_solve_is_one_root_and_the_next_another():
     _, recs = _traced(lambda: [RUNS["cg"]() for _ in range(2)])
     roots = _check_tree(recs)
