@@ -230,7 +230,17 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     plain version and, for cg_pdot, torch.dot; then one CudaPoisson2D(3162)
     f64 solve to rtol 1e-4 through them, its launches and
     cg.fused_iterations counted, beside the same solve by separate vector
-    operations.
+    operations;
+36. a DCGS2 step's k-sized work as one kernel (csrc/gmres.cu): every step
+    and the flush of a GMRES(30) cycle on CudaPoisson2D(3162) in f32 and
+    f64, dcgs2_step and dcgs2_flush bound to a copy of the plain state
+    against the plain versions (1e-6 / 1e-13 of each output's norm) and
+    bit-equal when repeated; the kernel's device time and the wrapper's host
+    us a call; the launches of one 3162^2 f32 cycle on each route by
+    torch.profiler (a fresh process each); and GMRES(30) cycles through the
+    kernel against the separate operations (iterate and residual history
+    within 1e-3, the same host reads, 30 fused steps and one flush a cycle),
+    with their times in turns.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -265,6 +275,7 @@ import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch import native
 from lightkrylov_tpu_torch.ops import _build
 from lightkrylov_tpu_torch.ops import cg as fused_cg
+from lightkrylov_tpu_torch.ops import gmres as fused_gmres
 from lightkrylov_tpu_torch.ops import hessenberg as hess_ops
 from lightkrylov_tpu_torch.ops import probes as probe_ops
 from lightkrylov_tpu_torch.ops.spmv import (MAX_SPMM_COLUMNS, bell_spmm_reference,
@@ -351,7 +362,8 @@ KERNEL_FUNCTIONS = {"stencil": ("stencil_kernel", "stencil_batched_kernel"),
                     "hessenberg_schur": ("schur_kernel",),
                     "francis_filter_sweeps": ("filter_kernel",),
                     "ritz_check": ("ritz_kernel",), "ordschur": ("ordschur_kernel",),
-                    "cg": ("cg_pdot_kernel", "cg_xr_kernel", "cg_p_kernel")}
+                    "cg": ("cg_pdot_kernel", "cg_xr_kernel", "cg_p_kernel"),
+                    "dcgs2_step": ("dcgs2_kernel",)}
 # the kernels timed beside their bound at sizes where H leaves shared memory
 # and a thread owns two rows
 LARGE_KDIMS = (240, 257, 300)
@@ -3685,6 +3697,229 @@ def cg_kernels(dev, tag, n=3162):
     return out
 
 
+GMRES_N = 3162
+GMRES_KDIM = 30
+GMRES_CYCLE_RUNS = 5
+
+# one GMRES(30) cycle at GMRES_N^2 f32 under torch.profiler, in a fresh
+# process (the profiler records the card's kernels only the first time a
+# process uses it), on the route {route}: the host's launch calls and the
+# card's activities, by name
+GMRES_LAUNCH_PROBE = """
+import json
+import importlib
+import numpy as np
+import torch
+import lightkrylov_tpu_torch as lt
+solver = importlib.import_module("lightkrylov_tpu_torch.solvers.gmres")
+if "{route}" == "separate":
+    solver._fits_fused = lambda *args: False
+n, kdim = {n}, {kdim}
+op = lt.CudaPoisson2D(n, dtype=torch.float32, device="cuda")
+b = torch.from_numpy(np.random.default_rng(3).standard_normal((n, n))).to("cuda", torch.float32)
+opts = lt.GMRESOptions(kdim=kdim, maxiter=1)
+for _ in range(2):
+    lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
+    torch.cuda.synchronize()
+calls = {{"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"}}
+events = prof.events()
+device = {{}}
+for e in events:
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+        device[e.name] = device.get(e.name, 0) + 1
+print(json.dumps({{"launch_calls": sum(e.name in calls for e in events),
+                  "memcpy_calls": sum(e.name == "cudaMemcpyAsync" for e in events),
+                  "device": device}}))
+"""
+
+
+def dcgs2_parity(dev, dtype, tag, n=GMRES_N, kdim=GMRES_KDIM):
+    """Every step and the flush of one DCGS2 cycle on CudaPoisson2D(n): the
+    plain versions on the card run the cycle; before each step a
+    FusedDCGS2 bound to a copy of their state takes the same step (twice,
+    from two copies, for the bits).  The largest relative gap of each
+    output over the cycle, and whether every repeat was bit-equal."""
+    op = lt.CudaPoisson2D(n, dtype=dtype, device=dev)
+    b = seeded((n, n), dtype, dev, seed=21).reshape(-1)
+    beta = torch.linalg.vector_norm(b)
+    V = torch.zeros(kdim + 1, n * n, dtype=dtype, device=dev)
+    V[0] = b / beta
+    e = torch.zeros(kdim + 1, dtype=dtype, device=dev)
+    e[0] = beta
+    zeros = [torch.zeros(shape, dtype=dtype, device=dev) for shape in ((kdim, kdim), kdim, kdim)]
+    st = fused_gmres.DCGS2State(*zeros, e, torch.zeros(kdim, dtype=dtype, device=dev),
+                                beta.clone(), torch.zeros((), dtype=dtype, device=dev),
+                                lt.constants.eps(dtype))
+    names = ("Ht", "hp", "fac_prev", "R", "c", "s", "e", "res", "hist")
+    gaps, bits = {}, True
+
+    def bound():
+        fb = fused_gmres.FusedDCGS2(*(t.clone() for t in (st.R, st.c, st.s, st.e, st.hist)),
+                                    st.res.clone(), st.tol.clone(), st.eps)
+        fb.Ht.copy_(st.Ht)
+        fb.hp.copy_(st.hp)
+        fb.fac_prev.copy_(st.fac_prev)
+        return fb
+
+    def gap(name, got, want):
+        scale = float(torch.linalg.norm(want.double()))
+        err = float(torch.linalg.norm((got - want).double()))
+        gaps[name] = max(gaps.get(name, 0.0), err / scale if scale else err)
+
+    def compare(pair, outs):
+        nonlocal bits
+        for name in names:
+            gap(name, getattr(pair[0], name), getattr(st, name))
+            bits &= torch.equal(getattr(pair[0], name), getattr(pair[1], name))
+        for name, (got, again, want) in outs.items():
+            gap(name, got, want)
+            bits &= torch.equal(got, again)
+
+    for k in range(kdim):
+        u = V[k]
+        w = op.matvec(u.view(n, n)).reshape(-1)
+        PR = (torch.stack([u, w]) @ V[: k + 1].T).T
+        wTw = torch.dot(w, w)
+        nin = max(k - 1, 0)
+        pair = (bound(), bound())
+        got = [fused_gmres.dcgs2_step(fb, PR, wTw, k, nin) for fb in pair]
+        C, inv_gamma = fused_gmres.dcgs2_coefficients_reference(st, PR, wTw, k)
+        fused_gmres.dcgs2_givens_reference(st, k, nin)
+        compare(pair, {"coeff": (got[0][0], got[1][0], C),
+                       "inv_gamma": (got[0][1], got[1][1], inv_gamma),
+                       "flag": tuple(x.flag.to(dtype) for x in (*pair, st))})
+        D = C.T @ V[: k + 1]
+        V[k + 1] = inv_gamma * w - D[1]
+        V[k] = D[0]
+    zf = V[: kdim + 1] @ V[kdim]
+    pair = (bound(), bound())
+    for fb in pair:
+        fused_gmres.dcgs2_flush(fb, zf, kdim, kdim - 1)
+    fused_gmres.dcgs2_flush_reference(st, zf, kdim, kdim - 1)
+    compare(pair, {"conv": tuple(x.conv.to(dtype) for x in (*pair, st))})
+    torch.cuda.synchronize()
+    name = str(dtype)[6:]
+    worst = max(gaps.values())
+    print(f"{tag} dcgs2_step/dcgs2_flush {n}^2 kdim {kdim} {name}, every step and the flush "
+          f"against the plain versions: worst rel gap {worst:.3e} "
+          f"({max(gaps, key=gaps.get)}); repeats bit-equal: {bits}")
+    check(worst <= REL_TOL[dtype], f"dcgs2 {name}: rel gaps {gaps}")
+    check(bits, f"dcgs2 {name}: two launches from one state differ")
+    # the kernel alone at the cycle's last step, and the wrapper's host time
+    k = kdim - 1
+    u = V[k]
+    w = op.matvec(u.view(n, n)).reshape(-1)
+    PR, wTw = (torch.stack([u, w]) @ V[: k + 1].T).T, torch.dot(w, w)
+    fb = bound()
+    ms = alternating_ms({"kernel_ms": lambda: fused_gmres.dcgs2_step(fb, PR, wTw, k, 0)},
+                        per_run=10, spacer=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_US_CALLS):
+        fused_gmres.dcgs2_step(fb, PR, wTw, k, 0)
+    host_us = (time.perf_counter() - t0) / HOST_US_CALLS * 1e6
+    torch.cuda.synchronize()
+    print(f"{tag} dcgs2_step kdim {kdim} {name} at step {k}: kernel {ms['kernel_ms'] * 1e3:.2f} us "
+          f"on the card; wrapper {host_us:.1f} us of host time a call")
+    del V, op
+    return gaps, dict(ms, host_us=host_us)
+
+
+def gmres_kernels(dev, tag):
+    """Phase 36: the DCGS2 step's kernel against its plain version at every
+    step of a 3162^2 cycle, timed; the launches of a cycle on each route;
+    GMRES(30) cycles through it beside the separate operations."""
+    solver = importlib.import_module("lightkrylov_tpu_torch.solvers.gmres")
+    out = {"parity": {}, "times": {}, "launches": {}, "cycles": {}}
+    for dtype in (torch.float32, torch.float64):
+        gaps, times = dcgs2_parity(dev, dtype, tag)
+        out["parity"][str(dtype)[6:]], out["times"][str(dtype)[6:]] = gaps, times
+    for route in ("kernel", "separate"):
+        code = GMRES_LAUNCH_PROBE.format(route=route, n=GMRES_N, kdim=GMRES_KDIM)
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=300, cwd=Path(__file__).resolve().parent)
+        check(proc.returncode == 0, f"the GMRES launch probe failed: {proc.stderr[-2000:]}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["launches"][route] = row
+        top = sorted(row["device"].items(), key=lambda kv: -kv[1])[:6]
+        print(f"{tag} one GMRES({GMRES_KDIM}) cycle {GMRES_N}^2 f32, {route} route, by "
+              f"torch.profiler: {row['launch_calls']} launch calls "
+              f"({row['launch_calls'] / (GMRES_KDIM + 1):.1f} an operator step), "
+              f"{row['memcpy_calls']} cudaMemcpyAsync, {sum(row['device'].values())} device "
+              f"activities; most: " + "; ".join(f"{name[:50]} x{c}" for name, c in top))
+    kernel_row = out["launches"]["kernel"]
+    check(sum(c for name, c in kernel_row["device"].items() if "dcgs2_kernel" in name)
+          == GMRES_KDIM + 1, f"the fused cycle's dcgs2 launches: {kernel_row['device']}")
+    check(not any("dcgs2_kernel" in name for name in out["launches"]["separate"]["device"]),
+          "the separate operations launched the dcgs2 kernel")
+    op = lt.CudaPoisson2D(GMRES_N, dtype=torch.float32, device=dev)
+    b = seeded((GMRES_N, GMRES_N), torch.float32, dev, seed=22)
+    opts = lt.GMRESOptions(kdim=GMRES_KDIM, maxiter=2)
+    fits = solver._fits_fused
+    runs = {}
+    for route in ("kernel", "separate"):
+        if route == "separate":
+            solver._fits_fused = lambda *args: False
+        try:
+            lt.timer.reset_counters()
+            before = (fused_gmres.dcgs2_step.LAUNCHES, fused_gmres.dcgs2_flush.LAUNCHES)
+            x, info, meta = lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
+            runs[route] = dict(x=x, residuals=meta.residuals, n_inner=meta.n_inner,
+                               host_reads=lt.timer.get_counter("host_reads"),
+                               fused_steps=lt.timer.get_counter("gmres.fused_steps"),
+                               launches=[fused_gmres.dcgs2_step.LAUNCHES - before[0],
+                                         fused_gmres.dcgs2_flush.LAUNCHES - before[1]])
+        finally:
+            solver._fits_fused = fits
+    k, s = runs["kernel"], runs["separate"]
+    x_gap = rel_err(k["x"], s["x"])
+    hist_gap = float(np.linalg.norm(k["residuals"] - s["residuals"])
+                     / np.linalg.norm(s["residuals"]))
+    print(f"{tag} two GMRES({GMRES_KDIM}) cycles {GMRES_N}^2 f32 through the kernel against the "
+          f"separate operations: x rel gap {x_gap:.3e}, residual history rel gap "
+          f"{hist_gap:.3e}; host reads {k['host_reads']} / {s['host_reads']}; fused steps "
+          f"{k['fused_steps']} / {s['fused_steps']}; dcgs2 launches (step, flush) "
+          f"{k['launches']} / {s['launches']}")
+    check(x_gap <= 1e-3 and hist_gap <= 1e-3, f"fused cycles: x gap {x_gap}, history {hist_gap}")
+    check(k["host_reads"] == s["host_reads"] and k["n_inner"] == s["n_inner"],
+          f"host reads {k['host_reads']} / {s['host_reads']}")
+    check(k["fused_steps"] == 2 * GMRES_KDIM and k["launches"] == [2 * GMRES_KDIM, 2]
+          and s["fused_steps"] == 0 and s["launches"] == [0, 0],
+          f"fused steps and launches: {k['fused_steps']} {k['launches']}; "
+          f"{s['fused_steps']} {s['launches']}")
+    for route in runs:
+        runs[route].pop("x")
+        runs[route]["residuals"] = runs[route]["residuals"].tolist()
+    out["cycles"] = dict(runs, x_gap=x_gap, history_gap=hist_gap)
+    # cycle times by the host clock, the routes in turns
+    opts = lt.GMRESOptions(kdim=GMRES_KDIM, maxiter=1)
+    secs = {"kernel": [], "separate": []}
+    for i in range(2 * GMRES_CYCLE_RUNS + 2):
+        route = ("kernel", "separate", "separate", "kernel")[i % 4]
+        if route == "separate":
+            solver._fits_fused = lambda *args: False
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs[route].append(time.perf_counter() - t0)
+        finally:
+            solver._fits_fused = fits
+    cycle_ms = {route: 1e3 * statistics.median(v) for route, v in secs.items()}
+    out["cycles"]["cycle_ms"] = cycle_ms
+    out["cycles"]["kernel"]["launches"] = k["launches"]
+    print(f"{tag} a GMRES({GMRES_KDIM}) cycle {GMRES_N}^2 f32, median of {GMRES_CYCLE_RUNS} in "
+          f"turns: through the kernel {cycle_ms['kernel']:.1f} ms, separate operations "
+          f"{cycle_ms['separate']:.1f} ms")
+    return out
+
+
 def main():
     results = {}
 
@@ -3916,6 +4151,10 @@ def main():
     # and a solve through them
     results["cg_kernels"] = cg_kernels(dev, tag)
 
+    # 36. a DCGS2 step's k-sized work as one kernel: against its plain
+    # version, timed, launches counted, and GMRES(30) cycles through it
+    results["gmres_kernels"] = gmres_kernels(dev, tag)
+
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
     bell_main = results["bell_main_path"]
     yard = results["yardsticks"]
@@ -4145,6 +4384,25 @@ def main():
                        "cg_xr": None, "cg_p": None},
         "by_case": ck["times"],
         "solves": ck["solves"],
+    })
+    gk = results["gmres_kernels"]
+    kernels["kernels"].append({
+        "name": "dcgs2_step",
+        "route": "cuda",
+        "source": "lightkrylov_tpu_torch/csrc/gmres.cu",
+        "replaces": None,
+        "why": "a DCGS2 step's k-sized work and Givens update, which the JAX package leaves "
+               "to XLA",
+        "launches": gk["cycles"]["kernel"]["launches"],
+        "path_launches": {f"gmres30_{GMRES_N}_f32_cycle": gk["cycles"]["kernel"]["launches"]},
+        "rel_err": gk["parity"],
+        "main_case": f"kdim {GMRES_KDIM} float32",
+        "ms": gk["times"]["float32"]["kernel_ms"],
+        "bound_by": "latency",
+        "library_ms": None,
+        "by_case": gk["times"],
+        "cycle_launches": gk["launches"],
+        "cycles": gk["cycles"],
     })
     for entry in kernels["kernels"]:
         entry["ptxas"] = results["ptxas"][entry["name"]]

@@ -33,7 +33,7 @@ __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f"{name}.cu"
                 for name in ("stencil", "spmv", "probes", "hessenberg", "ritz", "ordschur",
-                             "cg"))
+                             "cg", "gmres"))
 BUILD_DIR = _PKG / "_build"
 
 #: Where the CUDA toolkit is looked for when neither ``CUDA_HOME`` nor
@@ -224,6 +224,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, f"lk_cg_blocks_per_sm_{t}").argtypes = [ctypes.POINTER(ctypes.c_int)]
         for kind in ("pdot", "xr", "p", "blocks_per_sm"):
             getattr(lib, f"lk_cg_{kind}_{t}").restype = ctypes.c_int
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"lk_dcgs2_{t}")
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int] \
+            + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.lk_error_string.argtypes = [ctypes.c_int]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib

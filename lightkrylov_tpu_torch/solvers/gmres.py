@@ -24,6 +24,15 @@ columns are written in place, and every reduction reads only the filled
 columns ``V[:k+1]``.  While timing is on, each restart cycle is a span
 ``gmres.cycle`` holding ``gmres.matvec``, ``gmres.orth``, ``gmres.lsq`` and
 ``gmres.update`` spans (:mod:`..utils.timer`).
+
+For real float32 or float64 vectors on a card, a DCGS2 iteration's k-sized
+work, everything between the measurement and the rank-2 update and the
+Givens update of the finished column, is one launch of
+:func:`..ops.gmres.dcgs2_step` inside ``gmres.orth`` (no ``gmres.lsq`` span
+a step), counted as ``"gmres.fused_steps"``, and the flag the loop reads is
+the kernel's.  Complex vectors, CGS2, FGMRES and the CPU run the same
+arithmetic as separate tensor operations, the plain versions of
+:mod:`..ops.gmres`.
 """
 
 from __future__ import annotations
@@ -35,19 +44,14 @@ from torch.utils import _pytree as pytree
 from .. import constants, vectors
 from ..krylov.gram_schmidt import double_gram_schmidt_step
 from ..linops import IdentityOperator, Preconditioner, aslinop
+from ..ops import gmres as fused
+from ..ops.gmres import _padded, givens_col, safe_inverse
 from ..utils import linalg
 from ..utils.logger import check_info
 from ..utils.options import GMRESOptions, SolverMetadata
-from ..utils.timer import count_applications, host_read, timed, timed_fn
+from ..utils.timer import count_applications, count_event, host_read, timed, timed_fn
 
 __all__ = ["gmres", "fgmres"]
-
-
-def _padded(v, n: int):
-    """``v`` (leading axis m <= n) zero-padded to leading axis ``n``."""
-    out = v.new_zeros((n,) + tuple(v.shape[1:]))
-    out[: v.shape[0]] = v
-    return out
 
 
 def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
@@ -56,6 +60,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
     rdt = constants.real_dtype_of(dt)
     dev = pytree.tree_leaves(b)[0].device
     eps_r = constants.eps(rdt)
+    fused_route = orth == "dcgs2" and _fits_fused(dt, dev, kdim)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -65,49 +70,21 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
 
     def precond(vk, k, res):
         # right preconditioner (gmres.fypp:155), iteration-aware interface
-        # (IterativeSolvers.fypp:80-95)
+        # (IterativeSolvers.fypp:80-95); ``res`` as it stands now (on the
+        # fused route it lives in the kernel's scalar block)
         if isinstance(M, Preconditioner):
-            return M.apply(vk, iteration=k, current_residual=res,
+            return M.apply(vk, iteration=k, current_residual=res.clone(),
                            target_residual=tol)
         return M.matvec(vk)
 
-    def givens_col(h_col, R, c, s, e, j):
-        """Rotate the finished Hessenberg column ``j`` into the least-squares
-        recursion (gmres.fypp:177-182).  ``R`` and ``e`` are updated in
-        place; returns the new ``(c, s, res)``."""
-        h_col, c, s = linalg.apply_givens_rotation(h_col, c, s, j)
-        R[:, j] = h_col[:-1]
-        ej = e[j].clone()
-        e[j + 1] = -s[j] * ej
-        e[j] = c[j] * ej
-        return c, s, torch.abs(e[j + 1]).to(rdt)
-
-    def safe_inverse(a):
-        ok = a > 0
-        return torch.where(ok, 1.0 / torch.where(ok, a, torch.ones_like(a)),
-                           torch.zeros_like(a))
-
-    def pythag_eta(sigma, z):
-        # breakdown (u_k in span Q) gives eta ~ 0: inv_eta = 0 writes an
-        # exactly-zero column and the vanishing H[k, k-1] ends the recursion
-        eta2 = sigma - torch.vdot(z, z).real.to(rdt)
-        eta = torch.sqrt(torch.clamp_min(eta2, 0.0))
-        return eta, safe_inverse(eta)
-
     def dcgs2_measure(V, u_k, w, k):
         """The one reduction of iteration k: ``Q^H [u_k, w]`` over the
-        filled columns, and ``||w||^2``, summed over the reduction group by
-        one all-reduce.  Row k gives (sigma, tau) because slot k holds u_k
-        itself."""
+        filled columns (k+1, 2), and ``||w||^2``, summed over the reduction
+        group by one all-reduce.  Row k gives (sigma, tau) because slot k
+        holds u_k itself."""
         Y2 = pytree.tree_map(lambda a, b_: torch.stack([a, b_]), u_k, w)
-        PR, wTw = vectors.allreduce_sum(
+        return vectors.allreduce_sum(
             vectors.innerprod_local(vectors.lead(V, k + 1), Y2), vectors.dot_local(w, w))
-        PR = _padded(PR.to(dt), kdim + 1)
-        wTw = wTw.real.to(rdt)
-        sigma = PR[k, 0].real.to(rdt, copy=True)
-        tau = PR[k, 1].clone()
-        PR[k] = 0
-        return PR[:, 0], PR[:, 1], sigma, tau, wTw
 
     def dcgs2_cycle(V, R, c, s, e, res, hist, nin):
         """Inner sweep with delayed re-orthogonalization (the JAX
@@ -116,66 +93,54 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
         Hessenberg column k-1, and writes the corrected q_k and the next
         direction u_{k+1} = (w - Q p - q_k t) / gamma with one rank-2 update.
         gamma, the Pythagorean estimate of ||u_{k+1}||, keeps every stored
-        direction at unit scale (any positive scale is exact)."""
-        Ht = zeros(kdim + 1, kdim)
-        hp = zeros(kdim + 1)
-        fac_prev = torch.ones((), dtype=rdt, device=dev)
+        direction at unit scale (any positive scale is exact).
+
+        On the fused route everything k-sized of an iteration, the Givens
+        update of column k-1 included, is one launch of
+        :func:`..ops.gmres.dcgs2_step` inside ``gmres.orth``, and the loop
+        reads the kernel's flag; otherwise the plain versions run as
+        separate tensor operations, the Givens update after the rank-2
+        update in a ``gmres.lsq`` span.  Returns ``(c, s, res, nin, k,
+        matvecs)``."""
+        state = fused.FusedDCGS2 if fused_route else fused.DCGS2State
+        st = state(R, c, s, e, hist, res, tol, eps_r)
         k = 0
-        while k < kdim and bool(host_read(res >= tol)):
-            u_k = vectors.get_column(V, k)
-            with timed("gmres.matvec", "IterativeSolvers", device=True):
-                w = matvec(precond(u_k, k, res))
-            with timed("gmres.orth", "IterativeSolvers", device=True):
-                z, p, sigma, tau, wTw = dcgs2_measure(V, u_k, w, k)
-                eta, inv_eta = pythag_eta(sigma, z)
-                t = (tau - torch.vdot(z, p)) * inv_eta
-                if k > 0:  # finish true-H column k-1
-                    h_col = hp + z * fac_prev
-                    h_col[k] = eta * fac_prev
-                    Ht[:, k - 1] = h_col
-                # provisional column k, exact for the corrected q_k
-                pt = p.clone()
-                pt[k] = t
-                hp = (pt - Ht @ z[:kdim]) * inv_eta
-                gamma2 = wTw - torch.vdot(p, p).real.to(rdt) - torch.abs(t) ** 2
-                gamma = torch.sqrt(torch.maximum(gamma2, eps_r * eps_r * wTw))
-                inv_gamma = safe_inverse(gamma)
-                c_q = -z * inv_eta
-                c_q[k] = inv_eta
-                c_u = (p - (t * inv_eta) * z) * inv_gamma
-                c_u[k] = t * inv_eta * inv_gamma
-                # D is a new tensor, computed in full before V[k] (which u_k
-                # views) is overwritten
-                D = vectors.linear_combination_vpu(
-                    vectors.lead(V, k + 1), torch.stack([c_q, c_u], dim=1)[: k + 1])
-                u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
-                vectors.set_column(V, k, vectors.get_column(D, 0))
-                vectors.set_column(V, k + 1, u_next)
-                fac_prev = (gamma * inv_eta).to(rdt)
-            if k > 0:  # column k-1 into the least squares (reads no basis data)
-                with timed("gmres.lsq", "IterativeSolvers", device=True):
-                    c, s, res = givens_col(h_col, R, c, s, e, k - 1)
-                    hist[nin] = res
-                nin += 1
-            k += 1
-        k_exit = k
-        # stopped early only on convergence; at kdim the flag is unread yet
-        if k_exit < kdim or bool(host_read(res < tol)):
-            # the k_exit-1 finished columns already beat tol
-            return c, s, res, nin, k_exit - 1, k_exit
-        # finish the pending column k_exit-1: one reduction, no matvec
-        with timed("gmres.lsq", "IterativeSolvers", device=True):
-            u_last = vectors.get_column(V, k_exit)
-            zf = _padded(vectors.innerprod(vectors.lead(V, k_exit + 1), u_last).to(dt),
-                         kdim + 1)
-            sigma = zf[k_exit].real.to(rdt, copy=True)
-            zf[k_exit] = 0
-            eta, _ = pythag_eta(sigma, zf)
-            h_col = hp + zf * fac_prev
-            h_col[k_exit] = eta * fac_prev
-            c, s, res = givens_col(h_col, R, c, s, e, k_exit - 1)
-            hist[nin] = res
-        return c, s, res, nin + 1, k_exit, k_exit
+        with st:
+            while k < kdim and bool(host_read(st.flag)):
+                u_k = vectors.get_column(V, k)
+                with timed("gmres.matvec", "IterativeSolvers", device=True):
+                    w = matvec(precond(u_k, k, st.res))
+                with timed("gmres.orth", "IterativeSolvers", device=True):
+                    PR, wTw = dcgs2_measure(V, u_k, w, k)
+                    if fused_route:
+                        C, inv_gamma = fused.dcgs2_step(st, PR, wTw, k, nin)
+                    else:
+                        C, inv_gamma = fused.dcgs2_coefficients_reference(st, PR, wTw, k)
+                    # D is a new tensor, computed in full before V[k] (which u_k
+                    # views) is overwritten
+                    D = vectors.linear_combination_vpu(vectors.lead(V, k + 1), C)
+                    u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
+                    vectors.set_column(V, k, vectors.get_column(D, 0))
+                    vectors.set_column(V, k + 1, u_next)
+                if k > 0:  # column k-1 into the least squares (reads no basis data)
+                    if not fused_route:
+                        with timed("gmres.lsq", "IterativeSolvers", device=True):
+                            fused.dcgs2_givens_reference(st, k, nin)
+                    nin += 1
+                k += 1
+            k_exit = k
+            # stopped early only on convergence; at kdim the flag is unread yet
+            if k_exit < kdim or bool(host_read(st.conv)):
+                # the k_exit-1 finished columns already beat tol
+                return st.c, st.s, st.res, nin, k_exit - 1, k_exit
+            # finish the pending column k_exit-1: one reduction, no matvec
+            with timed("gmres.lsq", "IterativeSolvers", device=True):
+                zf = vectors.innerprod(vectors.lead(V, k_exit + 1), vectors.get_column(V, k_exit))
+                if fused_route:
+                    fused.dcgs2_flush(st, zf, k_exit, nin)
+                else:
+                    fused.dcgs2_flush_reference(st, zf, k_exit, nin)
+        return st.c, st.s, st.res, nin + 1, k_exit, k_exit
 
     def cgs2_cycle(V, Z, R, c, s, e, res, hist, nin):
         k = 0
@@ -201,7 +166,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
     x = x0
     res = torch.full((), float("inf"), dtype=rdt, device=dev)
     hist = zeros(maxiter * kdim, dtype=rdt)
-    outer = nin = n_iter = nmv = 0
+    outer = nin = n_iter = nmv = fused_steps = 0
     while outer < maxiter and bool(host_read(res >= tol)):
         with timed("gmres.cycle", "IterativeSolvers", device=True):
             with timed("gmres.matvec", "IterativeSolvers", device=True):
@@ -244,7 +209,20 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
             outer += 1
             n_iter += k
             nmv += mv_cycle
+            if fused_route:
+                fused_steps += mv_inner
+    if fused_steps:
+        count_event("gmres.fused_steps", fused_steps)
     return x, res, hist[:nin], nin, n_iter, outer, nmv
+
+
+def _fits_fused(dt, dev, kdim) -> bool:
+    """Whether DCGS2's k-sized work takes the kernel of :mod:`..ops.gmres`:
+    real float32 or float64 vectors on a card and ``kdim`` within the
+    kernel's.  It runs after the measurement's all-reduce, on inputs equal
+    on every rank, so the reduction group does not matter."""
+    return (dt in (torch.float32, torch.float64) and dev.type == "cuda"
+            and kdim <= fused.MAX_KDIM)
 
 
 def _solve(A, b, x0, rtol, atol, preconditioner, options, transpose, flexible, meta_name):

@@ -489,7 +489,8 @@ def count_event(name: str, n: int = 1) -> None:
     device to check its result), ``"ritz_checks"`` (the device checks),
     ``"ordschur_reads"`` (the host reads of the device Schur reordering,
     one a block swap and one to finish) and the restarts by kind,
-    ``"restarts.<solver>.<kind>"``."""
+    ``"restarts.<solver>.<kind>"``; the fused routes count their steps,
+    ``"cg.fused_iterations"`` and ``"gmres.fused_steps"``, once a solve."""
     _counters[name] += int(n)
 
 
