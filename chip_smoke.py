@@ -455,6 +455,13 @@ def check(cond, msg):
         fail(msg)
 
 
+def launch_count(*names) -> int:
+    """The kernel launches counted so far under ``launches.<name>`` (the
+    port's counters, ``lt.timer``), summed over ``names``: a phase takes the
+    difference of two readings."""
+    return sum(lt.timer.get_counter(f"launches.{name}") for name in names)
+
+
 def run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     check(proc.returncode == 0, f"{' '.join(cmd)} exited with {proc.returncode}: {proc.stderr}")
@@ -577,10 +584,10 @@ def bell_parity(dev):
         data[::3, -1] = 0
         cases.append(("repeated block-columns", data, cols, seeded((37 * 128,), dtype, dev, seed=3)))
         for name, data, cols, x in cases:
-            before = lt.bell_spmv.LAUNCHES
+            before = launch_count("bell_spmv")
             got = lt.bell_spmv(data, cols, x)
             torch.cuda.synchronize()
-            check(lt.bell_spmv.LAUNCHES == before + 1, "bell_spmv did not count its launch")
+            check(launch_count("bell_spmv") == before + 1, "bell_spmv did not count its launch")
             want = bell_spmv_reference(data, cols, x)
             rel = rel_err(got, want)
             abs_err = float((got - want).abs().max())
@@ -602,11 +609,11 @@ def bell_main_path(dev, tag):
     n = bell.shape[0]
     b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
     opts = lt.GMRESOptions(kdim=30, maxiter=1)
-    lt.bell_spmv.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = launch_count("bell_spmv")
     x_k, info_k, meta_k = lt.gmres(op_k, b, rtol=0.0, atol=0.0, options=opts)
     torch.cuda.synchronize()
-    launches = lt.bell_spmv.LAUNCHES
+    launches = launch_count("bell_spmv") - before
     host_reads = lt.timer.get_counter("host_reads")
     print(f"Block-ELL main path: GMRES(30) cycle, n={n}, {bell.data.numel() * 4 / 1e6:.0f} MB "
           f"f32 blocks: info={info_k}, {launches} bell_spmv launches, {host_reads} host reads "
@@ -672,19 +679,19 @@ def bell_vs_stencil(dev):
     op_b = lt.BellOperator(bell, is_hermitian=True)
     op_s = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
     u = seeded((n, n), torch.float32, dev, seed=6)
-    before = (lt.bell_spmv.LAUNCHES, lt.stencil_matvec.LAUNCHES)
+    before = (launch_count("bell_spmv"), launch_count("stencil_matvec"))
     yb, ys = op_b.matvec(u.reshape(-1)), op_s.matvec(u).reshape(-1)
     torch.cuda.synchronize()
-    check((lt.bell_spmv.LAUNCHES, lt.stencil_matvec.LAUNCHES) == (before[0] + 1, before[1] + 1),
+    check((launch_count("bell_spmv"), launch_count("stencil_matvec")) == (before[0] + 1, before[1] + 1),
           "the matvecs did not go through both kernels")
     rel = rel_err(yb, ys)
     print(f"Block-ELL vs stencil matvec {n}^2 f32: rel {rel:.3e}")
     check(rel <= BELL_REL_TOL[torch.float32], f"Block-ELL Poisson matvec differs by {rel:.3e}")
     opts = lt.EigsOptions(maxiter=1)
-    before = (lt.bell_spmv.LAUNCHES, lt.stencil_matvec.LAUNCHES)
+    before = (launch_count("bell_spmv"), launch_count("stencil_matvec"))
     wb = lt.eighs(op_b, 4, x0=u.reshape(-1), kdim=32, tolerance=0.0, options=opts)[0]
     ws = lt.eighs(op_s, 4, x0=u, kdim=32, tolerance=0.0, options=opts)[0]
-    launches = (lt.bell_spmv.LAUNCHES - before[0], lt.stencil_matvec.LAUNCHES - before[1])
+    launches = (launch_count("bell_spmv") - before[0], launch_count("stencil_matvec") - before[1])
     check(launches == (32, 32), f"eighs launched (bell_spmv, stencil) {launches} times, not 32 each")
     ev = lt.poisson2d_eigvals(n)[::-1][:4]
     dw = float(np.abs(wb - ws).max() / ev[0])
@@ -707,11 +714,11 @@ def eighs_3072(dev, tag):
     op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
     x0 = seeded((n, n), torch.float32, dev, seed=7)
     opts = lt.EigsOptions(maxiter=1)
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = launch_count("stencil_matvec", "stencil_matvec_2d")
     w, V, r, info, meta = lt.eighs(op, 4, x0=x0, kdim=32, tolerance=0.0, options=opts)
     torch.cuda.synchronize()
-    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    launches = launch_count("stencil_matvec", "stencil_matvec_2d") - before
     host_reads = lt.timer.get_counter("host_reads")
     h = 1.0 / (n + 1)
     lam_max = (2.0 / h**2) * (2.0 - 2.0 * np.cos(np.pi * n * h))
@@ -754,9 +761,9 @@ def convergence_gates(dev):
     op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
     b = seeded((64 * 64,), torch.float64, dev, seed=9)
     opts = lt.GMRESOptions(kdim=30, maxiter=40)
-    before = lt.bell_spmv.LAUNCHES
+    before = launch_count("bell_spmv")
     x, info, meta = lt.gmres(op_b, b, rtol=1e-10, options=opts)
-    launches = lt.bell_spmv.LAUNCHES - before
+    launches = launch_count("bell_spmv") - before
     relres = float(np.linalg.norm(A @ x.cpu().numpy() - b.cpu().numpy()) / np.linalg.norm(b.cpu().numpy()))
     x_cpu, info_cpu, _ = lt.gmres(cd, b.cpu().reshape(64, 64), rtol=1e-10, options=opts)
     dcpu = float(np.linalg.norm(x.cpu().numpy() - x_cpu.numpy().ravel()) / np.linalg.norm(x_cpu.numpy()))
@@ -913,11 +920,11 @@ def eigs_3072(dev, tag, eighs_out):
     op = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
     x0 = seeded((n, n), torch.float32, dev, seed=7)
     opts = lt.EigsOptions(maxiter=1)
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = launch_count("stencil_matvec", "stencil_matvec_2d")
     w, V, r, info, meta = lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0, options=opts)
     torch.cuda.synchronize()
-    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    launches = launch_count("stencil_matvec", "stencil_matvec_2d") - before
     host_reads = lt.timer.get_counter("host_reads")
     h = 1.0 / (n + 1)
     lam_max = (2.0 / h**2) * (2.0 - 2.0 * np.cos(np.pi * n * h))
@@ -953,11 +960,11 @@ def eigs_nonnormal(dev):
     A = cd.dense().numpy()
     op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float64, device=dev))
     x0 = seeded((64 * 64,), torch.float64, dev, seed=14)
-    lt.bell_spmv.LAUNCHES = 0
+    before = launch_count("bell_spmv")
     w, V, r, info, meta = lt.eigs(op_b, 6, x0=x0, kdim=30, tolerance=1e-10,
                                   options=lt.EigsOptions(maxiter=100))
     torch.cuda.synchronize()
-    launches = lt.bell_spmv.LAUNCHES
+    launches = launch_count("bell_spmv") - before
     Vh = V.cpu().numpy()
     res = [float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
            for i in range(len(w))]
@@ -1000,10 +1007,10 @@ def kexpm_phase(dev):
     b = b / torch.linalg.norm(b)
     op_k = lt.CudaPoisson2D(n, dtype=torch.float32, device=dev)
     op_p = lt.Poisson2D(n, dtype=torch.float32, device=dev)
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
+    before = launch_count("stencil_matvec", "stencil_matvec_2d")
     c_k, info_k = lt.kexpm(op_k, b, tau)
     torch.cuda.synchronize()
-    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    launches = launch_count("stencil_matvec", "stencil_matvec_2d") - before
     c_p, info_p = lt.kexpm(op_p, b, tau)
     rel = rel_err(c_k, c_p)
     print(f"kexpm CudaPoisson2D({n}) f32, tau=-h^2/8: info={info_k} ({launches} stencil "
@@ -1112,11 +1119,11 @@ def svds_3072(dev, tag, eighs_out):
     def sweep(op):
         return lt.svds(op, 4, u0=u0, kdim=32, tolerance=0.0, options=opts)
 
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = launch_count("stencil_matvec", "stencil_matvec_2d")
     U, S, V, res, info, meta = sweep(op_k)
     torch.cuda.synchronize()
-    launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    launches = launch_count("stencil_matvec", "stencil_matvec_2d") - before
     host_reads = lt.timer.get_counter("host_reads")
     check(U.shape == V.shape == (4, n, n) and bool(torch.isfinite(U).all())
           and bool(torch.isfinite(V).all()) and np.all(np.isfinite(S)),
@@ -1157,10 +1164,10 @@ def svds_bell(dev, tag):
     def sweep(op):
         return lt.svds(op, 4, u0=u0, kdim=32, tolerance=0.0, options=opts)
 
-    lt.bell_spmv.LAUNCHES = 0
+    before = launch_count("bell_spmv")
     U, S, V, res, info, meta = sweep(op_k)
     torch.cuda.synchronize()
-    launches = lt.bell_spmv.LAUNCHES
+    launches = launch_count("bell_spmv") - before
     S_p = sweep(op_p)[1]
     d_plain = float(np.abs(S - S_p).max() / S_p[0])
     print(f"svds_bell: {launches} bell_spmv launches for {meta.n_iter} Golub-Kahan steps, "
@@ -1203,13 +1210,13 @@ def svds_kexpm(dev, tag):
     check(err < 1e-3, f"svds_kexpm sigma rel err {err:.2e}")
     out["plain"] = dict(info=info, steps=meta.n_iter, sigma_rel_err=err, solve_s=t_solve)
     op_b = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float32, device=dev))
-    lt.bell_spmv.LAUNCHES = 0
+    before = launch_count("bell_spmv")
     t0 = time.perf_counter()
     U, S, V, res, info, meta = lt.svds(op_b, 4, u0=torch.ones(m * m, device=dev), kdim=30,
                                        tolerance=5e-3, options=opts)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
-    launches = lt.bell_spmv.LAUNCHES
+    launches = launch_count("bell_spmv") - before
     err = float(np.abs(S - s_ref).max() / np.abs(s_ref).max())
     print(f"{tag} svds_convdiff through bell_spmv: info={info}, {meta.n_iter} steps, "
           f"{launches} bell_spmv launches, {t_solve:.3f} s; sigma rel err {err:.2e}")
@@ -1378,10 +1385,10 @@ def batched_stencil(dev, tag):
             for p in BATCH_PS:
                 u = seeded((p,) + shape, dtype, dev, seed=p)
                 args = stencil_args(u[0])
-                before = (lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES)
+                before = (launch_count("stencil_matvec"), launch_count("stencil_matvec_batched"))
                 got = lt.stencil_matvec_batched(u, **args)
                 torch.cuda.synchronize()
-                check((lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES)
+                check((launch_count("stencil_matvec"), launch_count("stencil_matvec_batched"))
                       == (before[0], before[1] + 1), "stencil_matvec_batched did not count its launch")
                 want = stencil_matvec_reference(u, **args)
                 rel, abs_err = rel_err(got, want), float((got - want).abs().max())
@@ -1480,13 +1487,13 @@ def block_eigs_stencil(dev, tag, eigs_out):
         return lt.eigs(op, 4, x0=x0, kdim=32, tolerance=0.0, blksize=2, options=opts)
 
     counted_op = lt.timer.matvec_counter(op_k, "eigs_3072_block")
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
-    lt.stencil_matvec_batched.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = (launch_count("stencil_matvec_batched"),
+              launch_count("stencil_matvec", "stencil_matvec_2d"))
     w, V, r, info, meta = sweep(counted_op)
     torch.cuda.synchronize()
-    launches = dict(batched=lt.stencil_matvec_batched.LAUNCHES,
-                    single=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES)
+    launches = dict(batched=launch_count("stencil_matvec_batched") - before[0],
+                    single=launch_count("stencil_matvec", "stencil_matvec_2d") - before[1])
     counted = lt.timer.get_counter("eigs_3072_block.matvec")
     host_reads = lt.timer.get_counter("host_reads")
     print(f"eigs_3072_block: {launches['batched']} batched and {launches['single']} single "
@@ -1528,10 +1535,10 @@ def batched_bell(dev, tag):
     mat_bytes = (bell.data.numel() + bell.cols.numel()) * 4
     for p in BELL_TIME_PS:
         X = seeded((p, n), torch.float32, dev, seed=40 + p)
-        before = (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES)
+        before = (launch_count("bell_spmv"), launch_count("bell_spmm"))
         got = lt.bell_spmm(bell.data, bell.cols, X)
         torch.cuda.synchronize()
-        check((lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES) == (before[0], before[1] + 1),
+        check((launch_count("bell_spmv"), launch_count("bell_spmm")) == (before[0], before[1] + 1),
               "bell_spmm did not count its launch")
         want = bell_spmm_reference(bell.data, bell.cols, X)
         rel, abs_err = rel_err(got, want), float((got - want).abs().max())
@@ -1587,10 +1594,11 @@ def batched_bell(dev, tag):
                        generator=torch.Generator().manual_seed(3),
                        options=lt.EigsOptions(maxiter=cycles))
 
-    lt.bell_spmv.LAUNCHES = lt.bell_spmm.LAUNCHES = 0
+    before = (launch_count("bell_spmm"), launch_count("bell_spmv"))
     w, V, r, info, meta = solve(op_b, x0, 100)
     torch.cuda.synchronize()
-    launches = dict(batched=lt.bell_spmm.LAUNCHES, single=lt.bell_spmv.LAUNCHES)
+    launches = dict(batched=launch_count("bell_spmm") - before[0],
+                    single=launch_count("bell_spmv") - before[1])
     Vh = V.cpu().numpy()
     res = [float(np.linalg.norm(A @ Vh[i] - w[i] * Vh[i]) / np.linalg.norm(Vh[i]))
            for i in range(len(w))]
@@ -1617,10 +1625,10 @@ def batched_bell(dev, tag):
 
 def counted_call(wrapper, *args):
     """``wrapper(*args)``, synchronised, checked to count one launch."""
-    before = wrapper.LAUNCHES
+    before = launch_count(wrapper.__name__)
     out = wrapper(*args)
     torch.cuda.synchronize()
-    check(wrapper.LAUNCHES == before + 1, f"{wrapper.__name__} did not count its one launch")
+    check(launch_count(wrapper.__name__) == before + 1, f"{wrapper.__name__} did not count its one launch")
     return out
 
 
@@ -1735,9 +1743,8 @@ def probe_path(dev, tag):
     torch.cuda.empty_cache()
 
     # the probe path: the five modules as a user runs them, launches counted
-    wrappers = (probe_ops.copy_tiles, probe_ops.copy_ring, probe_ops.reduce_8x128)
-    for w in wrappers:
-        w.LAUNCHES = 0
+    wrappers = ("copy_tiles", "copy_ring", "reduce_8x128")
+    before = {w: launch_count(w) for w in wrappers}
     path = {}
     for mod in (roofline, manual_out, deep_buffer, stencil_sweep, copy_shape):
         t0 = time.perf_counter()
@@ -1746,7 +1753,7 @@ def probe_path(dev, tag):
         path[res["probe"]] = res
         print(f"{tag} probe path: {res['probe']} in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
-    launches = {w.__name__: w.LAUNCHES for w in wrappers}
+    launches = {w: launch_count(w) - before[w] for w in wrappers}
     print(f"probe path launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"the probe path launched {name} no time")
@@ -1793,15 +1800,15 @@ def unsharded(fn):
 
 
 def counted(fn):
-    """``fn()`` after every count is set to 0, then synchronised; returns
+    """``fn()`` after the counters are cleared, then synchronised; returns
     ``(out, counts)``: stencil and Block-ELL launches, the vector layer's
     all-reduces and the operators' collectives."""
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = lt.bell_spmv.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = (launch_count("stencil_matvec", "stencil_matvec_2d"), launch_count("bell_spmv"))
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(stencil=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES,
-                     bell_spmv=lt.bell_spmv.LAUNCHES,
+    return out, dict(stencil=launch_count("stencil_matvec", "stencil_matvec_2d") - before[0],
+                     bell_spmv=launch_count("bell_spmv") - before[1],
                      all_reduces=lt.timer.get_counter("all_reduces"),
                      operator_collectives=lt.timer.get_counter("operator_collectives"))
 
@@ -3299,14 +3306,12 @@ def device_projected_path(dev, tag, results):
     solve()
     t_first = time.perf_counter() - t0
     lt.timer.reset_counters()
-    hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
-    hess_ops.ritz_check.LAUNCHES = 0
+    kernels = ("hessenberg_schur", "francis_filter_sweeps", "ritz_check")
+    before = {name: launch_count(name) for name in kernels}
     t0 = time.perf_counter()
     w, V, r, info, meta = solve()
     t_warm = time.perf_counter() - t0
-    launches = {"hessenberg_schur": hess_ops.hessenberg_schur.LAUNCHES,
-                "francis_filter_sweeps": hess_ops.francis_filter_sweeps.LAUNCHES,
-                "ritz_check": hess_ops.ritz_check.LAUNCHES}
+    launches = {name: launch_count(name) - before[name] for name in kernels}
     c = lt.timer.get_counter
     checks, reads = c("ritz_checks"), c("host_reads")
     restarts = {k: c(f"restarts.eigs.{k}") for k in ("iram", "schur_device", "host")}
@@ -3347,16 +3352,15 @@ def device_projected_path(dev, tag, results):
     one = lt.EigsOptions(maxiter=1, **dev_opts)
 
     def counted(fn):
-        lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
-        lt.stencil_matvec_batched.LAUNCHES = 0
-        hess_ops.hessenberg_schur.LAUNCHES = hess_ops.ritz_check.LAUNCHES = 0
+        kernels = {"single": ("stencil_matvec", "stencil_matvec_2d"),
+                   "batched": ("stencil_matvec_batched",),
+                   "hessenberg_schur": ("hessenberg_schur",), "ritz_check": ("ritz_check",)}
         lt.timer.reset_counters()
+        before = {key: launch_count(*names) for key, names in kernels.items()}
         res = fn()
         torch.cuda.synchronize()
-        return res, dict(single=lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES,
-                         batched=lt.stencil_matvec_batched.LAUNCHES,
-                         hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
-                         ritz_check=hess_ops.ritz_check.LAUNCHES,
+        return res, dict(**{key: launch_count(*names) - before[key]
+                            for key, names in kernels.items()},
                          checks=c("ritz_checks"), host_reads=c("host_reads"),
                          library_syncs=c("library_syncs"))
 
@@ -3447,11 +3451,10 @@ def convdiff_device_solves(dev, tag, results):
         return w, V, info, meta, secs
 
     median_select = lambda v: np.abs(v) > np.median(np.abs(v))  # noqa: E731
+    kernels = ("bell_spmv", "hessenberg_schur", "francis_filter_sweeps", "ritz_check", "ordschur")
     for label, select in (("iram", None), ("custom", median_select)):
-        lt.bell_spmv.LAUNCHES = hess_ops.ordschur.LAUNCHES = 0
-        hess_ops.hessenberg_schur.LAUNCHES = hess_ops.francis_filter_sweeps.LAUNCHES = 0
-        hess_ops.ritz_check.LAUNCHES = 0
         lt.timer.reset_counters()
+        before = {name: launch_count(name) for name in kernels}
         span0 = (span.etime, span.count)
         lt.timer.set_timing(select is not None)
         try:
@@ -3460,10 +3463,8 @@ def convdiff_device_solves(dev, tag, results):
             lt.timer.set_timing(False)
         res = true_res(w, V)
         restarts = {k_: c(f"restarts.eigs.{k_}") for k_ in ("iram", "schur_device", "host")}
-        row = dict(info=info, matvecs=meta.n_iter, bell_spmv=lt.bell_spmv.LAUNCHES,
-                   hessenberg_schur=hess_ops.hessenberg_schur.LAUNCHES,
-                   francis_filter_sweeps=hess_ops.francis_filter_sweeps.LAUNCHES,
-                   ritz_check=hess_ops.ritz_check.LAUNCHES, ordschur=hess_ops.ordschur.LAUNCHES,
+        row = dict(info=info, matvecs=meta.n_iter,
+                   **{name: launch_count(name) - before[name] for name in kernels},
                    restarts=restarts, ordschur_reads=c("ordschur_reads"),
                    host_reads=c("host_reads"), checks=c("ritz_checks"),
                    max_true_residual=res, seconds=secs)
@@ -3667,7 +3668,7 @@ def cg_kernels(dev, tag, n=3162):
         if route == "unfused":
             cg_solver._fits_fused = lambda *args: False
         try:
-            fused_cg.cg_pdot.LAUNCHES = fused_cg.cg_xr.LAUNCHES = fused_cg.cg_p.LAUNCHES = 0
+            before = {k: launch_count(k) for k in passes}
             iters = lt.timer.get_counter("cg.fused_iterations")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3679,7 +3680,7 @@ def cg_kernels(dev, tag, n=3162):
         relres = float(torch.linalg.norm(b - op.matvec(x)) / torch.linalg.norm(b))
         solves[route] = dict(n_iter=meta.n_iter, relres=relres, seconds=seconds,
                              fused_iterations=lt.timer.get_counter("cg.fused_iterations") - iters,
-                             launches={k: getattr(fused_cg, k).LAUNCHES for k in passes})
+                             launches={k: launch_count(k) - before[k] for k in passes})
         print(f"{tag} cg {n}^2 f64 rtol 1e-4 {route}: {meta.n_iter} iterations, true relres "
               f"{relres:.3e}, {seconds:.3f} s, launches {solves[route]['launches']}, "
               f"cg.fused_iterations {solves[route]['fused_iterations']}")
@@ -3866,13 +3867,13 @@ def gmres_kernels(dev, tag):
             solver._fits_fused = lambda *args: False
         try:
             lt.timer.reset_counters()
-            before = (fused_gmres.dcgs2_step.LAUNCHES, fused_gmres.dcgs2_flush.LAUNCHES)
+            before = (launch_count("dcgs2_step"), launch_count("dcgs2_flush"))
             x, info, meta = lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
             runs[route] = dict(x=x, residuals=meta.residuals, n_inner=meta.n_inner,
                                host_reads=lt.timer.get_counter("host_reads"),
                                fused_steps=lt.timer.get_counter("gmres.fused_steps"),
-                               launches=[fused_gmres.dcgs2_step.LAUNCHES - before[0],
-                                         fused_gmres.dcgs2_flush.LAUNCHES - before[1]])
+                               launches=[launch_count("dcgs2_step") - before[0],
+                                         launch_count("dcgs2_flush") - before[1]])
         finally:
             solver._fits_fused = fits
     k, s = runs["kernel"], runs["separate"]
@@ -3978,10 +3979,11 @@ def main():
             u = seeded(shape, dtype, dev)
             want = stencil_matvec_reference(u, **stencil_args(u))
             for wrapper in (lt.stencil_matvec, lt.stencil_matvec_2d):
-                before = wrapper.LAUNCHES
+                before = launch_count(wrapper.__name__)
                 got = wrapper(u, **stencil_args(u))
                 torch.cuda.synchronize()
-                check(wrapper.LAUNCHES == before + 1, f"{wrapper.__name__} did not count its launch")
+                check(launch_count(wrapper.__name__) == before + 1,
+                      f"{wrapper.__name__} did not count its launch")
                 rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
                 abs_err = float((got - want).abs().max())
                 check(rel <= REL_TOL[dtype],
@@ -3996,11 +3998,11 @@ def main():
     opts = lt.GMRESOptions(kdim=30, maxiter=1)
     op_k = lt.CudaPoisson2D(N_MAIN, dtype=torch.float32, device=dev)
     op_p = lt.Poisson2D(N_MAIN, dtype=torch.float32, device=dev)
-    lt.stencil_matvec.LAUNCHES = lt.stencil_matvec_2d.LAUNCHES = 0
     lt.timer.reset_counters()
+    before = launch_count("stencil_matvec", "stencil_matvec_2d")
     x_k, info_k, meta_k = lt.gmres(op_k, b, rtol=0.0, atol=0.0, options=opts)
     torch.cuda.synchronize()
-    main_launches = lt.stencil_matvec.LAUNCHES + lt.stencil_matvec_2d.LAUNCHES
+    main_launches = launch_count("stencil_matvec", "stencil_matvec_2d") - before
     host_reads = lt.timer.get_counter("host_reads")
     print(f"main path: GMRES(30) cycle on CudaPoisson2D({N_MAIN}) f32: info={info_k}, "
           f"{main_launches} stencil launches, {host_reads} host reads for "

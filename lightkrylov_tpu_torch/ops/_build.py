@@ -16,6 +16,14 @@ the reordering of ``csrc/ordschur.cu`` with one warp made to lag in every
 stretch between two barriers, whose outputs the
 tests hold bit-equal to the shipping kernels' (a check for ordering hazards
 between warps).
+
+This module knows no kernel's signature.  A kernel is its ``csrc/<x>.cu``
+and its ``ops/<x>.py``: the module declares the C entries it calls, with
+their parameters, in an :class:`Entries`, names an entry's dtype with
+:func:`dtype_tag`, and launches through :func:`launch`, which raises on a
+CUDA error by :func:`check`, the one reader of ``lk_error_string``.  Each
+wrapper counts its launches itself, under ``launches.<wrapper>``
+(:func:`..utils.timer.count_event`).
 """
 
 from __future__ import annotations
@@ -27,8 +35,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "BUILD_DIR",
-           "SOURCES"]
+           "SOURCES", "DTYPE_TAGS", "ARG_TYPES", "Entries", "dtype_tag", "check", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f"{name}.cu"
@@ -131,10 +141,12 @@ def build(variant: str = "") -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed.  Only
+    ``lk_error_string`` is declared on it; each ``ops`` module declares the
+    entries it calls (:class:`Entries`)."""
     global _lib
     if _lib is None:
-        _lib = _bind(ctypes.CDLL(str(build())))
+        _lib = _open(build())
     return _lib
 
 
@@ -144,92 +156,86 @@ def load_lagging() -> ctypes.CDLL:
     library of :func:`load` is never replaced by it."""
     global _lag_lib
     if _lag_lib is None:
-        _lag_lib = _bind(ctypes.CDLL(str(build("lag"))))
+        _lag_lib = _open(build("lag"))
     return _lag_lib
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C entries' argument and result types on ``lib``."""
-    for name in ("lk_stencil_f32", "lk_stencil_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_double, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("lk_stencil_batched_f32", "lk_stencil_batched_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_double, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("lk_bell_spmv_f32", "lk_bell_spmv_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("lk_bell_spmm_f32", "lk_bell_spmm_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.lk_copy_tiles_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.lk_copy_ring_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.lk_copy_ring_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_int)]
-    lib.lk_reduce_8x128_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_void_p]
-    for name in ("lk_copy_tiles_f32", "lk_copy_ring_f32", "lk_copy_ring_ctas_per_sm",
-                 "lk_reduce_8x128_f32"):
-        getattr(lib, name).restype = ctypes.c_int
-    for name in ("lk_hessenberg_schur_f32", "lk_hessenberg_schur_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    for name in ("lk_francis_sweeps_f32", "lk_francis_sweeps_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_void_p, ctypes.c_int,
-                                                ctypes.c_longlong, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    for name in ("lk_ritz_f32", "lk_ritz_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                                                ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
-                                                ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    for name in ("lk_ordschur_f32", "lk_ordschur_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for t in ("f32", "f64"):
-        fn = getattr(lib, f"lk_cg_pdot_{t}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3 \
-            + [ctypes.c_int, ctypes.c_void_p]
-        fn = getattr(lib, f"lk_cg_xr_{t}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn = getattr(lib, f"lk_cg_p_{t}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
-        getattr(lib, f"lk_cg_blocks_per_sm_{t}").argtypes = [ctypes.POINTER(ctypes.c_int)]
-        for kind in ("pdot", "xr", "p", "blocks_per_sm"):
-            getattr(lib, f"lk_cg_{kind}_{t}").restype = ctypes.c_int
-    for t in ("f32", "f64"):
-        fn = getattr(lib, f"lk_dcgs2_{t}")
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int] \
-            + [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     lib.lk_error_string.argtypes = [ctypes.c_int]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# -- the seam between the wrappers and the C entries ----------------------------
+
+#: The suffix of a C entry's name for each dtype the kernels take
+DTYPE_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+
+#: The letters of a declared parameter list, one a parameter: ``p`` any
+#: pointer, ``i`` an ``int``, ``l`` a ``long long``, ``d`` a ``double``
+#: (spaces only group them)
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+             "d": ctypes.c_double}
+
+
+def dtype_tag(dtype, what: str) -> str:
+    """``"f32"`` or ``"f64"``, the suffix of the C entries for ``dtype``;
+    a :class:`TypeError` naming ``what`` for any other dtype."""
+    tag = DTYPE_TAGS.get(dtype)
+    if tag is None:
+        raise TypeError(f"{what}: dtype {dtype} not supported (float32 or float64)")
+    return tag
+
+
+class Entries:
+    """The C entries that one ``ops`` module calls: ``declared`` maps each
+    name to its parameters in the letters of :data:`ARG_TYPES`, in the order
+    of the ``extern "C"`` prototype; every entry returns an ``int``, 0 or a
+    CUDA error code.  :meth:`on` sets their types on a library handle, once
+    a handle, and returns the entries by name."""
+
+    def __init__(self, declared: dict[str, str]):
+        self.declared = declared
+        self._bound = {}
+
+    def on(self, lib: ctypes.CDLL) -> dict:
+        entries = self._bound.get(lib)
+        if entries is None:
+            entries = {}
+            for name, params in self.declared.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [ARG_TYPES[c] for c in params.replace(" ", "")]
+                fn.restype = ctypes.c_int
+                entries[name] = fn
+            self._bound[lib] = entries
+        return entries
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise a :class:`RuntimeError` for the nonzero return ``err`` of an
+    entry of ``lib``, with the CUDA error's text; ``what`` names the call."""
+    if err:
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({lib.lk_error_string(err).decode()})")
+
+
+def launch(lib: ctypes.CDLL, fn, what: str, index: int | None, *args) -> None:
+    """Call the entry ``fn`` of ``lib`` with ``args`` and a raw stream handle
+    last; a nonzero return raises, naming the kernel ``what``.  For a CUDA
+    device ``index`` the handle is that device's current stream, appended to
+    ``args``, and the device is made current for the call when it is not
+    already.  For ``index`` None ``args`` end with the handle: the caller
+    bound the stream once and holds its device current (``FusedCG``,
+    ``FusedDCGS2``), so a step's launch costs the host no more than the call
+    itself.  The raw handle costs less host time than a ``torch.cuda.Stream``
+    object, which counts where a kernel runs for a few microseconds."""
+    if index is None:
+        err = fn(*args)
+    elif torch._C._cuda_getDevice() == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        check(lib, err, f"{what} kernel launch")

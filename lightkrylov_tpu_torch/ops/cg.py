@@ -20,7 +20,8 @@ Pallas kernel is replaced; the JAX package leaves this fusion to XLA.
 the C entries, the stream, the grid and the reductions' workspace once, so
 an iteration costs the host three foreign calls.  Each function takes it:
 for CUDA tensors the function launches its kernel or raises, and counts the
-launch in its ``LAUNCHES`` attribute; for CPU tensors it runs the plain
+launch in the counter ``launches.<function>``
+(:func:`..utils.timer.count_event`); for CPU tensors it runs the plain
 PyTorch version (``*_reference``), which repeats the arithmetic with
 PyTorch's own reductions.
 """
@@ -31,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils.timer import count_event
 from . import _build
 
 __all__ = ["RZ", "PAP", "RR", "RES", "TOL", "BETA", "FLAG", "scalars", "FusedCG",
@@ -40,8 +42,15 @@ __all__ = ["RZ", "PAP", "RR", "RES", "TOL", "BETA", "FLAG", "scalars", "FusedCG"
 #: slots of the scalar block (``csrc/cg.cu`` has the same numbers)
 RZ, PAP, RR, RES, TOL, BETA, FLAG = range(7)
 _SLOTS = 8
-_NAMES = {torch.float32: "f32", torch.float64: "f64"}
 _max_blocks_cache: dict = {}
+
+#: The C entries of ``csrc/cg.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({
+    **{f"lk_cg_pdot_{t}": "pp l ppp i p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_cg_xr_{t}": "pppp l pppp l i p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_cg_p_{t}": "pp l p i p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_cg_blocks_per_sm_{t}": "p" for t in _build.DTYPE_TAGS.values()},
+})
 
 
 def scalars(rz, res, tol):
@@ -79,11 +88,11 @@ def cg_p_reference(r, p, s):
     p.mul_(s[BETA]).add_(r)
 
 
-def _check(name, vectors, s, hist=None):
-    """Raise unless the vectors and the scalar block suit the kernels."""
+def _check(name, vectors, s, hist=None) -> str:
+    """Raise unless the vectors and the scalar block suit the kernels; their
+    dtype's tag."""
     t = vectors[0]
-    if t.dtype not in _NAMES:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 or float64)")
+    tag = _build.dtype_tag(t.dtype, name)
     for v in (*vectors, s) + (() if hist is None else (hist,)):
         if v.device != t.device or v.dtype != t.dtype:
             raise ValueError(f"{name}: every tensor must be {t.dtype} on {t.device}")
@@ -93,21 +102,17 @@ def _check(name, vectors, s, hist=None):
         raise ValueError(f"{name}: the vectors differ in length")
     if s.numel() < _SLOTS:
         raise ValueError(f"{name}: the scalar block has {s.numel()} slots, not {_SLOTS}")
+    return tag
 
 
-def _raise_on(err, lib, name):
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
-
-
-def _max_blocks(lib, device, dtype):
+def _max_blocks(lib, device, tag):
     """``(cg_pdot, cg_xr, cg_p)``: each kernel's resident blocks on the card,
     the most a launch uses (occupancy an SM times the SM count)."""
-    key = (device.index, dtype)
+    key = (device.index, tag)
     if key not in _max_blocks_cache:
         per_sm = (ctypes.c_int * 3)()
-        _raise_on(getattr(lib, f"lk_cg_blocks_per_sm_{_NAMES[dtype]}")(per_sm), lib, "cg")
+        err = ENTRIES.on(lib)[f"lk_cg_blocks_per_sm_{tag}"](per_sm)
+        _build.check(lib, err, "cg occupancy query")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _max_blocks_cache[key] = tuple(max(1, b) * sms for b in per_sm)
     return _max_blocks_cache[key]
@@ -123,16 +128,16 @@ class FusedCG:
     it makes the vectors' device current while the solve runs."""
 
     def __init__(self, x, r, p, s, hist):
-        _check("cg", (x, r, p), s, hist)
+        tag = _check("cg", (x, r, p), s, hist)
         self.x, self.r, self.p, self.s, self.hist = x, r, p, s, hist
         self.n = x.numel()
         self.on_card = x.device.type == "cuda"
         if not self.on_card:
             return
         self.lib = lib = _build.load()
-        t = _NAMES[x.dtype]
-        self.entries = tuple(getattr(lib, f"lk_cg_{kind}_{t}") for kind in ("pdot", "xr", "p"))
-        self.blocks = _max_blocks(lib, x.device, x.dtype)
+        entries = ENTRIES.on(lib)
+        self.entries = tuple(entries[f"lk_cg_{kind}_{tag}"] for kind in ("pdot", "xr", "p"))
+        self.blocks = _max_blocks(lib, x.device, tag)
         partials = torch.empty(max(self.blocks[:2]), dtype=x.dtype, device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
         self._workspace = partials, ticket  # held for the pointers below
@@ -177,9 +182,9 @@ def cg_pdot(cg: FusedCG, Ap) -> None:
     if not cg.on_card:
         return cg_pdot_reference(cg.p, Ap, cg.s)
     ptr = cg.ptr
-    _raise_on(cg.entries[0](ptr["p"], Ap.data_ptr(), cg.n, ptr["partials"], ptr["ticket"],
-                            ptr["s"], cg.blocks[0], cg.stream), cg.lib, "cg_pdot")
-    cg_pdot.LAUNCHES += 1
+    _build.launch(cg.lib, cg.entries[0], "cg_pdot", None, ptr["p"], Ap.data_ptr(), cg.n,
+                  ptr["partials"], ptr["ticket"], ptr["s"], cg.blocks[0], cg.stream)
+    count_event("launches.cg_pdot")
 
 
 def cg_xr(cg: FusedCG, Ap, k: int) -> None:
@@ -192,10 +197,10 @@ def cg_xr(cg: FusedCG, Ap, k: int) -> None:
     if not cg.on_card:
         return cg_xr_reference(cg.x, cg.r, cg.p, Ap, cg.s, cg.hist, k)
     ptr = cg.ptr
-    _raise_on(cg.entries[1](ptr["x"], ptr["r"], ptr["p"], Ap.data_ptr(), cg.n, ptr["partials"],
-                            ptr["ticket"], ptr["s"], ptr["hist"], k, cg.blocks[1], cg.stream),
-              cg.lib, "cg_xr")
-    cg_xr.LAUNCHES += 1
+    _build.launch(cg.lib, cg.entries[1], "cg_xr", None, ptr["x"], ptr["r"], ptr["p"],
+                  Ap.data_ptr(), cg.n, ptr["partials"], ptr["ticket"], ptr["s"], ptr["hist"], k,
+                  cg.blocks[1], cg.stream)
+    count_event("launches.cg_xr")
 
 
 def cg_p(cg: FusedCG) -> None:
@@ -204,11 +209,6 @@ def cg_p(cg: FusedCG) -> None:
     if not cg.on_card:
         return cg_p_reference(cg.r, cg.p, cg.s)
     ptr = cg.ptr
-    _raise_on(cg.entries[2](ptr["r"], ptr["p"], cg.n, ptr["s"], cg.blocks[2], cg.stream),
-              cg.lib, "cg_p")
-    cg_p.LAUNCHES += 1
-
-
-cg_pdot.LAUNCHES = 0
-cg_xr.LAUNCHES = 0
-cg_p.LAUNCHES = 0
+    _build.launch(cg.lib, cg.entries[2], "cg_p", None, ptr["r"], ptr["p"], cg.n, ptr["s"],
+                  cg.blocks[2], cg.stream)
+    count_event("launches.cg_p")

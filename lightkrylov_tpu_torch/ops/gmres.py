@@ -26,7 +26,9 @@ holds ``H-tilde``, ``hp``, the coefficients and the scalar block (slots
 :data:`FAC`, :data:`RES`, :data:`TOL`, :data:`FLAG`, :data:`CONV`,
 :data:`INV_GAMMA`) in one workspace and updates them, and the solver's
 ``R``, ``c``, ``s``, ``e`` and ``hist``, in place; the host reads only a
-flag.  For CPU tensors the wrappers run the plain versions on it.
+flag.  For CPU tensors the wrappers run the plain versions on it; on a
+card each counts its launches in the counter ``launches.<wrapper>``
+(:func:`..utils.timer.count_event`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import linalg
+from ..utils.timer import count_event
 from . import _build
 
 __all__ = ["MAX_KDIM", "FAC", "RES", "TOL", "FLAG", "CONV", "INV_GAMMA", "DCGS2State",
@@ -46,7 +49,10 @@ MAX_KDIM = 128
 FAC, RES, TOL, FLAG, CONV, INV_GAMMA = range(6)
 _SLOTS = 8
 _STEP, _FLUSH = 0, 1
-_NAMES = {torch.float32: "f32", torch.float64: "f64"}
+
+#: The C entries of ``csrc/gmres.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({f"lk_dcgs2_{t}": "i p ll p i l i pppppp d p"
+                          for t in _build.DTYPE_TAGS.values()})
 
 
 def safe_inverse(a):
@@ -177,10 +183,9 @@ def dcgs2_flush_reference(st: DCGS2State, zf, k: int, nin: int) -> None:
     dcgs2_givens_reference(st, k, nin)
 
 
-def _check(R, c, s, e, hist, res, tol):
-    """Raise unless the cycle's buffers suit the kernel."""
-    if R.dtype not in _NAMES:
-        raise TypeError(f"dcgs2: dtype {R.dtype} not supported (float32 or float64)")
+def _check(R, c, s, e, hist, res, tol) -> str:
+    """Raise unless the cycle's buffers suit the kernel; their dtype's tag."""
+    tag = _build.dtype_tag(R.dtype, "dcgs2")
     named = {"R": R, "c": c, "s": s, "e": e, "hist": hist, "res": res, "tol": tol}
     for name, v in named.items():
         if v.device != R.device or v.dtype != R.dtype:
@@ -198,12 +203,7 @@ def _check(R, c, s, e, hist, res, tol):
             raise ValueError(f"dcgs2: {name} has shape {tuple(named[name].shape)}, not {shape}")
     if hist.ndim != 1:
         raise ValueError("dcgs2: hist must be one-dimensional")
-
-
-def _raise_on(err, lib, name):
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
+    return tag
 
 
 class FusedDCGS2(DCGS2State):
@@ -217,7 +217,7 @@ class FusedDCGS2(DCGS2State):
     is a :class:`DCGS2State` and the wrappers run the plain versions."""
 
     def __init__(self, R, c, s, e, hist, res, tol, eps: float):
-        _check(R, c, s, e, hist, res, tol)
+        tag = _check(R, c, s, e, hist, res, tol)
         self.on_card = R.device.type == "cuda"
         if not self.on_card:
             super().__init__(R, c, s, e, hist, res, tol, eps)
@@ -239,9 +239,10 @@ class FusedDCGS2(DCGS2State):
         self.fac_prev, self.res, self.inv_gamma = scal[FAC], scal[RES], scal[INV_GAMMA]
         self.h_col = None
         self.lib = _build.load()
-        self.entry = getattr(self.lib, f"lk_dcgs2_{_NAMES[R.dtype]}")
-        self.stream = torch.cuda.current_stream(R.device).cuda_stream
-        self.ptr = tuple(t.data_ptr() for t in (self.work, R, c, s, e, hist))
+        self.entry = ENTRIES.on(self.lib)[f"lk_dcgs2_{tag}"]
+        # the launch's last arguments, the same at every step of the cycle
+        self.tail = (kdim, *(t.data_ptr() for t in (self.work, R, c, s, e, hist)), eps,
+                     torch.cuda.current_stream(R.device).cuda_stream)
         self._guard = torch.cuda.device(R.device)
 
     @property
@@ -253,9 +254,8 @@ class FusedDCGS2(DCGS2State):
         return self.scal[CONV:CONV + 1] if self.on_card else super().conv
 
     def _launch(self, name, mode, pr, rs, cs, wtw, k, nin):
-        err = self.entry(mode, pr.data_ptr(), rs, cs, wtw, k, nin, self.kdim, *self.ptr,
-                         self.eps, self.stream)
-        _raise_on(err, self.lib, name)
+        _build.launch(self.lib, self.entry, name, None, mode, pr.data_ptr(), rs, cs, wtw, k, nin,
+                      *self.tail)
 
 
 def _measurement(st: FusedDCGS2, name, t, shape, nin):
@@ -284,7 +284,7 @@ def dcgs2_step(st: FusedDCGS2, PR, wTw, k: int, nin: int):
         dcgs2_givens_reference(st, k, nin)
         return C, inv_gamma
     st._launch("dcgs2_step", _STEP, PR, PR.stride(0), PR.stride(1), wTw.data_ptr(), k, nin)
-    dcgs2_step.LAUNCHES += 1
+    count_event("launches.dcgs2_step")
     return st.coeff[: k + 1], st.inv_gamma
 
 
@@ -298,8 +298,4 @@ def dcgs2_flush(st: FusedDCGS2, zf, k: int, nin: int) -> None:
     if not st.on_card:
         return dcgs2_flush_reference(st, zf, k, nin)
     st._launch("dcgs2_flush", _FLUSH, zf, zf.stride(0), 0, None, k, nin)
-    dcgs2_flush.LAUNCHES += 1
-
-
-dcgs2_step.LAUNCHES = 0
-dcgs2_flush.LAUNCHES = 0
+    count_event("launches.dcgs2_flush")

@@ -41,11 +41,11 @@ it runs the plain version (:func:`hessenberg_schur_reference`,
 :func:`francis_filter_sweeps_reference`, :func:`ritz_check_reference`,
 :func:`inverse_iteration_reference`, :func:`ordschur_reference`), built from
 the pieces of :mod:`..utils.hessenberg`.  Each wrapper counts its launches
-in its ``LAUNCHES`` attribute.  :func:`launch_schur`, :func:`launch_filter`,
-:func:`launch_ritz` and :func:`launch_ordschur` are the launches themselves,
-from a library that the caller names (the shipping build, or the
-lagging-warp build of :func:`._build.load_lagging` that the tests hold to
-it), and count nothing.
+in the counter ``launches.<wrapper>`` (:func:`..utils.timer.count_event`).
+:func:`launch_schur`, :func:`launch_filter`, :func:`launch_ritz` and
+:func:`launch_ordschur` are the launches themselves, from a library that the
+caller names (the shipping build, or the lagging-warp build of
+:func:`._build.load_lagging` that the tests hold to it), and count nothing.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import hessenberg as _plain
+from ..utils.timer import count_event
 from . import _build
 
 __all__ = ["Geometry", "RitzGeometry", "francis_filter_sweeps", "francis_filter_sweeps_reference",
@@ -63,7 +64,14 @@ __all__ = ["Geometry", "RitzGeometry", "francis_filter_sweeps", "francis_filter_
            "launch_schur", "ordschur", "ordschur_geometry", "ordschur_reference", "ritz_check",
            "ritz_check_reference", "ritz_geometry"]
 
-_NAMES = {torch.float32: "f32", torch.float64: "f64"}
+#: The C entries of ``csrc/hessenberg.cu``, ``csrc/ritz.cu`` and
+#: ``csrc/ordschur.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({
+    **{f"lk_hessenberg_schur_{t}": "ppppppppp il iiiiiii p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_francis_sweeps_{t}": "ppppppp il p il p iiiii p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_ritz_{t}": "pppp il p il d l ii ppppppp iiiiii p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_ordschur_{t}": "pppppppp iiiiii p" for t in _build.DTYPE_TAGS.values()},
+})
 
 
 def hessenberg_schur_reference(H, k_eff=None, with_z: bool = False, split: bool = False):
@@ -195,14 +203,16 @@ def ritz_geometry(n: int, itemsize: int) -> RitzGeometry:
     raise ValueError(f"ritz kernel: kdim {n} leaves no room for one slot's profile")
 
 
-def _check(H, what):
+def _check(H, what) -> str:
+    """Raise unless ``H`` is a non-empty square matrix on a card; its
+    dtype's tag."""
     if H.device.type != "cuda":
         raise ValueError(f"{what} kernel: expected a CUDA tensor, got {H.device}")
-    if H.dtype not in _NAMES:
-        raise TypeError(f"{what} kernel: dtype {H.dtype} not supported (float32 or float64)")
+    tag = _build.dtype_tag(H.dtype, f"{what} kernel")
     if H.ndim != 2 or H.shape[0] != H.shape[1] or H.shape[0] == 0:
         raise ValueError(f"{what} kernel: expected a non-empty square matrix, "
                          f"got shape {tuple(H.shape)}")
+    return tag
 
 
 _INT_BYTES = {torch.int64: 8, torch.int32: 4, torch.bool: 1}
@@ -230,14 +240,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(err, lib, what):
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(load, name, what, device, *args):
+    """Launch the entry ``name`` of the library ``load()`` returns with
+    ``args`` on the current stream of ``device`` (:func:`._build.launch`)."""
+    lib = load()
+    _build.launch(lib, ENTRIES.on(lib)[name], what, device.index, *args)
 
 
 def hessenberg_schur(H, k_eff=None, with_z: bool = False, split: bool = False):
@@ -257,7 +264,7 @@ def hessenberg_schur(H, k_eff=None, with_z: bool = False, split: bool = False):
     if H.device.type == "cpu":
         return hessenberg_schur_reference(H, k_eff, with_z, split)
     out = launch_schur(_build.load, H, k_eff, with_z, split)
-    hessenberg_schur.LAUNCHES += 1
+    count_event("launches.hessenberg_schur")
     return out
 
 
@@ -265,8 +272,8 @@ def launch_schur(load, H, k_eff=None, with_z: bool = False, split: bool = False)
     """The launch of :func:`hessenberg_schur` on the CUDA tensor ``H``, from
     the library that ``load()`` returns (:func:`._build.load` or
     :func:`._build.load_lagging`), called once the arguments are checked;
-    not counted in ``LAUNCHES``."""
-    _check(H, "hessenberg_schur")
+    not counted."""
+    tag = _check(H, "hessenberg_schur")
     n = H.shape[0]
     dev = H.device
     H = H.contiguous()
@@ -279,13 +286,11 @@ def launch_schur(load, H, k_eff=None, with_z: bool = False, split: bool = False)
     acc = torch.empty(max(n - 1, 0), dtype=torch.bool, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     work = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = load()
-    err = getattr(lib, f"lk_hessenberg_schur_{_NAMES[H.dtype]}")(
-        H.data_ptr(), T.data_ptr(), _ptr(Z), wr.data_ptr(), wi.data_ptr(),
-        acc.data_ptr() if n > 1 else None, ok.data_ptr(), work.data_ptr(), _ptr(keff), kbytes,
-        kval, n, int(with_z), int(split), geo.warps, int(geo.h_smem),
-        int(geo.z_smem), geo.smem_bytes, _stream(dev))
-    _raise_on(err, lib, "hessenberg_schur")
+    _launch(load, f"lk_hessenberg_schur_{tag}", "hessenberg_schur", dev,
+            H.data_ptr(), T.data_ptr(), _ptr(Z), wr.data_ptr(), wi.data_ptr(),
+            acc.data_ptr() if n > 1 else None, ok.data_ptr(), work.data_ptr(), _ptr(keff), kbytes,
+            kval, n, int(with_z), int(split), geo.warps, int(geo.h_smem),
+            int(geo.z_smem), geo.smem_bytes)
     return T, Z, wr, wi, acc, ok, work
 
 
@@ -303,15 +308,15 @@ def francis_filter_sweeps(H, wr, wi, shift_order, n_keep, pure):
     if H.device.type == "cpu":
         return francis_filter_sweeps_reference(H, wr, wi, shift_order, n_keep, pure)
     out = launch_filter(_build.load, H, wr, wi, shift_order, n_keep, pure)
-    francis_filter_sweeps.LAUNCHES += 1
+    count_event("launches.francis_filter_sweeps")
     return out
 
 
 def launch_filter(load, H, wr, wi, shift_order, n_keep, pure):
     """The launch of :func:`francis_filter_sweeps` on the CUDA tensor ``H``,
     from the library that ``load()`` returns, as :func:`launch_schur`; not
-    counted in ``LAUNCHES``."""
-    _check(H, "francis_filter_sweeps")
+    counted."""
+    tag = _check(H, "francis_filter_sweeps")
     n = H.shape[0]
     dev = H.device
     H = H.contiguous()
@@ -328,13 +333,10 @@ def launch_filter(load, H, wr, wi, shift_order, n_keep, pure):
     Hf = torch.empty_like(H)
     Z = torch.empty_like(H)
     work = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = load()
-    err = getattr(lib, f"lk_francis_sweeps_{_NAMES[H.dtype]}")(
-        H.data_ptr(), Hf.data_ptr(), Z.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        order.data_ptr(), _ptr(nk), nkb, nkv, _ptr(pu), pub, puv, work.data_ptr(), n,
-        geo.warps, int(geo.h_smem), int(geo.z_smem), geo.smem_bytes,
-        _stream(dev))
-    _raise_on(err, lib, "francis_filter_sweeps")
+    _launch(load, f"lk_francis_sweeps_{tag}", "francis_filter_sweeps", dev,
+            H.data_ptr(), Hf.data_ptr(), Z.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+            order.data_ptr(), _ptr(nk), nkb, nkv, _ptr(pu), pub, puv, work.data_ptr(), n,
+            geo.warps, int(geo.h_smem), int(geo.z_smem), geo.smem_bytes)
     return Hf, Z, work
 
 
@@ -354,7 +356,7 @@ def ritz_check(H_ext, wr, wi, ok, k_eff, tol, nev=None, p: int = 1):
     if H_ext.device.type == "cpu":
         return ritz_check_reference(H_ext, wr, wi, ok, k_eff, tol, nev, p)
     out = launch_ritz(_build.load, H_ext, wr, wi, k_eff, ok, tol, nev, p)
-    ritz_check.LAUNCHES += 1
+    count_event("launches.ritz_check")
     return out
 
 
@@ -367,7 +369,7 @@ def inverse_iteration(H, wr, wi, k_eff=None):
     if H.device.type == "cpu":
         return inverse_iteration_reference(H, wr, wi, k_eff)
     out = launch_ritz(_build.load, H, wr, wi, k_eff)
-    inverse_iteration.LAUNCHES += 1
+    count_event("launches.inverse_iteration")
     return out
 
 
@@ -375,13 +377,12 @@ def launch_ritz(load, H, wr, wi, k_eff=None, ok=True, tol=None, nev=None, p: int
     """The launch of the Ritz kernel on the CUDA tensor ``H`` from the library
     that ``load()`` returns: with ``tol`` that of :func:`ritz_check` (``H``
     the ``(kdim + p, kdim)`` buffer), without it that of
-    :func:`inverse_iteration` (``H`` square); not counted in ``LAUNCHES``."""
+    :func:`inverse_iteration` (``H`` square); not counted."""
     ritz = tol is not None
     what = "ritz_check" if ritz else "inverse_iteration"
     if H.device.type != "cuda":
         raise ValueError(f"{what} kernel: expected a CUDA tensor, got {H.device}")
-    if H.dtype not in _NAMES:
-        raise TypeError(f"{what} kernel: dtype {H.dtype} not supported (float32 or float64)")
+    tag = _build.dtype_tag(H.dtype, f"{what} kernel")
     n = H.shape[-1]
     rows = n + p if ritz else n
     if H.ndim != 2 or n == 0 or p < 1 or H.shape[0] != rows:
@@ -406,14 +407,12 @@ def launch_ritz(load, H, wr, wi, k_eff=None, ok=True, tol=None, nev=None, p: int
         n_conv = torch.zeros((), dtype=torch.int32, device=dev)
     if not geo.w_smem:
         scratch = torch.empty(2 * n * n * ((n + 1) | 1), dtype=H.dtype, device=dev)
-    lib = load()
-    err = getattr(lib, f"lk_ritz_{_NAMES[H.dtype]}")(
-        H.data_ptr(), wr.data_ptr(), wi.data_ptr(), _ptr(okt), okbytes, okval, _ptr(keff),
-        kbytes, kval, float(tol) if ritz else 0.0, n if nev is None else int(nev), p, int(ritz),
-        _ptr(wr_o), _ptr(wi_o), _ptr(res), Vr.data_ptr(), Vi.data_ptr(), _ptr(n_conv),
-        _ptr(scratch), n, geo.slots, int(geo.h_smem), int(geo.w_smem), geo.cols,
-        geo.smem_bytes, _stream(dev))
-    _raise_on(err, lib, what)
+    _launch(load, f"lk_ritz_{tag}", what, dev,
+            H.data_ptr(), wr.data_ptr(), wi.data_ptr(), _ptr(okt), okbytes, okval, _ptr(keff),
+            kbytes, kval, float(tol) if ritz else 0.0, n if nev is None else int(nev), p,
+            int(ritz), _ptr(wr_o), _ptr(wi_o), _ptr(res), Vr.data_ptr(), Vi.data_ptr(),
+            _ptr(n_conv), _ptr(scratch), n, geo.slots, int(geo.h_smem), int(geo.w_smem),
+            geo.cols, geo.smem_bytes)
     return (wr_o, wi_o, res, Vr, Vi, n_conv) if ritz else (Vr, Vi)
 
 
@@ -431,14 +430,14 @@ def ordschur(T, Z, sel):
     if T.device.type == "cpu":
         return ordschur_reference(T, Z, sel)
     out = launch_ordschur(_build.load, T, Z, sel)
-    ordschur.LAUNCHES += 1
+    count_event("launches.ordschur")
     return out
 
 
 def launch_ordschur(load, T, Z, sel):
     """The launch of :func:`ordschur` on the CUDA tensor ``T`` from the
-    library that ``load()`` returns; not counted in ``LAUNCHES``."""
-    _check(T, "ordschur")
+    library that ``load()`` returns; not counted."""
+    tag = _check(T, "ordschur")
     n = T.shape[0]
     dev = T.device
     if Z.device != dev or Z.dtype != T.dtype or Z.ndim != 2 or Z.shape[1] != n:
@@ -454,17 +453,8 @@ def launch_ordschur(load, T, Z, sel):
     sel_o = torch.empty_like(sel)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     swaps = torch.empty((), dtype=torch.int32, device=dev)
-    lib = load()
-    err = getattr(lib, f"lk_ordschur_{_NAMES[T.dtype]}")(
-        T.data_ptr(), Z.data_ptr(), sel.data_ptr(), To.data_ptr(), Zo.data_ptr(),
-        sel_o.data_ptr(), ok.data_ptr(), swaps.data_ptr(), n, Z.shape[0], geo.warps,
-        int(geo.h_smem), int(geo.z_smem), geo.smem_bytes, _stream(dev))
-    _raise_on(err, lib, "ordschur")
+    _launch(load, f"lk_ordschur_{tag}", "ordschur", dev,
+            T.data_ptr(), Z.data_ptr(), sel.data_ptr(), To.data_ptr(), Zo.data_ptr(),
+            sel_o.data_ptr(), ok.data_ptr(), swaps.data_ptr(), n, Z.shape[0], geo.warps,
+            int(geo.h_smem), int(geo.z_smem), geo.smem_bytes)
     return To, Zo, sel_o, ok, swaps
-
-
-hessenberg_schur.LAUNCHES = 0
-francis_filter_sweeps.LAUNCHES = 0
-ritz_check.LAUNCHES = 0
-inverse_iteration.LAUNCHES = 0
-ordschur.LAUNCHES = 0

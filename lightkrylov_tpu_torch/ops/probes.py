@@ -12,7 +12,8 @@ non-contiguous or misaligned input, a block that does not divide the array,
 a failed build or a refused launch is an error, never a quiet switch to
 another path.  For a CPU tensor it computes the plain version,
 :func:`copy_reference` or :func:`reduce_8x128_reference`.  Each wrapper
-counts its kernel launches in its ``LAUNCHES`` attribute.
+counts its kernel launches in the counter ``launches.<wrapper>``
+(:func:`..utils.timer.count_event`).
 
 The launch geometry is computed here (:func:`tiles_geometry`,
 :func:`ring_geometry`, :func:`reduce_grid`) and handed to the kernels, so
@@ -29,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..utils.timer import count_event
 from . import _build
 
 __all__ = ["copy_tiles", "copy_ring", "reduce_8x128", "copy_reference",
@@ -45,6 +47,14 @@ RING_SMEM_MAX = 227 * 1024 - 1024
 RING_MAX_DEPTH = 8
 #: ring CTAs an SM at most
 RING_MAX_CTAS_PER_SM = 8
+
+#: The C entries of ``csrc/probes.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({
+    "lk_copy_tiles_f32": "pp ll iiii p",
+    "lk_copy_ring_f32": "pp l iii p",
+    "lk_copy_ring_ctas_per_sm": "ii p",
+    "lk_reduce_8x128_f32": "ppp ll i p",
+})
 
 _SM_COUNT = {}
 #: (device index, depth x stage bytes) -> ring CTAs an SM of that device holds
@@ -134,23 +144,11 @@ def _sm_count(device) -> int:
     return _SM_COUNT[index]
 
 
-def _launch(what: str, entry: str, x, *args):
-    """Call the C entry ``entry`` with ``args`` and the current stream of
-    ``x``'s device; raise on the error it returns.  The raw stream handle
-    costs less host time than a ``torch.cuda.Stream`` object, which counts
-    where a kernel is as short as the reduction's at 4096^2, and the device
-    is made current only when it is not already."""
+def _launch(what: str, name: str, x, *args):
+    """Launch the entry ``name`` with ``args`` on the current stream of
+    ``x``'s device (:func:`._build.launch`)."""
     lib = _build.load()
-    index = x.device.index
-    fn = getattr(lib, entry)
-    if torch._C._cuda_getDevice() == index:
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
+    _build.launch(lib, ENTRIES.on(lib)[name], what, x.device.index, *args)
 
 
 def ring_ctas_per_sm(device, depth: int, stage: int) -> int:
@@ -163,10 +161,8 @@ def ring_ctas_per_sm(device, depth: int, stage: int) -> int:
         lib = _build.load()
         out = ctypes.c_int()
         with torch.cuda.device(key[0]):
-            err = lib.lk_copy_ring_ctas_per_sm(stage, depth, ctypes.byref(out))
-        if err:
-            raise RuntimeError(f"copy_ring occupancy query failed: CUDA error {err} "
-                               f"({lib.lk_error_string(err).decode()})")
+            err = ENTRIES.on(lib)["lk_copy_ring_ctas_per_sm"](stage, depth, ctypes.byref(out))
+        _build.check(lib, err, "copy_ring occupancy query")
         _RING_FITS[key] = out.value
     return _RING_FITS[key]
 
@@ -194,7 +190,7 @@ def copy_tiles(x, block):
     y = torch.empty_like(x)
     _launch("copy_tiles", "lk_copy_tiles_f32", x, x.data_ptr(), y.data_ptr(), ny, nx, by, bx,
             unit_rows, unit_cols)
-    copy_tiles.LAUNCHES += 1
+    count_event("launches.copy_tiles")
     return y
 
 
@@ -220,7 +216,7 @@ def copy_ring(x, depth: int, stage: int):
     y = torch.empty_like(x)
     _launch("copy_ring", "lk_copy_ring_f32", x, x.data_ptr(), y.data_ptr(), nbytes, stage,
             depth, grid)
-    copy_ring.LAUNCHES += 1
+    count_event("launches.copy_ring")
     return y
 
 
@@ -241,10 +237,5 @@ def reduce_8x128(x):
     out = buf[grid * 8:]
     _launch("reduce_8x128", "lk_reduce_8x128_f32", x, x.data_ptr(), buf.data_ptr(),
             out.data_ptr(), ny, nx, grid)
-    reduce_8x128.LAUNCHES += 1
+    count_event("launches.reduce_8x128")
     return out
-
-
-copy_tiles.LAUNCHES = 0
-copy_ring.LAUNCHES = 0
-reduce_8x128.LAUNCHES = 0

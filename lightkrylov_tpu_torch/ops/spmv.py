@@ -12,11 +12,12 @@ padded with zero blocks that point at block-column 0:
 raises: a failed build, a refused launch or an unsupported tensor is an
 error, never a quiet switch to another path.  On a CPU tensor it computes
 the plain version, :func:`bell_spmv_reference`.  It counts its kernel
-launches in ``bell_spmv.LAUNCHES``.  :func:`bell_spmm` is the batched form,
+launches in the counter ``launches.bell_spmv``
+(:func:`..utils.timer.count_event`).  :func:`bell_spmm` is the batched form,
 ``Y = A X`` for up to :data:`MAX_SPMM_COLUMNS` vectors in one launch that
-reads the matrix once, with its own ``LAUNCHES``; ``BellOperator.matvec_basis``
-goes through it, so a block Krylov step is one launch (one a slice of
-:data:`MAX_SPMM_COLUMNS` vectors for a wider block).
+reads the matrix once, counted in ``launches.bell_spmm``;
+``BellOperator.matvec_basis`` goes through it, so a block Krylov step is one
+launch (one a slice of :data:`MAX_SPMM_COLUMNS` vectors for a wider block).
 ``BellOperator.rmatvec`` is plain torch (an einsum and an ``index_add_``),
 as the JAX one is plain XLA.
 """
@@ -28,7 +29,7 @@ import torch
 
 from ..constants import as_numpy_dtype, resolve_device
 from ..linops import LinearOperator
-from ..utils.timer import host_read
+from ..utils.timer import count_event, host_read
 from . import _build
 
 __all__ = ["BellMatrix", "bell_from_scipy", "bell_spmm", "bell_spmm_reference", "bell_spmv",
@@ -37,6 +38,12 @@ __all__ = ["BellMatrix", "bell_from_scipy", "bell_spmm", "bell_spmm_reference", 
 #: The most vectors :func:`bell_spmm` takes in one launch (the kernel keeps
 #: each vector's partial sums in registers).
 MAX_SPMM_COLUMNS = 8
+
+#: The C entries of ``csrc/spmv.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({
+    **{f"lk_bell_spmv_{t}": "pppp liii p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_bell_spmm_{t}": "pppp illiii p" for t in _build.DTYPE_TAGS.values()},
+})
 
 
 class BellMatrix:
@@ -138,10 +145,7 @@ def _launch(data, cols, x_padded, batched: bool = False):
             raise ValueError("bell_spmv kernel: data, cols and x must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"bell_spmv kernel: {name} must be contiguous")
-    entry = {torch.float32: "f32", torch.float64: "f64"}.get(data.dtype)
-    if entry is None:
-        raise TypeError(f"bell_spmv kernel: dtype {data.dtype} not supported "
-                        "(float32 or float64)")
+    tag = _build.dtype_tag(data.dtype, "bell_spmv kernel")
     if x_padded.dtype != data.dtype:
         raise TypeError(f"bell_spmv kernel: x is {x_padded.dtype}, data {data.dtype}")
     if cols.dtype != torch.int32:
@@ -168,16 +172,13 @@ def _launch(data, cols, x_padded, batched: bool = False):
     lib = _build.load()
     y = torch.empty((p, nbr * bm) if batched else (nbr * bm,), dtype=data.dtype,
                     device=data.device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        ptrs = (data.data_ptr(), cols.data_ptr(), x_padded.data_ptr(), y.data_ptr())
-        if batched:
-            err = getattr(lib, f"lk_bell_spmm_{entry}")(*ptrs, p, n_p, nbr, K, bm, bn, stream)
-        else:
-            err = getattr(lib, f"lk_bell_spmv_{entry}")(*ptrs, nbr, K, bm, bn, stream)
-    if err:
-        raise RuntimeError(f"bell_spmv kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
+    ptrs = (data.data_ptr(), cols.data_ptr(), x_padded.data_ptr(), y.data_ptr())
+    if batched:
+        _build.launch(lib, ENTRIES.on(lib)[f"lk_bell_spmm_{tag}"], "bell_spmv",
+                      data.device.index, *ptrs, p, n_p, nbr, K, bm, bn)
+    else:
+        _build.launch(lib, ENTRIES.on(lib)[f"lk_bell_spmv_{tag}"], "bell_spmv",
+                      data.device.index, *ptrs, nbr, K, bm, bn)
     return y
 
 
@@ -192,7 +193,7 @@ def bell_spmv(data, cols, x_padded, interpret: bool = False, rows_per_step: int 
     if data.device.type == "cpu":
         return bell_spmv_reference(data, cols, x_padded)
     y = _launch(data, cols, x_padded)
-    bell_spmv.LAUNCHES += 1
+    count_event("launches.bell_spmv")
     return y
 
 
@@ -206,12 +207,8 @@ def bell_spmm(data, cols, X_padded):
     if data.device.type == "cpu":
         return bell_spmm_reference(data, cols, X_padded)
     y = _launch(data, cols, X_padded, batched=True)
-    bell_spmm.LAUNCHES += 1
+    count_event("launches.bell_spmm")
     return y
-
-
-bell_spmv.LAUNCHES = 0
-bell_spmm.LAUNCHES = 0
 
 
 class BellOperator(LinearOperator):

@@ -9,9 +9,10 @@ For a CUDA tensor a wrapper launches the kernel or raises: a failed build,
 a refused launch or an unsupported tensor is an error, never a quiet switch
 to another path.  For a CPU tensor it computes the plain version,
 :func:`stencil_matvec_reference`.  Each wrapper counts its kernel launches
-in its ``LAUNCHES`` attribute.  :func:`stencil_matvec_batched` applies the
-operator to a stack of fields in one launch; ``CudaPoisson2D.matvec_basis``
-goes through it, so a block Krylov step is one launch.
+in the counter ``launches.<wrapper>`` (:func:`..utils.timer.count_event`).
+:func:`stencil_matvec_batched` applies the operator to a stack of fields in
+one launch; ``CudaPoisson2D.matvec_basis`` goes through it, so a block
+Krylov step is one launch.
 
 The v5e VMEM tuning of the JAX module (``effective_tile``,
 ``DEFAULT_VMEM_BUDGET``, ``auto_poisson2d``) is not carried over.
@@ -23,10 +24,17 @@ import torch
 
 from ..constants import as_torch_dtype, resolve_device
 from ..linops import LinearOperator
+from ..utils.timer import count_event
 from . import _build
 
 __all__ = ["stencil_matvec", "stencil_matvec_2d", "stencil_matvec_batched",
            "stencil_matvec_reference", "CudaPoisson2D"]
+
+#: The C entries of ``csrc/stencil.cu`` (:class:`._build.Entries`)
+ENTRIES = _build.Entries({
+    **{f"lk_stencil_{t}": "ppii ddd p" for t in _build.DTYPE_TAGS.values()},
+    **{f"lk_stencil_batched_{t}": "ppiii ddd p" for t in _build.DTYPE_TAGS.values()},
+})
 
 
 def stencil_matvec_reference(u, *, ihx2: float, ihy2: float):
@@ -48,10 +56,7 @@ def _launch(u, ihx2: float, ihy2: float, batched: bool = False):
     field of a ``(p, ny, nx)`` stack."""
     if u.device.type != "cuda":
         raise ValueError(f"stencil kernel: expected a CUDA tensor, got {u.device}")
-    names = {torch.float32: "f32", torch.float64: "f64"}
-    if u.dtype not in names:
-        raise TypeError(f"stencil kernel: dtype {u.dtype} not supported "
-                        "(float32 or float64)")
+    tag = _build.dtype_tag(u.dtype, "stencil kernel")
     ndim = 3 if batched else 2
     if u.ndim != ndim or 0 in u.shape:
         what = "(p, ny, nx) stack of grids" if batched else "2-D grid"
@@ -62,21 +67,11 @@ def _launch(u, ihx2: float, ihy2: float, batched: bool = False):
                          "65535 segments of 16 rows a launch")
     if not u.is_contiguous():
         raise ValueError("stencil kernel: the grid must be contiguous")
-    ny, nx = u.shape[-2:]
     lib = _build.load()
+    entry = ENTRIES.on(lib)[f"lk_stencil_batched_{tag}" if batched else f"lk_stencil_{tag}"]
     out = torch.empty_like(u)
-    c = (2.0 * (ihx2 + ihy2), ihx2, ihy2)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        if batched:
-            err = getattr(lib, f"lk_stencil_batched_{names[u.dtype]}")(
-                u.data_ptr(), out.data_ptr(), u.shape[0], ny, nx, *c, stream)
-        else:
-            err = getattr(lib, f"lk_stencil_{names[u.dtype]}")(
-                u.data_ptr(), out.data_ptr(), ny, nx, *c, stream)
-    if err:
-        raise RuntimeError(f"stencil kernel launch failed: CUDA error {err} "
-                           f"({lib.lk_error_string(err).decode()})")
+    _build.launch(lib, entry, "stencil", u.device.index, u.data_ptr(), out.data_ptr(), *u.shape,
+                  2.0 * (ihx2 + ihy2), ihx2, ihy2)
     return out
 
 
@@ -88,7 +83,7 @@ def stencil_matvec(u, *, ihx2: float, ihy2: float, tile: int = 256):
     if u.device.type == "cpu":
         return stencil_matvec_reference(u, ihx2=ihx2, ihy2=ihy2)
     out = _launch(u, ihx2, ihy2)
-    stencil_matvec.LAUNCHES += 1
+    count_event("launches.stencil_matvec")
     return out
 
 
@@ -100,7 +95,7 @@ def stencil_matvec_2d(u, *, ihx2: float, ihy2: float, tile_y: int = 256,
     if u.device.type == "cpu":
         return stencil_matvec_reference(u, ihx2=ihx2, ihy2=ihy2)
     out = _launch(u, ihx2, ihy2)
-    stencil_matvec_2d.LAUNCHES += 1
+    count_event("launches.stencil_matvec_2d")
     return out
 
 
@@ -111,13 +106,8 @@ def stencil_matvec_batched(u, *, ihx2: float, ihy2: float):
     if u.device.type == "cpu":
         return stencil_matvec_reference(u, ihx2=ihx2, ihy2=ihy2)
     out = _launch(u, ihx2, ihy2, batched=True)
-    stencil_matvec_batched.LAUNCHES += 1
+    count_event("launches.stencil_matvec_batched")
     return out
-
-
-stencil_matvec.LAUNCHES = 0
-stencil_matvec_2d.LAUNCHES = 0
-stencil_matvec_batched.LAUNCHES = 0
 
 
 class CudaPoisson2D(LinearOperator):

@@ -166,12 +166,17 @@ def test_bell_operator_wide_block_goes_in_slices(monkeypatch, p, slices):
     assert got.shape == (p, 100) and _rel(got, (A @ X.T).T) < 1e-12
 
 
+def _launches(name):
+    """The kernel launches counted so far under ``launches.<name>``."""
+    return timer.get_counter(f"launches.{name}")
+
+
 def test_block_forms_on_the_cpu_launch_nothing():
-    before = (lt.stencil_matvec_batched.LAUNCHES, lt.bell_spmm.LAUNCHES)
+    before = (_launches("stencil_matvec_batched"), _launches("bell_spmm"))
     lt.CudaPoisson2D(8).matvec_basis(torch.ones(2, 8, 8))
     data, cols = _random_bell(4, 2, 2, 8, 16, seed=0, dtype=np.float32)
     lt.bell_spmm(torch.from_numpy(data), torch.from_numpy(cols), torch.ones(2, 32))
-    assert (lt.stencil_matvec_batched.LAUNCHES, lt.bell_spmm.LAUNCHES) == before
+    assert (_launches("stencil_matvec_batched"), _launches("bell_spmm")) == before
 
 
 def test_batched_non_cpu_tensor_never_takes_the_plain_path():
@@ -332,10 +337,10 @@ def test_cuda_batched_stencil_matches_plain(cuda, shape, p, dtype, rel):
     ny, nx = shape
     u = torch.from_numpy(np.random.default_rng(p).standard_normal((p, ny, nx))).to(cuda, dtype)
     ihx2, ihy2 = float((nx + 1) ** 2), float((ny + 1) ** 2)
-    before = lt.stencil_matvec_batched.LAUNCHES
+    before = _launches("stencil_matvec_batched")
     got = lt.stencil_matvec_batched(u, ihx2=ihx2, ihy2=ihy2)
     torch.cuda.synchronize()
-    assert lt.stencil_matvec_batched.LAUNCHES == before + 1
+    assert _launches("stencil_matvec_batched") == before + 1
     want = stencil.stencil_matvec_reference(u, ihx2=ihx2, ihy2=ihy2)
     assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)
 
@@ -349,10 +354,10 @@ def test_cuda_bell_spmm_matches_plain(cuda, bm, bn, p, dtype, rel):
     data = torch.from_numpy(data).to(cuda, dtype)
     cols = torch.from_numpy(cols).to(cuda)
     X = torch.from_numpy(np.random.default_rng(bn).standard_normal((p, 37 * bn))).to(cuda, dtype)
-    before = lt.bell_spmm.LAUNCHES
+    before = _launches("bell_spmm")
     got = lt.bell_spmm(data, cols, X)
     torch.cuda.synchronize()
-    assert lt.bell_spmm.LAUNCHES == before + 1
+    assert _launches("bell_spmm") == before + 1
     want = spmv.bell_spmm_reference(data, cols, X)
     assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)
 
@@ -361,15 +366,15 @@ def test_cuda_bell_spmm_matches_plain(cuda, bm, bn, p, dtype, rel):
 def test_cuda_block_forms_launch_once(cuda):
     """``matvec_basis`` of both operators is one batched launch a block."""
     op = lt.CudaPoisson2D(64, dtype=torch.float32, device=cuda)
-    before = (lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES)
+    before = (_launches("stencil_matvec"), _launches("stencil_matvec_batched"))
     op.matvec_basis(torch.ones(3, 64, 64, device=cuda))
-    assert (lt.stencil_matvec.LAUNCHES, lt.stencil_matvec_batched.LAUNCHES) == (
+    assert (_launches("stencil_matvec"), _launches("stencil_matvec_batched")) == (
         before[0], before[1] + 1)
     A = sp.random(200, 200, density=0.05, random_state=1, format="csr") + sp.eye(200)
     bop = lt.BellOperator(lt.bell_from_scipy(A, dtype=np.float32, device=cuda))
-    before = (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES)
+    before = (_launches("bell_spmv"), _launches("bell_spmm"))
     Y = bop.matvec_basis(torch.ones(2, 200, device=cuda))
-    assert (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES) == (before[0], before[1] + 1)
+    assert (_launches("bell_spmv"), _launches("bell_spmm")) == (before[0], before[1] + 1)
     assert np.allclose(Y.cpu().numpy(), (A @ np.ones((200, 2))).T, rtol=1e-5, atol=1e-4)
 
 
@@ -384,10 +389,10 @@ def test_cuda_bell_operator_wide_block_matches_plain(cuda, p, dtype, rel):
     bell = lt.bell_from_scipy(A, dtype=np_dtype, device=cuda)
     op = lt.BellOperator(bell)
     X = torch.from_numpy(np.random.default_rng(p).standard_normal((p, 1000))).to(cuda, dtype)
-    before = (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES)
+    before = (_launches("bell_spmv"), _launches("bell_spmm"))
     got = op.matvec_basis(X)
     torch.cuda.synchronize()
-    assert (lt.bell_spmv.LAUNCHES, lt.bell_spmm.LAUNCHES) == (before[0], before[1] + 2)
+    assert (_launches("bell_spmv"), _launches("bell_spmm")) == (before[0], before[1] + 2)
     X_p = torch.nn.functional.pad(X, (0, op._n_padded() - 1000))
     want = spmv.bell_spmm_reference(bell.data, bell.cols, X_p)[:, :1000]
     assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)

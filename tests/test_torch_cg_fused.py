@@ -202,10 +202,15 @@ def test_fused_solve_leaves_the_callers_tensors_alone():
     assert x.data_ptr() not in (b.data_ptr(), x0.data_ptr())
 
 
+def _launches(name):
+    """The kernel launches counted so far under ``launches.<name>``."""
+    return timer.get_counter(f"launches.{name}")
+
+
 def test_fused_cpu_solve_launches_nothing():
-    before = (fused.cg_pdot.LAUNCHES, fused.cg_xr.LAUNCHES, fused.cg_p.LAUNCHES)
+    before = (_launches("cg_pdot"), _launches("cg_xr"), _launches("cg_p"))
     _solve("identity_f64")
-    assert (fused.cg_pdot.LAUNCHES, fused.cg_xr.LAUNCHES, fused.cg_p.LAUNCHES) == before
+    assert (_launches("cg_pdot"), _launches("cg_xr"), _launches("cg_p")) == before
 
 
 def _bound(*vectors, s=None, hist=None, dtype=torch.float64):
@@ -276,22 +281,22 @@ def test_cuda_kernels_match_plain(cuda, shape, dtype, offset):
     dot_scale = float(torch.linalg.norm(p.double()) * torch.linalg.norm(ap.double()))
 
     s1, s2 = s.clone(), s.clone()
-    before = fused.cg_pdot.LAUNCHES
+    before = _launches("cg_pdot")
     fused.cg_pdot(_bound(x.clone(), r.clone(), p, s=s1, dtype=dtype), ap)
     fused.cg_pdot_reference(p, ap, s2)
     torch.cuda.synchronize()
-    assert fused.cg_pdot.LAUNCHES == before + 1
+    assert _launches("cg_pdot") == before + 1
     assert abs(float(s1[fused.PAP]) - float(s2[fused.PAP])) <= rel * dot_scale
     assert torch.equal(s1[[0, 2, 3, 4, 5, 6]], s2[[0, 2, 3, 4, 5, 6]])
 
     (x1, r1), (x2, r2) = (x.clone(), r.clone()), (x.clone(), r.clone())
     s1, s2 = s.clone(), s.clone()
     h1, h2 = torch.zeros(5, dtype=dtype, device=cuda), torch.zeros(5, dtype=dtype, device=cuda)
-    before = fused.cg_xr.LAUNCHES
+    before = _launches("cg_xr")
     fused.cg_xr(fused.FusedCG(x1, r1, p, s1, h1), ap, 3)
     fused.cg_xr_reference(x2, r2, p, ap, s2, h2, 3)
     torch.cuda.synchronize()
-    assert fused.cg_xr.LAUNCHES == before + 1
+    assert _launches("cg_xr") == before + 1
     assert _close(x1, x2, rel) and _close(r1, r2, rel)
     for slot in (fused.RR, fused.RES, fused.BETA, fused.RZ):
         assert abs(float(s1[slot]) - float(s2[slot])) <= rel * abs(float(s2[slot]))
@@ -299,11 +304,11 @@ def test_cuda_kernels_match_plain(cuda, shape, dtype, offset):
     assert float(h1[3]) == float(s1[fused.RES]) and int((h1 != 0).sum()) == 1
 
     p1, p2 = p.clone(), p.clone()
-    before = fused.cg_p.LAUNCHES
+    before = _launches("cg_p")
     fused.cg_p(_bound(x.clone(), r, p1, s=s, dtype=dtype))
     fused.cg_p_reference(r, p2, s)
     torch.cuda.synchronize()
-    assert fused.cg_p.LAUNCHES == before + 1
+    assert _launches("cg_p") == before + 1
     assert _close(p1, p2, rel)
 
 
@@ -348,12 +353,12 @@ def _solve_512(dev, x0=None, rtol=1e-8, b=None):
 def test_cuda_fused_solve_matches_the_unfused_loop(cuda, monkeypatch):
     rtol = 1e-8
     before = _fused_iterations()
-    launches = (fused.cg_pdot.LAUNCHES, fused.cg_xr.LAUNCHES, fused.cg_p.LAUNCHES)
+    launches = (_launches("cg_pdot"), _launches("cg_xr"), _launches("cg_p"))
     op, b, x, info, meta = _solve_512(cuda, rtol=rtol)
     k = meta.n_iter
     assert info == k > 0 and meta.converged
     assert _fused_iterations() - before == k
-    assert (fused.cg_pdot.LAUNCHES, fused.cg_xr.LAUNCHES, fused.cg_p.LAUNCHES) == \
+    assert (_launches("cg_pdot"), _launches("cg_xr"), _launches("cg_p")) == \
         tuple(n + k for n in launches)
     true_res = torch.linalg.norm(b - op.matvec(x)) / torch.linalg.norm(b)
     assert float(true_res) <= rtol

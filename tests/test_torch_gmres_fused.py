@@ -364,6 +364,11 @@ def _same(a, b):
     return torch.equal(xa, xb) and ia == ib and np.array_equal(ma.residuals, mb.residuals)
 
 
+def _launches(name):
+    """The kernel launches counted so far under ``launches.<name>``."""
+    return timer.get_counter(f"launches.{name}")
+
+
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_route_selection(case, monkeypatch):
     """On the CPU no route takes the kernel and none counts a fused step.
@@ -375,10 +380,10 @@ def test_route_selection(case, monkeypatch):
     natural = _gmres(**kw)
     assert _steps() == before
     _on_a_card(monkeypatch)
-    launches = (fused.dcgs2_step.LAUNCHES, fused.dcgs2_flush.LAUNCHES)
+    launches = (_launches("dcgs2_step"), _launches("dcgs2_flush"))
     forced = _gmres(**kw)
     assert _steps() - before == (3 * KDIM if case in TAKES_KERNEL else 0)
-    assert (fused.dcgs2_step.LAUNCHES, fused.dcgs2_flush.LAUNCHES) == launches
+    assert (_launches("dcgs2_step"), _launches("dcgs2_flush")) == launches
     assert _same(natural, forced)
 
 
@@ -414,6 +419,33 @@ def test_timing_changes_neither_fused_steps_nor_reads(monkeypatch):
             lt.set_timing(False)
         counts.append((_steps(), timer.get_counter("host_reads")))
     assert counts[0] == counts[1] and counts[0][0] == 3 * KDIM
+
+
+#: The counters a fused GMRES solve moves: on a card its launches too
+FUSED_COUNTERS = ("gmres.fused_steps", "host_reads", "launches.dcgs2_step",
+                  "launches.dcgs2_flush", "launches.stencil_matvec")
+
+
+@pytest.mark.parametrize("where", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_reset_counters_clears_the_launch_counts(where, monkeypatch):
+    """``reset_counters()`` clears the ``launches.*`` counts with the others.
+    On the CPU the route is forced and counts its steps and reads but no
+    launch; on a card the solve counts a launch a step, one a flush and one a
+    matvec."""
+    if where == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if where == "cpu":
+        _on_a_card(monkeypatch)
+    timer.reset_counters()
+    _gmres(torch.float32, device=where)
+    moved = {name: timer.get_counter(name) for name in FUSED_COUNTERS}
+    on_card = where == "cuda"
+    assert moved["gmres.fused_steps"] == 3 * KDIM and moved["host_reads"] > 0
+    assert moved["launches.dcgs2_step"] == (3 * KDIM if on_card else 0)
+    assert moved["launches.dcgs2_flush"] == (3 if on_card else 0)
+    assert (moved["launches.stencil_matvec"] >= 3 * KDIM) == on_card
+    timer.reset_counters()
+    assert all(timer.get_counter(name) == 0 for name in FUSED_COUNTERS)
 
 
 # -- on the GPU ------------------------------------------------------------------
@@ -460,11 +492,11 @@ def test_cuda_kernel_matches_plain(cuda, dtype, stop):
                                                      bound.hist)),
                                 st.res.clone(), st.tol.clone(), st.eps)
         twin.work.copy_(bound.work)
-        before = fused.dcgs2_step.LAUNCHES
+        before = _launches("dcgs2_step")
         C1, g1 = fused.dcgs2_step(bound, PR, wTw, k_stop, nin)
         C3, g3 = fused.dcgs2_step(twin, PR.contiguous(), wTw, k_stop, nin)
         C2, g2 = plain.step(PR, wTw, k_stop, nin)
-        assert fused.dcgs2_step.LAUNCHES == before + 2
+        assert _launches("dcgs2_step") == before + 2
         assert torch.equal(C1, C3) and torch.equal(g1, g3) and torch.equal(bound.work, twin.work)
         outs = ((C1, C2), (g1, g2))
     torch.cuda.synchronize()
@@ -521,11 +553,11 @@ def test_cuda_gmres_cycle_matches_the_separate_operations(cuda, dtype, monkeypat
         if route == "separate":
             monkeypatch.setattr(gmres_module, "_fits_fused", lambda *args: False)
         timer.reset_counters()
-        launches = (fused.dcgs2_step.LAUNCHES, fused.dcgs2_flush.LAUNCHES)
+        launches = (_launches("dcgs2_step"), _launches("dcgs2_flush"))
         x, info, meta = _gmres(dtype, device=cuda, n=256, maxiter=2, kdim=KERNEL_KDIM)
         runs[route] = dict(x=x, meta=meta, reads=timer.get_counter("host_reads"), steps=_steps(),
-                           launches=(fused.dcgs2_step.LAUNCHES - launches[0],
-                                     fused.dcgs2_flush.LAUNCHES - launches[1]))
+                           launches=(_launches("dcgs2_step") - launches[0],
+                                     _launches("dcgs2_flush") - launches[1]))
     k, s = runs["kernel"], runs["separate"]
     assert k["steps"] == 2 * KERNEL_KDIM and k["launches"] == (2 * KERNEL_KDIM, 2)
     assert s["steps"] == 0 and s["launches"] == (0, 0)

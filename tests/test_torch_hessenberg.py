@@ -27,6 +27,7 @@ from scipy.optimize import linear_sum_assignment
 import lightkrylov_tpu_torch as lt
 from lightkrylov_tpu_torch.ops import hessenberg as kernels
 from lightkrylov_tpu_torch.utils import hessenberg as H
+from lightkrylov_tpu_torch.utils import timer
 
 torch.set_num_threads(2)
 
@@ -359,20 +360,25 @@ def test_f32_vectors_at_a_triple_eigenvalue_are_unit_columns(J, jnp):
     assert np.all(np.abs(np.abs(np.sum(np.conj(jV) * V, axis=0))[rest] - 1.0) < 1e-4)
 
 
+def _launches(name):
+    """The kernel launches counted so far under ``launches.<name>``."""
+    return timer.get_counter(f"launches.{name}")
+
+
 def test_ritz_wrappers_take_the_plain_version_on_the_cpu(rng):
     """On a CPU tensor ``ritz_check`` and ``inverse_iteration`` are their
     plain versions and count no launch."""
     He, k, p, nev, tol = _check_buffer(("band", 12, 1, 10))
     Ht = torch.from_numpy(He)
     _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(Ht[:12], k)
-    before = (kernels.ritz_check.LAUNCHES, kernels.inverse_iteration.LAUNCHES)
+    before = (_launches("ritz_check"), _launches("inverse_iteration"))
     got = kernels.ritz_check(Ht, wr, wi, ok, k, tol, nev, p)
     want = kernels.ritz_check_reference(Ht, wr, wi, ok, k, tol, nev, p)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = kernels.inverse_iteration(Ht[:12], wr, wi, k)
     want = kernels.inverse_iteration_reference(Ht[:12], wr, wi, k)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (kernels.ritz_check.LAUNCHES, kernels.inverse_iteration.LAUNCHES) == before
+    assert (_launches("ritz_check"), _launches("inverse_iteration")) == before
 
 
 def test_schur_f32_on_a_hessenberg_scaled_to_2_pow_minus_40(J, jnp):
@@ -466,10 +472,10 @@ def _hold_ordschur_to_jax(T, Z, mask, J, jnp, want_ok=True):
     Z^T`` within ``ORD_FACT`` and the zero pattern below the block diagonal.
     Returns the port's ``(T', Z', sel', swaps)``."""
     dt = T.dtype.type
-    before = kernels.ordschur.LAUNCHES
+    before = _launches("ordschur")
     T2, Z2, sel2, ok2, swaps = kernels.ordschur(torch.from_numpy(T), torch.from_numpy(Z),
                                                 torch.from_numpy(mask))
-    assert kernels.ordschur.LAUNCHES == before
+    assert _launches("ordschur") == before
     jT2, _, jsel2, jok2 = J.ordschur_device(jnp.asarray(T), jnp.asarray(Z), jnp.asarray(mask))
     T2, Z2, sel2 = T2.numpy(), Z2.numpy(), sel2.numpy()
     assert np.array_equal(sel2, np.asarray(jsel2)) and bool(ok2) == bool(jok2) == want_ok
@@ -629,12 +635,12 @@ def test_ordschur_wrapper_takes_the_plain_version_on_the_cpu(rng):
     A = torch.from_numpy(rng.standard_normal((12, 12)))
     T, Z, _, _, _ = H.schur_real(A)
     mask = torch.from_numpy(rng.random(12) < 0.5)
-    before = kernels.ordschur.LAUNCHES
+    before = _launches("ordschur")
     got = kernels.ordschur(T, Z, mask)
     want = kernels.ordschur_reference(T, Z, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(H.ordschur_device(T, Z, mask), got[:4]))
-    assert kernels.ordschur.LAUNCHES == before and got[4].dtype == torch.int32
+    assert _launches("ordschur") == before and got[4].dtype == torch.int32
 
 
 @pytest.mark.parametrize("n, nz, itemsize, t_smem, z_smem", [
@@ -801,7 +807,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu(rng):
     """On a CPU tensor each wrapper computes its plain version and counts no
     launch."""
     A = torch.from_numpy(np.triu(rng.standard_normal((9, 9)), -1))
-    before = (kernels.hessenberg_schur.LAUNCHES, kernels.francis_filter_sweeps.LAUNCHES)
+    before = (_launches("hessenberg_schur"), _launches("francis_filter_sweeps"))
     got = kernels.hessenberg_schur(A, 7, with_z=True, split=True)
     want = kernels.hessenberg_schur_reference(A, 7, True, True)
     for g, w in zip(got, want):
@@ -813,7 +819,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu(rng):
                                                              torch.tensor(True))
     assert torch.equal(Hf, Hf2) and torch.equal(Z, Z2) and torch.equal(work, work2)
     assert 0 < int(work[0]) <= int(work[1])
-    assert before == (kernels.hessenberg_schur.LAUNCHES, kernels.francis_filter_sweeps.LAUNCHES)
+    assert before == (_launches("hessenberg_schur"), _launches("francis_filter_sweeps"))
 
 
 def test_schur_budget_flag_and_sweep_count(rng):
@@ -1075,10 +1081,10 @@ def _hold_schur_to_plain(cuda, dtype, A, k, with_z=True):
     writes."""
     n = A.shape[0]
     Ht = torch.from_numpy(A).to(cuda, dtype)
-    before = kernels.hessenberg_schur.LAUNCHES
+    before = _launches("hessenberg_schur")
     T, Z, wr, wi, acc, ok, work = kernels.hessenberg_schur(Ht, k, with_z=with_z, split=with_z)
     torch.cuda.synchronize()
-    assert kernels.hessenberg_schur.LAUNCHES == before + 1
+    assert _launches("hessenberg_schur") == before + 1
     assert acc.dtype == ok.dtype == torch.bool and work.dtype == torch.int32
     _, _, pwr, pwi, _, pok, pwork = kernels.hessenberg_schur_reference(Ht, k, with_z, with_z)
     norm = float(np.linalg.norm(A))
@@ -1233,10 +1239,10 @@ def test_cuda_filter_kernel_matches_plain(cuda, dtype, kdim):
     A = _filter_input(kdim, 1)
     Ht = torch.from_numpy(A).to(cuda, dtype)
     wr, wi, order, n, pure, ok = H._filter_shifts(Ht, kdim // 2)
-    before = kernels.francis_filter_sweeps.LAUNCHES
+    before = _launches("francis_filter_sweeps")
     Hf, Z, work = kernels.francis_filter_sweeps(Ht, wr, wi, order, n, pure)
     torch.cuda.synchronize()
-    assert kernels.francis_filter_sweeps.LAUNCHES == before + 1
+    assert _launches("francis_filter_sweeps") == before + 1
     Hp, _, pwork = kernels.francis_filter_sweeps_reference(Ht, wr, wi, order, n, pure)
     n = int(n)
     assert bool(ok & pure) and int(work[0]) == int(pwork[0]) > 0
@@ -1338,10 +1344,10 @@ def _hold_ritz_to_plain(cuda, dtype, He, k, p, nev, tol):
     kdim = He.shape[1]
     Ht = torch.from_numpy(He).to(cuda, dtype)
     _, _, wr, wi, _, ok, _ = kernels.hessenberg_schur(Ht[:kdim].contiguous(), k)
-    before = kernels.ritz_check.LAUNCHES
+    before = _launches("ritz_check")
     got = kernels.ritz_check(Ht, wr, wi, ok, k, tol, nev, p)
     torch.cuda.synchronize()
-    assert kernels.ritz_check.LAUNCHES == before + 1
+    assert _launches("ritz_check") == before + 1
     want = kernels.ritz_check_reference(Ht, wr, wi, ok, k, tol, nev, p)
     (gwr, gwi, gres, gVr, gVi, gn), (pwr, pwi, pres, pVr, pVi, pn) = (
         [t.cpu() for t in out] for out in (got, want))
@@ -1451,10 +1457,10 @@ def test_cuda_inverse_iteration_matches_plain(cuda, dtype, kind, n):
         A = _check_buffer(("arrow", n, 1, n))[0][:n]
     Ht = torch.from_numpy(A).to(cuda, dtype)
     wr, wi, ok = H.hessenberg_eigvals(Ht)
-    before = kernels.inverse_iteration.LAUNCHES
+    before = _launches("inverse_iteration")
     Vr, Vi = kernels.inverse_iteration(Ht, wr, wi, n - 3)
     torch.cuda.synchronize()
-    assert kernels.inverse_iteration.LAUNCHES == before + 1
+    assert _launches("inverse_iteration") == before + 1
     pVr, pVi = kernels.inverse_iteration_reference(Ht, wr, wi, n - 3)
     V = Vr.double().cpu().numpy() + 1j * Vi.double().cpu().numpy()
     Vp = pVr.double().cpu().numpy() + 1j * pVi.double().cpu().numpy()
@@ -1568,10 +1574,10 @@ def _hold_ordschur_to_plain(T, Z, mask):
     ``SCHUR_ORTH`` (``Z`` orthogonal, entries at most 1).  Returns the swap
     count."""
     dtype = T.dtype
-    before = kernels.ordschur.LAUNCHES
+    before = _launches("ordschur")
     got = kernels.ordschur(T, Z, mask)
     torch.cuda.synchronize()
-    assert kernels.ordschur.LAUNCHES == before + 1
+    assert _launches("ordschur") == before + 1
     T2, Z2, sel2, ok2, swaps = (t.cpu() for t in got)
     pT2, pZ2, psel2, pok2, pswaps = kernels.ordschur_reference(T.cpu(), Z.cpu(), mask.cpu())
     assert torch.equal(sel2, psel2) and bool(ok2) == bool(pok2) and int(swaps) == int(pswaps)
@@ -1638,13 +1644,13 @@ def test_cuda_krylov_schur_restart_makes_no_host_read(cuda, p):
     k = torch.full((), kdim, device=cuda) if p > 1 else None
     krylov_schur_device(X, Ht, sel_wr, sel_wi, mask, p=p, k_eff=k)
     torch.cuda.synchronize()
-    before = kernels.ordschur.LAUNCHES
+    before = _launches("ordschur")
     torch.cuda.set_sync_debug_mode("error")
     try:
         krylov_schur_device(X, Ht, sel_wr, sel_wi, mask, p=p, k_eff=k)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert kernels.ordschur.LAUNCHES == before + 1
+    assert _launches("ordschur") == before + 1
 
 
 @pytest.mark.cuda

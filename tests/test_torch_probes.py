@@ -25,6 +25,7 @@ from lightkrylov_tpu_torch.ops import _build
 from lightkrylov_tpu_torch.ops import probes as P
 from lightkrylov_tpu_torch.probes import (copy_shape, deep_buffer, manual_out, roofline,
                                           stencil_sweep, timing)
+from lightkrylov_tpu_torch.utils import timer
 
 torch.set_num_threads(2)
 
@@ -300,11 +301,16 @@ def test_wrappers_refuse(call, exc):
         call()
 
 
+def _launches(name):
+    """The kernel launches counted so far under ``launches.<name>``."""
+    return timer.get_counter(f"launches.{name}")
+
+
 def test_cpu_calls_count_no_launch():
     x = torch.from_numpy(seeded((16, 256)))
-    before = (P.copy_tiles.LAUNCHES, P.copy_ring.LAUNCHES, P.reduce_8x128.LAUNCHES)
+    before = (_launches("copy_tiles"), _launches("copy_ring"), _launches("reduce_8x128"))
     P.copy_tiles(x, (8, 256)), P.copy_ring(x, 2, 1024), P.reduce_8x128(x)
-    assert (P.copy_tiles.LAUNCHES, P.copy_ring.LAUNCHES, P.reduce_8x128.LAUNCHES) == before
+    assert (_launches("copy_tiles"), _launches("copy_ring"), _launches("reduce_8x128")) == before
 
 
 def test_tiles_geometry_gives_full_units_for_every_tpu_case():
@@ -485,10 +491,10 @@ def test_probe_modules_leave_jax_unloaded():
 
 
 def counted(wrapper, *args):
-    before = wrapper.LAUNCHES
+    before = _launches(wrapper.__name__)
     out = wrapper(*args)
     torch.cuda.synchronize()
-    assert wrapper.LAUNCHES == before + 1
+    assert _launches(wrapper.__name__) == before + 1
     return out
 
 
@@ -536,7 +542,7 @@ def test_cuda_ring_geometry_is_the_cards(cuda):
     x = torch.zeros((8192, 8192), device=cuda)
     y = torch.empty_like(x)
     fit = P.ring_ctas_per_sm(cuda, 2, 12288)
-    err = _build.load().lk_copy_ring_f32(
+    err = P.ENTRIES.on(_build.load())["lk_copy_ring_f32"](
         x.data_ptr(), y.data_ptr(), x.numel() * 4, 12288, 2,
         (fit + 1) * props.multi_processor_count, torch.cuda.current_stream().cuda_stream)
     assert err != 0
