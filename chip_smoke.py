@@ -231,16 +231,24 @@ Phases, in order; any failure ends the script with a non-zero exit code:
     f64 solve to rtol 1e-4 through them, its launches and
     cg.fused_iterations counted, beside the same solve by separate vector
     operations;
-36. a DCGS2 step's k-sized work as one kernel (csrc/gmres.cu): every step
-    and the flush of a GMRES(30) cycle on CudaPoisson2D(3162) in f32 and
-    f64, dcgs2_step and dcgs2_flush bound to a copy of the plain state
-    against the plain versions (1e-6 / 1e-13 of each output's norm) and
-    bit-equal when repeated; the kernel's device time and the wrapper's host
-    us a call; the launches of one 3162^2 f32 cycle on each route by
-    torch.profiler (a fresh process each); and GMRES(30) cycles through the
-    kernel against the separate operations (iterate and residual history
-    within 1e-3, the same host reads, 30 fused steps and one flush a cycle),
-    with their times in turns.
+36. a DCGS2 step as three kernels (csrc/gmres.cu): every step and the
+    flush of a GMRES(30) cycle on CudaPoisson2D(3162) in f32 and f64,
+    dcgs2_step and dcgs2_flush bound to a copy of the plain state against
+    the plain versions (1e-6 / 1e-13 of each output's norm) and bit-equal
+    when repeated; the kernel's device time and the wrapper's host us a
+    call; the measurement and rank-2 update kernels at step 29 on 3162^2
+    fields, f32 and f64, against their plain versions run in float64 on the
+    same inputs (each dot against the product of its vectors' norms, the
+    written columns against their norms; 1e-6 / 1e-13; the float32 plain
+    measurement's own gap printed beside) and bit-equal when repeated, timed cold (two bases beyond
+    L2 rotated, CUDA events behind a spinning kernel) beside their byte
+    bound (k+2 and k+4 passes over 3.35 TB/s), their plain versions and the
+    two library products the port called before them, and in f32 at every
+    step of the cycle; the launches of one 3162^2 f32 cycle on each route
+    by torch.profiler (a fresh process each); and GMRES(30) cycles through
+    the kernels against the separate operations (iterate and residual
+    history within 1e-3, the same host reads, 30 fused steps, 30 launches
+    of each pass and one flush a cycle), with their times in turns.
 
 The kernel JSON line comes second to last, the GPU line before the last, and
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -363,7 +371,9 @@ KERNEL_FUNCTIONS = {"stencil": ("stencil_kernel", "stencil_batched_kernel"),
                     "francis_filter_sweeps": ("filter_kernel",),
                     "ritz_check": ("ritz_kernel",), "ordschur": ("ordschur_kernel",),
                     "cg": ("cg_pdot_kernel", "cg_xr_kernel", "cg_p_kernel"),
-                    "dcgs2_step": ("dcgs2_kernel",)}
+                    "dcgs2_step": ("dcgs2_kernel",),
+                    "dcgs2_measure": ("dcgs2_measure_kernel",),
+                    "dcgs2_update": ("dcgs2_update_kernel",)}
 # the kernels timed beside their bound at sizes where H leaves shared memory
 # and a thread owns two rows
 LARGE_KDIMS = (240, 257, 300)
@@ -3830,15 +3840,163 @@ def dcgs2_parity(dev, dtype, tag, n=GMRES_N, kdim=GMRES_KDIM):
     return gaps, dict(ms, host_us=host_us)
 
 
+def basis_fields(rows, n, dtype, dev, seed):
+    """``rows`` seeded unit fields of ``n`` elements, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = torch.randn(rows, n, generator=g, dtype=dtype, device=dev)
+    return V / torch.linalg.vector_norm(V, dim=1, keepdim=True)
+
+
+def bound_basis(V):
+    """A FusedDCGS2 of zeros bound to the basis ``V``."""
+    kdim, dt, dev = V.shape[0] - 1, V.dtype, V.device
+    z = [torch.zeros(shape, dtype=dt, device=dev) for shape in ((kdim, kdim), kdim, kdim)]
+    return fused_gmres.FusedDCGS2(*z, torch.zeros(kdim + 1, dtype=dt, device=dev),
+                                  torch.zeros(kdim, dtype=dt, device=dev),
+                                  torch.ones((), dtype=dt, device=dev),
+                                  torch.zeros((), dtype=dt, device=dev), lt.constants.eps(dt), V=V)
+
+
+def measurement_gap(m, PR, wTw, V, k, w):
+    """The largest gap of the measurement buffer ``m`` from ``(PR, wTw)``:
+    each dot over the product of its two vectors' norms."""
+    norms = torch.linalg.vector_norm(V[: k + 1].double(), dim=1)
+    w_norm = torch.linalg.vector_norm(w.double())
+    scale = norms[:, None] * torch.stack([norms[k], w_norm])[None, :]
+    return max(float(((m[:-1].view(k + 1, 2).double() - PR.double()).abs() / scale).max()),
+               abs(float(m[-1]) - float(wTw)) / float(w_norm) ** 2)
+
+
+def basis_passes_parity(V, k, w, C, inv_gamma):
+    """dcgs2_measure and dcgs2_update at step k on two copies of V against
+    their plain versions in float64 on the same inputs, which sum more
+    exactly than the float32 plain versions' cuBLAS products (those miss
+    float64 by up to 1.7e-6 in the measurement at 3162^2): the
+    measurement's largest gap (each dot over the product of its vectors'
+    norms), the written columns' (over their norms), the float32 plain
+    measurement's gap from float64 beside them, and whether the copies agree
+    bit for bit and the other columns stay as they were.  V is left as it
+    was."""
+    copies = [V.clone(), V.clone()]
+    states = [bound_basis(c) for c in copies]
+    ms = [fused_gmres.dcgs2_measure(st, k, w).clone() for st in states]
+    V64, w64 = V.to(torch.float64, copy=True), w.to(torch.float64, copy=True)
+    PR, wTw = fused_gmres.dcgs2_measure_reference(V64, k, w64)
+    gap_m = measurement_gap(ms[0], PR, wTw, V, k, w)
+    plain = fused_gmres.dcgs2_measure_reference(V, k, w)
+    gap_plain = measurement_gap(torch.cat([plain[0].reshape(-1), plain[1].reshape(1)]), PR, wTw,
+                                V, k, w)
+    for st in states:
+        st.coeff[: k + 1] = C
+        st.inv_gamma.copy_(inv_gamma)
+        fused_gmres.dcgs2_update(st, k, w)
+    fused_gmres.dcgs2_update_reference(V64, k, w64, C.double(), inv_gamma.double())
+    torch.cuda.synchronize()
+    got = copies[0]
+    gap_u = max(rel_err(got[k].double(), V64[k]), rel_err(got[k + 1].double(), V64[k + 1]))
+    same = (torch.equal(ms[0], ms[1]) and torch.equal(copies[0], copies[1])
+            and torch.equal(got[:k], V[:k]) and torch.equal(got[k + 2:], V[k + 2:]))
+    return gap_m, gap_u, gap_plain, same
+
+
+def dcgs2_basis_kernels(dev, tag, n=GMRES_N, kdim=GMRES_KDIM):
+    """Phase 36's two passes over the basis: dcgs2_measure and dcgs2_update
+    at the cycle's last step on n^2 fields against their plain versions,
+    then timed cold beside their byte bound, their plain versions and the
+    library products the port called before them; in f32 the kernels at
+    every step of the cycle."""
+    k = kdim - 1
+    N = n * n
+    out = {"parity": {}, "times": {}, "steps": {}}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        sets = [basis_fields(kdim + 2, N, dtype, dev, seed=50 + i) for i in range(2)]
+        Vs, ws = [f[: kdim + 1] for f in sets], [f[kdim + 1] for f in sets]
+        C = seeded((k + 1, 2), dtype, dev, seed=51)
+        inv_gamma = torch.tensor(0.75, dtype=dtype, device=dev)
+        gap_m, gap_u, gap_plain, same = basis_passes_parity(Vs[0], k, ws[0], C, inv_gamma)
+        out["parity"][name] = dict(measure=gap_m, update=gap_u, plain_measure=gap_plain,
+                                   bit_equal=same)
+        print(f"{tag} dcgs2_measure / dcgs2_update {n}^2 {name} at step {k} against the plain "
+              f"versions in float64: rel gaps {gap_m:.3e} / {gap_u:.3e} (the {name} plain "
+              f"measurement's {gap_plain:.3e}); repeats bit-equal and other columns untouched: "
+              f"{same}")
+        check(gap_m <= REL_TOL[dtype] and gap_u <= REL_TOL[dtype],
+              f"dcgs2 basis kernels {name}: rel gaps {gap_m:.3e} / {gap_u:.3e}")
+        check(same, f"dcgs2 basis kernels {name}: repeats differ or a column moved")
+        # timed: C[:, 0] = e_k keeps V[k] as it is over repeated updates, with the same bytes
+        C_t = C.clone()
+        C_t[:, 0] = 0
+        C_t[k, 0] = 1
+        states = [bound_basis(V) for V in Vs]
+        for st in states:
+            st.coeff[: k + 1] = C_t
+            st.inv_gamma.copy_(inv_gamma)
+        Y2s = [torch.stack([V[k], w]) for V, w in zip(Vs, ws)]
+        turn = itertools.count()
+        calls = {
+            "dcgs2_measure": {
+                "kernel_ms": lambda i: fused_gmres.dcgs2_measure(states[i], k, ws[i]),
+                "plain_ms": lambda i: fused_gmres.dcgs2_measure_reference(Vs[i], k, ws[i]),
+                "library_ms": lambda i: Y2s[i] @ Vs[i][: k + 1].mH},
+            "dcgs2_update": {
+                "kernel_ms": lambda i: fused_gmres.dcgs2_update(states[i], k, ws[i]),
+                "plain_ms": lambda i: fused_gmres.dcgs2_update_reference(Vs[i], k, ws[i], C_t,
+                                                                         inv_gamma),
+                "library_ms": lambda i: C_t.T @ Vs[i][: k + 1]}}
+        passes = {"dcgs2_measure": k + 2, "dcgs2_update": k + 4}
+        for kernel, fns in calls.items():
+            ms = alternating_ms({key: (lambda f=f: f(next(turn) % 2)) for key, f in fns.items()},
+                                per_run=4, spacer=True)
+            row = {**ms, "bound_ms": passes[kernel] * N * dtype.itemsize / HBM_BYTES_PER_S * 1e3}
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["kernel_ms"]
+            out["times"][f"{kernel}_{name}"] = row
+            print(f"{tag} {kernel} {n}^2 {name} at step {k} cold: kernel "
+                  f"{row['kernel_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us "
+                  f"({row['roofline_pct']:.1f}%), plain {row['plain_ms'] * 1e3:.1f} us, library "
+                  f"{row['library_ms'] * 1e3:.1f} us")
+        if dtype == torch.float32:
+            # every step of a cycle: the kernels' sum against the cycle's byte bound
+            steps = []
+
+            def rotated(fn):
+                i = next(turn) % 2
+                return fn(states[i], j, ws[i])
+
+            for j in range(kdim):
+                for st in states:
+                    st.coeff.zero_()
+                    st.coeff[j, 0] = 1
+                ms = alternating_ms(
+                    {"measure_ms": lambda: rotated(fused_gmres.dcgs2_measure),
+                     "update_ms": lambda: rotated(fused_gmres.dcgs2_update)},
+                    runs=5, per_run=4, spacer=True)
+                steps.append(ms)
+            total = {key: sum(r[key] for r in steps) for key in ("measure_ms", "update_ms")}
+            bound = {"measure_ms": sum(j + 2 for j in range(kdim)) * N * 4 / HBM_BYTES_PER_S * 1e3,
+                     "update_ms": sum(j + 4 for j in range(kdim)) * N * 4 / HBM_BYTES_PER_S * 1e3}
+            out["steps"] = dict(by_step=steps, total_ms=total, bound_ms=bound)
+            print(f"{tag} a GMRES({kdim}) cycle's passes over the basis {n}^2 f32, every step: "
+                  f"measure {total['measure_ms']:.2f} ms (bound {bound['measure_ms']:.2f}), "
+                  f"update {total['update_ms']:.2f} ms (bound {bound['update_ms']:.2f}); by step "
+                  "(measure / update us): "
+                  + ", ".join(f"{j}: {r['measure_ms'] * 1e3:.0f} / {r['update_ms'] * 1e3:.0f}"
+                              for j, r in enumerate(steps)))
+        del sets, Vs, ws, states, Y2s
+    return out
+
+
 def gmres_kernels(dev, tag):
     """Phase 36: the DCGS2 step's kernel against its plain version at every
-    step of a 3162^2 cycle, timed; the launches of a cycle on each route;
-    GMRES(30) cycles through it beside the separate operations."""
+    step of a 3162^2 cycle, timed; the two passes over the basis against
+    theirs, timed; the launches of a cycle on each route; GMRES(30) cycles
+    through the kernels beside the separate operations."""
     solver = importlib.import_module("lightkrylov_tpu_torch.solvers.gmres")
     out = {"parity": {}, "times": {}, "launches": {}, "cycles": {}}
     for dtype in (torch.float32, torch.float64):
         gaps, times = dcgs2_parity(dev, dtype, tag)
         out["parity"][str(dtype)[6:]], out["times"][str(dtype)[6:]] = gaps, times
+    out["basis"] = dcgs2_basis_kernels(dev, tag)
     for route in ("kernel", "separate"):
         code = GMRES_LAUNCH_PROBE.format(route=route, n=GMRES_N, kdim=GMRES_KDIM)
         proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -3853,10 +4011,12 @@ def gmres_kernels(dev, tag):
               f"{row['memcpy_calls']} cudaMemcpyAsync, {sum(row['device'].values())} device "
               f"activities; most: " + "; ".join(f"{name[:50]} x{c}" for name, c in top))
     kernel_row = out["launches"]["kernel"]
-    check(sum(c for name, c in kernel_row["device"].items() if "dcgs2_kernel" in name)
-          == GMRES_KDIM + 1, f"the fused cycle's dcgs2 launches: {kernel_row['device']}")
-    check(not any("dcgs2_kernel" in name for name in out["launches"]["separate"]["device"]),
-          "the separate operations launched the dcgs2 kernel")
+    for fn, count in (("dcgs2_kernel", GMRES_KDIM + 1), ("dcgs2_measure_kernel", GMRES_KDIM),
+                      ("dcgs2_update_kernel", GMRES_KDIM)):
+        check(sum(c for name, c in kernel_row["device"].items() if fn in name) == count,
+              f"the fused cycle's {fn} launches: {kernel_row['device']}")
+        check(not any(fn in name for name in out["launches"]["separate"]["device"]),
+              f"the separate operations launched {fn}")
     op = lt.CudaPoisson2D(GMRES_N, dtype=torch.float32, device=dev)
     b = seeded((GMRES_N, GMRES_N), torch.float32, dev, seed=22)
     opts = lt.GMRESOptions(kdim=GMRES_KDIM, maxiter=2)
@@ -3867,13 +4027,13 @@ def gmres_kernels(dev, tag):
             solver._fits_fused = lambda *args: False
         try:
             lt.timer.reset_counters()
-            before = (launch_count("dcgs2_step"), launch_count("dcgs2_flush"))
             x, info, meta = lt.gmres(op, b, rtol=0.0, atol=0.0, options=opts)
             runs[route] = dict(x=x, residuals=meta.residuals, n_inner=meta.n_inner,
                                host_reads=lt.timer.get_counter("host_reads"),
                                fused_steps=lt.timer.get_counter("gmres.fused_steps"),
-                               launches=[launch_count("dcgs2_step") - before[0],
-                                         launch_count("dcgs2_flush") - before[1]])
+                               launches=[launch_count(name) for name in
+                                         ("dcgs2_step", "dcgs2_flush", "dcgs2_measure",
+                                          "dcgs2_update")])
         finally:
             solver._fits_fused = fits
     k, s = runs["kernel"], runs["separate"]
@@ -3883,13 +4043,14 @@ def gmres_kernels(dev, tag):
     print(f"{tag} two GMRES({GMRES_KDIM}) cycles {GMRES_N}^2 f32 through the kernel against the "
           f"separate operations: x rel gap {x_gap:.3e}, residual history rel gap "
           f"{hist_gap:.3e}; host reads {k['host_reads']} / {s['host_reads']}; fused steps "
-          f"{k['fused_steps']} / {s['fused_steps']}; dcgs2 launches (step, flush) "
-          f"{k['launches']} / {s['launches']}")
+          f"{k['fused_steps']} / {s['fused_steps']}; dcgs2 launches (step, flush, measure, "
+          f"update) {k['launches']} / {s['launches']}")
     check(x_gap <= 1e-3 and hist_gap <= 1e-3, f"fused cycles: x gap {x_gap}, history {hist_gap}")
     check(k["host_reads"] == s["host_reads"] and k["n_inner"] == s["n_inner"],
           f"host reads {k['host_reads']} / {s['host_reads']}")
-    check(k["fused_steps"] == 2 * GMRES_KDIM and k["launches"] == [2 * GMRES_KDIM, 2]
-          and s["fused_steps"] == 0 and s["launches"] == [0, 0],
+    steps = 2 * GMRES_KDIM
+    check(k["fused_steps"] == steps and k["launches"] == [steps, 2, steps, steps]
+          and s["fused_steps"] == 0 and s["launches"] == [0, 0, 0, 0],
           f"fused steps and launches: {k['fused_steps']} {k['launches']}; "
           f"{s['fused_steps']} {s['launches']}")
     for route in runs:
@@ -4153,8 +4314,8 @@ def main():
     # and a solve through them
     results["cg_kernels"] = cg_kernels(dev, tag)
 
-    # 36. a DCGS2 step's k-sized work as one kernel: against its plain
-    # version, timed, launches counted, and GMRES(30) cycles through it
+    # 36. a DCGS2 step as three kernels: each against its plain version,
+    # timed, launches counted, and GMRES(30) cycles through them
     results["gmres_kernels"] = gmres_kernels(dev, tag)
 
     stencil_main = results["times"][f"stencil_{N_MAIN}"]
@@ -4406,6 +4567,29 @@ def main():
         "cycle_launches": gk["launches"],
         "cycles": gk["cycles"],
     })
+    gb = gk["basis"]
+    for i, (kernel, what) in enumerate((("dcgs2_measure", "the measurement Q^H [u_k, w], w.w"),
+                                        ("dcgs2_update", "the rank-2 update of the basis"))):
+        kernels["kernels"].append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "lightkrylov_tpu_torch/csrc/gmres.cu",
+            "replaces": None,
+            "why": f"DCGS2's {what}, one pass over the basis, which the JAX package leaves to "
+                   "XLA (vectors.py innerprod_vpu / linear_combination_vpu)",
+            "launches": gk["cycles"]["kernel"]["launches"][2 + i],
+            "path_launches": {f"gmres30_{GMRES_N}_f32_cycle":
+                              gk["cycles"]["kernel"]["launches"][2 + i]},
+            "rel_err": {d: r[kernel[6:]] for d, r in gb["parity"].items()},
+            "main_case": f"step {GMRES_KDIM - 1} of kdim {GMRES_KDIM} float32",
+            "ms": gb["times"][f"{kernel}_float32"]["kernel_ms"],
+            "plain_ms": gb["times"][f"{kernel}_float32"]["plain_ms"],
+            "bound_ms": gb["times"][f"{kernel}_float32"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": gb["times"][f"{kernel}_float32"]["library_ms"],
+            "by_case": {c: r for c, r in gb["times"].items() if c.startswith(kernel)},
+            "cycle_ms": gb["steps"]["total_ms"][f"{kernel[6:]}_ms"],
+        })
     for entry in kernels["kernels"]:
         entry["ptxas"] = results["ptxas"][entry["name"]]
     print(json.dumps(kernels))

@@ -21,9 +21,10 @@ This module knows no kernel's signature.  A kernel is its ``csrc/<x>.cu``
 and its ``ops/<x>.py``: the module declares the C entries it calls, with
 their parameters, in an :class:`Entries`, names an entry's dtype with
 :func:`dtype_tag`, and launches through :func:`launch`, which raises on a
-CUDA error by :func:`check`, the one reader of ``lk_error_string``.  Each
-wrapper counts its launches itself, under ``launches.<wrapper>``
-(:func:`..utils.timer.count_event`).
+CUDA error by :func:`check`, the one reader of ``lk_error_string``; a
+persistent grid's size comes from :func:`resident_blocks`, given the
+module's occupancy entry.  Each wrapper counts its launches itself, under
+``launches.<wrapper>`` (:func:`..utils.timer.count_event`).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelCompileError", "find_nvcc", "build", "load", "load_lagging", "BUILD_DIR",
-           "SOURCES", "DTYPE_TAGS", "ARG_TYPES", "Entries", "dtype_tag", "check", "launch"]
+           "SOURCES", "DTYPE_TAGS", "ARG_TYPES", "Entries", "dtype_tag", "check", "launch",
+           "resident_blocks"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f"{name}.cu"
@@ -59,6 +61,7 @@ VARIANTS = {"": (), "lag": ("-DLK_LAG_WARP=1",)}
 
 _lib = None
 _lag_lib = None
+_resident_cache: dict = {}
 
 
 class KernelCompileError(RuntimeError):
@@ -218,6 +221,20 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err} "
                            f"({lib.lk_error_string(err).decode()})")
+
+
+def resident_blocks(lib: ctypes.CDLL, fn, count: int, device) -> tuple:
+    """The most blocks that a persistent grid of each of ``count`` kernels
+    holds on ``device``: the entry ``fn`` fills their resident blocks an SM
+    (the occupancy calculator's), each is taken at least once and times the
+    SM count.  Cached per entry and device."""
+    key = (fn.__name__, device.index)
+    if key not in _resident_cache:
+        per_sm = (ctypes.c_int * count)()
+        check(lib, fn(per_sm), f"{fn.__name__} occupancy query")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident_cache[key] = tuple(max(1, b) * sms for b in per_sm)
+    return _resident_cache[key]
 
 
 def launch(lib: ctypes.CDLL, fn, what: str, index: int | None, *args) -> None:

@@ -28,8 +28,6 @@ PyTorch's own reductions.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..utils.timer import count_event
@@ -42,7 +40,6 @@ __all__ = ["RZ", "PAP", "RR", "RES", "TOL", "BETA", "FLAG", "scalars", "FusedCG"
 #: slots of the scalar block (``csrc/cg.cu`` has the same numbers)
 RZ, PAP, RR, RES, TOL, BETA, FLAG = range(7)
 _SLOTS = 8
-_max_blocks_cache: dict = {}
 
 #: The C entries of ``csrc/cg.cu`` (:class:`._build.Entries`)
 ENTRIES = _build.Entries({
@@ -105,19 +102,6 @@ def _check(name, vectors, s, hist=None) -> str:
     return tag
 
 
-def _max_blocks(lib, device, tag):
-    """``(cg_pdot, cg_xr, cg_p)``: each kernel's resident blocks on the card,
-    the most a launch uses (occupancy an SM times the SM count)."""
-    key = (device.index, tag)
-    if key not in _max_blocks_cache:
-        per_sm = (ctypes.c_int * 3)()
-        err = ENTRIES.on(lib)[f"lk_cg_blocks_per_sm_{tag}"](per_sm)
-        _build.check(lib, err, "cg occupancy query")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _max_blocks_cache[key] = tuple(max(1, b) * sms for b in per_sm)
-    return _max_blocks_cache[key]
-
-
 class FusedCG:
     """The three kernels bound to the buffers ``x``, ``r``, ``p``, ``s`` and
     ``hist`` of one solve.  On a card, the C entries, the current stream, the
@@ -137,7 +121,9 @@ class FusedCG:
         self.lib = lib = _build.load()
         entries = ENTRIES.on(lib)
         self.entries = tuple(entries[f"lk_cg_{kind}_{tag}"] for kind in ("pdot", "xr", "p"))
-        self.blocks = _max_blocks(lib, x.device, tag)
+        # cg_pdot, cg_xr, cg_p: each kernel's resident blocks, the most a launch uses
+        self.blocks = _build.resident_blocks(lib, entries[f"lk_cg_blocks_per_sm_{tag}"], 3,
+                                             x.device)
         partials = torch.empty(max(self.blocks[:2]), dtype=x.dtype, device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
         self._workspace = partials, ticket  # held for the pointers below

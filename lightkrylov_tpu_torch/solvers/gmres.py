@@ -30,9 +30,13 @@ work, everything between the measurement and the rank-2 update and the
 Givens update of the finished column, is one launch of
 :func:`..ops.gmres.dcgs2_step` inside ``gmres.orth`` (no ``gmres.lsq`` span
 a step), counted as ``"gmres.fused_steps"``, and the flag the loop reads is
-the kernel's.  Complex vectors, CGS2, FGMRES and the CPU run the same
-arithmetic as separate tensor operations, the plain versions of
-:mod:`..ops.gmres`.
+the kernel's.  Where the vectors are besides one tensor (a pytree of one
+leaf), so that the basis is one contiguous tensor, the measurement and the
+rank-2 update are a launch each of :func:`..ops.gmres.dcgs2_measure` and
+:func:`..ops.gmres.dcgs2_update`, which read the basis once each; those
+steps are counted as ``"gmres.fused_basis_steps"`` too.  Complex vectors,
+CGS2, FGMRES and the CPU run the same arithmetic as separate tensor
+operations, the plain versions of :mod:`..ops.gmres`.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
     dev = pytree.tree_leaves(b)[0].device
     eps_r = constants.eps(rdt)
     fused_route = orth == "dcgs2" and _fits_fused(dt, dev, kdim)
+    basis_route = fused_route and len(pytree.tree_leaves(b)) == 1
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -77,15 +82,6 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
                            target_residual=tol)
         return M.matvec(vk)
 
-    def dcgs2_measure(V, u_k, w, k):
-        """The one reduction of iteration k: ``Q^H [u_k, w]`` over the
-        filled columns (k+1, 2), and ``||w||^2``, summed over the reduction
-        group by one all-reduce.  Row k gives (sigma, tau) because slot k
-        holds u_k itself."""
-        Y2 = pytree.tree_map(lambda a, b_: torch.stack([a, b_]), u_k, w)
-        return vectors.allreduce_sum(
-            vectors.innerprod_local(vectors.lead(V, k + 1), Y2), vectors.dot_local(w, w))
-
     def dcgs2_cycle(V, R, c, s, e, res, hist, nin):
         """Inner sweep with delayed re-orthogonalization (the JAX
         ``dcgs2_body``/``dcgs2_flush``).  Slot k of ``V`` holds the
@@ -98,12 +94,18 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
         On the fused route everything k-sized of an iteration, the Givens
         update of column k-1 included, is one launch of
         :func:`..ops.gmres.dcgs2_step` inside ``gmres.orth``, and the loop
-        reads the kernel's flag; otherwise the plain versions run as
-        separate tensor operations, the Givens update after the rank-2
-        update in a ``gmres.lsq`` span.  Returns ``(c, s, res, nin, k,
+        reads the kernel's flag; on one tensor the measurement, whose one
+        buffer the all-reduce sums in place, and the rank-2 update are a
+        launch each besides.  Otherwise the plain versions run as separate
+        tensor operations, the Givens update after the rank-2 update in a
+        ``gmres.lsq`` span.  Row k of the measurement gives (sigma, tau)
+        because slot k holds u_k itself.  Returns ``(c, s, res, nin, k,
         matvecs)``."""
-        state = fused.FusedDCGS2 if fused_route else fused.DCGS2State
-        st = state(R, c, s, e, hist, res, tol, eps_r)
+        if basis_route:
+            st = fused.FusedDCGS2(R, c, s, e, hist, res, tol, eps_r, V=pytree.tree_leaves(V)[0])
+        else:
+            state = fused.FusedDCGS2 if fused_route else fused.DCGS2State
+            st = state(R, c, s, e, hist, res, tol, eps_r)
         k = 0
         with st:
             while k < kdim and bool(host_read(st.flag)):
@@ -111,17 +113,18 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
                 with timed("gmres.matvec", "IterativeSolvers", device=True):
                     w = matvec(precond(u_k, k, st.res))
                 with timed("gmres.orth", "IterativeSolvers", device=True):
-                    PR, wTw = dcgs2_measure(V, u_k, w, k)
-                    if fused_route:
-                        C, inv_gamma = fused.dcgs2_step(st, PR, wTw, k, nin)
+                    if basis_route:
+                        w = pytree.tree_leaves(w)[0]
+                        m = vectors.allreduce_sum(fused.dcgs2_measure(st, k, w))[0]
+                        fused.dcgs2_step(st, m[:-1].view(k + 1, 2), m[-1], k, nin)
+                        fused.dcgs2_update(st, k, w)
                     else:
-                        C, inv_gamma = fused.dcgs2_coefficients_reference(st, PR, wTw, k)
-                    # D is a new tensor, computed in full before V[k] (which u_k
-                    # views) is overwritten
-                    D = vectors.linear_combination_vpu(vectors.lead(V, k + 1), C)
-                    u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
-                    vectors.set_column(V, k, vectors.get_column(D, 0))
-                    vectors.set_column(V, k + 1, u_next)
+                        PR, wTw = vectors.allreduce_sum(*fused.dcgs2_measure_reference(V, k, w))
+                        if fused_route:
+                            C, inv_gamma = fused.dcgs2_step(st, PR, wTw, k, nin)
+                        else:
+                            C, inv_gamma = fused.dcgs2_coefficients_reference(st, PR, wTw, k)
+                        fused.dcgs2_update_reference(V, k, w, C, inv_gamma)
                 if k > 0:  # column k-1 into the least squares (reads no basis data)
                     if not fused_route:
                         with timed("gmres.lsq", "IterativeSolvers", device=True):
@@ -213,6 +216,8 @@ def _gmres_impl(A, b, x0, M, tol, kdim, maxiter, transpose, flexible,
                 fused_steps += mv_inner
     if fused_steps:
         count_event("gmres.fused_steps", fused_steps)
+        if basis_route:
+            count_event("gmres.fused_basis_steps", fused_steps)
     return x, res, hist[:nin], nin, n_iter, outer, nmv
 
 
@@ -220,7 +225,8 @@ def _fits_fused(dt, dev, kdim) -> bool:
     """Whether DCGS2's k-sized work takes the kernel of :mod:`..ops.gmres`:
     real float32 or float64 vectors on a card and ``kdim`` within the
     kernel's.  It runs after the measurement's all-reduce, on inputs equal
-    on every rank, so the reduction group does not matter."""
+    on every rank, so the reduction group does not matter; nor does it for
+    the two passes over the basis, which work on this rank's rows."""
     return (dt in (torch.float32, torch.float64) and dev.type == "cuda"
             and kdim <= fused.MAX_KDIM)
 

@@ -1,15 +1,18 @@
-"""A DCGS2 step's k-sized work as one kernel (lightkrylov_tpu_torch.ops.gmres,
-csrc/gmres.cu).
+"""A DCGS2 step as three kernels (lightkrylov_tpu_torch.ops.gmres,
+csrc/gmres.cu): its k-sized work, and its two passes over the basis, the
+measurement and the rank-2 update.
 
 On the CPU: the plain versions against the step as the solver wrote it
-before the kernel (frozen below as ``_Eager``), bit for bit at every step
-and in the flush; the breakdown; the wrappers' guards; and the solver's
-choice of route (only real float32/float64 DCGS2 on a card takes the
-kernel; forced onto the CPU the route runs the plain versions and gives the
-bits of the separate operations).  The tests marked ``cuda`` hold the
-kernel to its plain version on the card, repeat it bit for bit, and run a
-GMRES(30) cycle through it beside the separate operations; no JAX is
-imported, so on a machine with a GPU and no JAX they run with
+before the kernels (frozen below as ``_Eager`` and ``_eager_measure`` /
+``_eager_update``), bit for bit at every step and in the flush; the
+breakdown; the wrappers' guards and the measurement's tiles; and the
+solver's choice of route (only real float32/float64 DCGS2 on a card takes
+the step's kernel, and the two passes only on a basis of one tensor; forced
+onto the CPU the route runs the plain versions and gives the bits of the
+separate operations).  The tests marked ``cuda`` hold each kernel to its
+plain version on the card, repeat it bit for bit, and run GMRES(30) cycles
+through them beside the separate operations; no JAX is imported, so on a
+machine with a GPU and no JAX they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_gmres_fused.py``.
 """
 
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 import lightkrylov_tpu_torch as lt
-from lightkrylov_tpu_torch import constants
+from lightkrylov_tpu_torch import constants, vectors
 from lightkrylov_tpu_torch.ops import gmres as fused
 from lightkrylov_tpu_torch.utils import linalg, timer
 
@@ -128,6 +131,21 @@ class _Eager:
         h_col[k] = eta * self.fac_prev
         self._givens_col(h_col, k - 1)
         self.hist[nin] = self.res
+
+
+def _eager_measure(V, u_k, w, k):
+    """The measurement as ``solvers/gmres.py`` wrote it before the kernels,
+    kept here unchanged (without its all-reduce)."""
+    Y2 = torch.stack([u_k, w])
+    return vectors.innerprod_local(vectors.lead(V, k + 1), Y2), vectors.dot_local(w, w)
+
+
+def _eager_update(V, k, w, C, inv_gamma):
+    """The rank-2 update as ``solvers/gmres.py`` wrote it before the kernels."""
+    D = vectors.linear_combination_vpu(vectors.lead(V, k + 1), C)
+    u_next = vectors.axpby(inv_gamma, w, -1.0, vectors.get_column(D, 1))
+    vectors.set_column(V, k, vectors.get_column(D, 0))
+    vectors.set_column(V, k + 1, u_next)
 
 
 class _Plain:
@@ -288,13 +306,13 @@ def test_breakdown_writes_a_zero_column_and_ends_the_recursion(form):
     assert not bool(st.flag) and bool(st.conv)
 
 
-def _bound(dtype=torch.float64, kdim=4, **change):
+def _bound(dtype=torch.float64, kdim=4, V=None, **change):
     t = {"R": torch.zeros(kdim, kdim, dtype=dtype), "c": torch.zeros(kdim, dtype=dtype),
          "s": torch.zeros(kdim, dtype=dtype), "e": torch.zeros(kdim + 1, dtype=dtype),
          "hist": torch.zeros(8, dtype=dtype), "res": torch.tensor(1.0, dtype=dtype),
          "tol": torch.tensor(0.0, dtype=dtype)}
     t.update(change)
-    return fused.FusedDCGS2(*t.values(), constants.eps(dtype))
+    return fused.FusedDCGS2(*t.values(), constants.eps(dtype), V=V)
 
 
 def test_wrappers_check_their_tensors():
@@ -322,8 +340,75 @@ def test_wrappers_check_their_tensors():
         fused.dcgs2_flush(st, torch.zeros(1, dtype=torch.float64), 0, 0)
 
 
+PASS_KDIM = 30
+PASS_STEPS = [0, 1, 6, 11, 29]
+
+
+def _basis(dtype, kdim=PASS_KDIM, shape=(7, 5), device="cpu", seed=0, offset=0):
+    """A basis of ``kdim + 1`` seeded fields of ``shape`` and a field ``w``;
+    with ``offset`` the basis starts that many elements into its storage."""
+    g = np.random.default_rng(seed)
+    flat = torch.from_numpy(g.standard_normal(offset + (kdim + 1) * int(np.prod(shape))))
+    V = flat.to(device=device, dtype=dtype)[offset:].view(kdim + 1, *shape)
+    w = torch.from_numpy(g.standard_normal(shape)).to(device=device, dtype=dtype)
+    return V, w
+
+
+def _coefficients(k, dtype, device="cpu"):
+    """Seeded rank-2 coefficients (k+1, 2) and an ``inv_gamma``."""
+    C = torch.from_numpy(np.random.default_rng(100 + k).standard_normal((k + 1, 2)))
+    return C.to(device=device, dtype=dtype), torch.tensor(0.75, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("k", PASS_STEPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_passes_are_the_eager_sequence_bit_for_bit(dtype, k):
+    """The plain measurement and rank-2 update give the bits of the
+    separate operations the solver ran before the kernels; so do the
+    wrappers on the CPU, the measurement in one buffer."""
+    V, w = _basis(dtype)
+    PR, wTw = fused.dcgs2_measure_reference(V, k, w)
+    want_PR, want_wTw = _eager_measure(V, V[k], w, k)
+    assert torch.equal(PR, want_PR) and torch.equal(wTw, want_wTw)
+    C, inv_gamma = _coefficients(k, dtype)
+    got, want = V.clone(), V.clone()
+    fused.dcgs2_update_reference(got, k, w, C, inv_gamma)
+    _eager_update(want, k, w, C, inv_gamma)
+    assert torch.equal(got, want)
+    st = _bound(dtype, kdim=PASS_KDIM, V=V.clone())
+    m = fused.dcgs2_measure(st, k, w)
+    assert m.shape == (2 * k + 3,)
+    assert torch.equal(m[:-1].view(k + 1, 2), want_PR) and torch.equal(m[-1], want_wTw)
+    st.coeff, st.inv_gamma = C, inv_gamma
+    fused.dcgs2_update(st, k, w)
+    assert torch.equal(st.V, want)
+
+
+def test_basis_wrappers_check_their_tensors():
+    V, w = _basis(torch.float64, kdim=4)
+    with pytest.raises(ValueError, match="without a basis"):
+        fused.dcgs2_measure(_bound(), 0, w)
+    with pytest.raises(ValueError, match="shape"):
+        _bound(V=V[:4])
+    with pytest.raises(ValueError, match="basis is torch.float32"):
+        _bound(V=V.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        _bound(V=V.transpose(1, 2))
+    st = _bound(V=V)
+    with pytest.raises(IndexError, match="step 4"):
+        fused.dcgs2_measure(st, 4, w)
+    with pytest.raises(ValueError, match="operator gave"):
+        fused.dcgs2_measure(st, 0, w.reshape(-1))
+    with pytest.raises(ValueError, match="operator gave"):
+        fused.dcgs2_update(st, 0, w.float())
+    with pytest.raises(RuntimeError, match="no coefficients"):
+        fused.dcgs2_update(st, 0, w)
+
+
 def _gmres(dtype, orth="dcgs2", flexible=False, preconditioner=None, device="cpu", n=24,
-           maxiter=3, kdim=KDIM):
+           maxiter=3, kdim=KDIM, leaves=None):
+    """GMRES on the Poisson operator; with ``leaves`` on a dict of that many
+    fields (the operator applied to each, the second scaled)."""
     op = (lt.CudaPoisson2D(n, dtype=dtype, device=device) if torch.device(device).type == "cuda"
           else lt.Poisson2D(n, dtype=dtype))
     g = np.random.default_rng(5)
@@ -331,6 +416,12 @@ def _gmres(dtype, orth="dcgs2", flexible=False, preconditioner=None, device="cpu
     if dtype.is_complex:
         b = torch.complex(b, torch.from_numpy(g.standard_normal((n, n))))
     b = b.to(device=device, dtype=dtype)
+    if leaves is not None:
+        names = "ab"[:leaves]
+        b = {name: b * (i + 1) for i, name in enumerate(names)}
+        grid = op
+        op = lt.MatvecOperator(lambda x: {name: grid.matvec(x[name]) * (i + 1)
+                                          for i, name in enumerate(names)})
     solver = lt.fgmres if flexible else lt.gmres
     opts = lt.GMRESOptions(kdim=kdim, maxiter=maxiter, orthogonalization=orth)
     return solver(op, b, rtol=0.0, atol=0.0, options=opts, preconditioner=preconditioner)
@@ -344,8 +435,14 @@ class _Halving(lt.Preconditioner):
 ROUTES = {"f32": dict(dtype=torch.float32), "f64": dict(dtype=torch.float64),
           "preconditioned": dict(dtype=torch.float64, preconditioner=_Halving()),
           "complex": dict(dtype=torch.complex128), "cgs2": dict(dtype=torch.float64, orth="cgs2"),
-          "fgmres": dict(dtype=torch.float64, flexible=True)}
-TAKES_KERNEL = {"f32", "f64", "preconditioned"}
+          "fgmres": dict(dtype=torch.float64, flexible=True),
+          "one_leaf": dict(dtype=torch.float32, leaves=1),
+          "two_leaves": dict(dtype=torch.float64, leaves=2)}
+TAKES_KERNEL = {"f32", "f64", "preconditioned", "one_leaf", "two_leaves"}
+#: the routes whose basis is one tensor: the two passes take their kernels too
+TAKES_BASIS = TAKES_KERNEL - {"two_leaves"}
+#: every kernel a DCGS2 GMRES solve may launch
+DCGS2_KERNELS = ("dcgs2_step", "dcgs2_flush", "dcgs2_measure", "dcgs2_update")
 
 
 def _on_a_card(monkeypatch):
@@ -359,9 +456,15 @@ def _steps():
     return timer.get_counter("gmres.fused_steps")
 
 
+def _basis_steps():
+    return timer.get_counter("gmres.fused_basis_steps")
+
+
 def _same(a, b):
     (xa, ia, ma), (xb, ib, mb) = a, b
-    return torch.equal(xa, xb) and ia == ib and np.array_equal(ma.residuals, mb.residuals)
+    xa, xb = (x if isinstance(x, dict) else {"": x} for x in (xa, xb))
+    return (xa.keys() == xb.keys() and all(torch.equal(xa[n], xb[n]) for n in xa) and ia == ib
+            and np.array_equal(ma.residuals, mb.residuals))
 
 
 def _launches(name):
@@ -376,14 +479,15 @@ def test_route_selection(case, monkeypatch):
     plain versions here), count kdim steps a cycle, and give the bits of the
     separate operations; complex vectors, CGS2 and FGMRES stay on them."""
     kw = ROUTES[case]
-    before = _steps()
+    before, basis_before = _steps(), _basis_steps()
     natural = _gmres(**kw)
-    assert _steps() == before
+    assert _steps() == before and _basis_steps() == basis_before
     _on_a_card(monkeypatch)
-    launches = (_launches("dcgs2_step"), _launches("dcgs2_flush"))
+    launches = [_launches(name) for name in DCGS2_KERNELS]
     forced = _gmres(**kw)
     assert _steps() - before == (3 * KDIM if case in TAKES_KERNEL else 0)
-    assert (_launches("dcgs2_step"), _launches("dcgs2_flush")) == launches
+    assert _basis_steps() - basis_before == (3 * KDIM if case in TAKES_BASIS else 0)
+    assert [_launches(name) for name in DCGS2_KERNELS] == launches
     assert _same(natural, forced)
 
 
@@ -407,23 +511,31 @@ def test_forced_route_stops_where_the_separate_operations_stop(monkeypatch):
     assert _steps() == forced[1] + 1
 
 
-def test_timing_changes_neither_fused_steps_nor_reads(monkeypatch):
-    _on_a_card(monkeypatch)
+#: The counters a fused GMRES solve moves: on a card its launches too
+FUSED_COUNTERS = ("gmres.fused_steps", "gmres.fused_basis_steps", "host_reads",
+                  *(f"launches.{name}" for name in DCGS2_KERNELS), "launches.stencil_matvec")
+
+
+def _counts_with_timing(**kw):
+    """The fused route's counters over one solve with timing off, then on."""
     counts = []
     for on in (False, True):
         timer.reset_counters()
         lt.set_timing(on)
         try:
-            _gmres(torch.float32)
+            _gmres(torch.float32, **kw)
         finally:
             lt.set_timing(False)
-        counts.append((_steps(), timer.get_counter("host_reads")))
-    assert counts[0] == counts[1] and counts[0][0] == 3 * KDIM
+        counts.append({name: timer.get_counter(name) for name in FUSED_COUNTERS})
+    return counts
 
 
-#: The counters a fused GMRES solve moves: on a card its launches too
-FUSED_COUNTERS = ("gmres.fused_steps", "host_reads", "launches.dcgs2_step",
-                  "launches.dcgs2_flush", "launches.stencil_matvec")
+def test_timing_changes_neither_fused_steps_nor_reads(monkeypatch):
+    _on_a_card(monkeypatch)
+    off, on = _counts_with_timing()
+    assert off == on and off["gmres.fused_steps"] == off["gmres.fused_basis_steps"] == 3 * KDIM
+    assert off["host_reads"] > 0
+    assert all(off[f"launches.{name}"] == 0 for name in DCGS2_KERNELS)
 
 
 @pytest.mark.parametrize("where", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -440,8 +552,10 @@ def test_reset_counters_clears_the_launch_counts(where, monkeypatch):
     _gmres(torch.float32, device=where)
     moved = {name: timer.get_counter(name) for name in FUSED_COUNTERS}
     on_card = where == "cuda"
-    assert moved["gmres.fused_steps"] == 3 * KDIM and moved["host_reads"] > 0
-    assert moved["launches.dcgs2_step"] == (3 * KDIM if on_card else 0)
+    assert moved["gmres.fused_steps"] == moved["gmres.fused_basis_steps"] == 3 * KDIM
+    assert moved["host_reads"] > 0
+    for name in ("dcgs2_step", "dcgs2_measure", "dcgs2_update"):
+        assert moved[f"launches.{name}"] == (3 * KDIM if on_card else 0), name
     assert moved["launches.dcgs2_flush"] == (3 if on_card else 0)
     assert (moved["launches.stencil_matvec"] >= 3 * KDIM) == on_card
     timer.reset_counters()
@@ -553,15 +667,116 @@ def test_cuda_gmres_cycle_matches_the_separate_operations(cuda, dtype, monkeypat
         if route == "separate":
             monkeypatch.setattr(gmres_module, "_fits_fused", lambda *args: False)
         timer.reset_counters()
-        launches = (_launches("dcgs2_step"), _launches("dcgs2_flush"))
         x, info, meta = _gmres(dtype, device=cuda, n=256, maxiter=2, kdim=KERNEL_KDIM)
         runs[route] = dict(x=x, meta=meta, reads=timer.get_counter("host_reads"), steps=_steps(),
-                           launches=(_launches("dcgs2_step") - launches[0],
-                                     _launches("dcgs2_flush") - launches[1]))
+                           basis_steps=_basis_steps(),
+                           launches=tuple(_launches(name) for name in DCGS2_KERNELS))
     k, s = runs["kernel"], runs["separate"]
-    assert k["steps"] == 2 * KERNEL_KDIM and k["launches"] == (2 * KERNEL_KDIM, 2)
-    assert s["steps"] == 0 and s["launches"] == (0, 0)
-    assert k["reads"] == s["reads"]
+    steps = 2 * KERNEL_KDIM
+    assert k["steps"] == k["basis_steps"] == steps and k["launches"] == (steps, 2, steps, steps)
+    assert s["steps"] == s["basis_steps"] == 0 and s["launches"] == (0, 0, 0, 0)
+    # a cycle's reads: the outer test, a flag a step and the last flag; one fetch at the end
+    assert k["reads"] == s["reads"] == 2 * (KERNEL_KDIM + 2) + 1
     assert _rel(k["x"], s["x"]) <= 1e-3
     hk, hs = k["meta"].residuals, s["meta"].residuals
     assert hk.shape == hs.shape and np.linalg.norm(hk - hs) <= 1e-3 * np.linalg.norm(hs)
+
+
+def _fresh(V):
+    """A :class:`fused.FusedDCGS2` of zeros bound to the basis ``V``."""
+    kdim, dt, dev = V.shape[0] - 1, V.dtype, V.device
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return fused.FusedDCGS2(z(kdim, kdim), z(kdim), z(kdim), z(kdim + 1), z(kdim),
+                            torch.ones((), dtype=dt, device=dev), z(), constants.eps(dt), V=V)
+
+
+def _passes_against_plain(V, k, w, C, inv_gamma):
+    """The two kernels at step ``k`` on two copies of ``V`` against the plain
+    versions run in float64 on the same inputs: the float32 plain
+    measurement's cuBLAS product is itself up to 1.7e-6 from float64 at
+    3162^2 (the kernel's sums, ~1e-7), so float64 is the yardstick both are
+    held to.  Then the plain versions update ``V`` as a cycle does.
+    Returns the largest gap of the measurement (each dot against the
+    product of its two vectors' norms), the largest of the two columns the
+    update writes (against their norms), and whether the copies agree bit
+    for bit, the update writing in place and leaving every other column
+    alone."""
+    copies = [V.clone(), V.clone()]
+    states = [_fresh(c) for c in copies]
+    ms = [fused.dcgs2_measure(st, k, w).clone() for st in states]
+    V64, w64 = V.to(torch.float64, copy=True), w.to(torch.float64, copy=True)
+    PR, wTw = fused.dcgs2_measure_reference(V64, k, w64)
+    norms = torch.linalg.vector_norm(V64[: k + 1].reshape(k + 1, -1), dim=1)
+    w_norm = torch.linalg.vector_norm(w64)
+    scale = norms[:, None] * torch.stack([norms[k], w_norm])[None, :]
+    gap_m = max(float(((ms[0][:-1].view(k + 1, 2).double() - PR).abs() / scale).max()),
+                abs(float(ms[0][-1]) - float(wTw)) / float(w_norm) ** 2)
+    for st in states:
+        st.coeff[: k + 1] = C
+        st.inv_gamma.copy_(inv_gamma)
+        fused.dcgs2_update(st, k, w)
+    fused.dcgs2_update_reference(V64, k, w64, C.double(), inv_gamma.double())
+    fused.dcgs2_update_reference(V, k, w, C, inv_gamma)
+    torch.cuda.synchronize()
+    got = copies[0]
+    gap_u = max(_rel(got[k].double(), V64[k]), _rel(got[k + 1].double(), V64[k + 1]))
+    same = (torch.equal(ms[0], ms[1]) and torch.equal(copies[0], copies[1])
+            and all(st.V.data_ptr() == c.data_ptr() for st, c in zip(states, copies))
+            and torch.equal(got[:k], V[:k]) and torch.equal(got[k + 2:], V[k + 2:]))
+    return gap_m, gap_u, same
+
+
+BASIS_N = 3162
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_basis_kernels_match_plain_at_every_step(cuda, dtype):
+    """At every step of a GMRES(30) cycle on the 3162^2 stencil, run by the
+    plain versions, the measurement and the rank-2 update kernels against
+    them within 1e-6 (f32) / 1e-13 (f64), bit-equal when repeated, ``V[k]``
+    and ``V[k+1]`` written in place."""
+    n = BASIS_N
+    op = lt.CudaPoisson2D(n, dtype=dtype, device=cuda)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(n * n))
+    plain, V = _start(_Plain, b.to(device=cuda, dtype=dtype), KERNEL_KDIM)
+    for k in range(KERNEL_KDIM):
+        w = op.matvec(V[k].view(n, n)).reshape(-1)
+        PR, wTw = fused.dcgs2_measure_reference(V, k, w)
+        C, inv_gamma = plain.step(PR, wTw, k, max(k - 1, 0))
+        gap_m, gap_u, same = _passes_against_plain(V, k, w, C, inv_gamma)
+        assert gap_m <= TOL[dtype] and gap_u <= TOL[dtype], (k, gap_m, gap_u)
+        assert same, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 8, 16, 31, 32, 33, 64, 127])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_basis_kernels_at_kdim_128(cuda, dtype, k):
+    """kdim 128: the measurement over several column tiles."""
+    V, w = _basis(dtype, kdim=128, shape=(65536,), device=cuda, seed=k)
+    gap_m, gap_u, same = _passes_against_plain(V, k, w, *_coefficients(k, dtype, cuda))
+    assert gap_m <= TOL[dtype] and gap_u <= TOL[dtype] and same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((1001 * 999,), 0), ((65536,), 1)],
+                         ids=["odd_n", "offset_basis"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_basis_kernels_unaligned(cuda, dtype, shape, offset):
+    """Columns that are not 16-byte aligned take the scalar instances."""
+    V, w = _basis(dtype, shape=shape, device=cuda, offset=offset)
+    for k in (0, 5, PASS_KDIM - 1):
+        gap_m, gap_u, same = _passes_against_plain(V, k, w, *_coefficients(k, dtype, cuda))
+        assert gap_m <= TOL[dtype] and gap_u <= TOL[dtype] and same, k
+
+
+@pytest.mark.cuda
+def test_cuda_timing_changes_no_fused_count(cuda):
+    """On the card the launches, steps and reads of a solve are the same
+    with timing off and on."""
+    off, on = _counts_with_timing(device=cuda)
+    assert off == on and off["launches.dcgs2_measure"] == off["launches.dcgs2_update"] == 3 * KDIM
