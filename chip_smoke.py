@@ -681,7 +681,8 @@ def bell_vs_stencil(dev):
     A = poisson_csr(n)
     bell = lt.bell_from_scipy(A, dtype=np.float32, device=dev)
     t_asm = time.perf_counter() - t0
-    assembler = "native C++" if native.available() else f"numpy ({native.unavailable_reason()})"
+    assembler = "the card's (torch)" if dev.type == "cuda" else (
+        "native C++" if native.available() else f"numpy ({native.unavailable_reason()})")
     print(f"Poisson {n}^2 in Block-ELL: {assembler} assembler, K={bell.K}, fill "
           f"{bell.fill_ratio:.4f}, {bell.data.numel() * 4 / 1e9:.2f} GB f32, {t_asm:.1f} s "
           "with the scipy assembly")
@@ -4131,7 +4132,8 @@ def main():
     check(all(r["spill_stores"] == 0 == r["spill_loads"] for r in results["ptxas"]["ritz_check"]),
           f"the Ritz kernel spills: {results['ptxas']['ritz_check']}")
     assembler = "native C++" if native.available() else f"numpy ({native.unavailable_reason()})"
-    print(f"Block-ELL host assembler: {assembler}")
+    print(f"Block-ELL host assembler (CPU targets; a card builds the layout itself): "
+          f"{assembler}")
 
     # 3. the kernel against its plain version, through both wrappers
     results["parity"] = []

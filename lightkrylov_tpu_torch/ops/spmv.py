@@ -20,6 +20,16 @@ reads the matrix once, counted in ``launches.bell_spmm``;
 launch (one a slice of :data:`MAX_SPMM_COLUMNS` vectors for a wider block).
 ``BellOperator.rmatvec`` is plain torch (an einsum and an ``index_add_``),
 as the JAX one is plain XLA.
+
+``bell_from_scipy`` builds the layout where the matrix will live: for a
+card, from the CSR's three arrays moved there, with torch operations
+(:func:`bell_assemble_torch`); for the CPU, on the host through the native
+assembler or numpy.  All three give the same ``data`` and ``cols`` to the
+bit.  Timing on (:func:`..utils.timer.set_timing`), the assembly is a host
+span ``bell.assemble`` and each kernel launch of :class:`BellOperator` a
+device span ``bell.spmv``; the counter ``bell.nnz_applied`` adds the
+matrix's ``nnz`` for every vector an application multiplies, timing on or
+off.
 """
 
 from __future__ import annotations
@@ -29,11 +39,12 @@ import torch
 
 from ..constants import as_numpy_dtype, resolve_device
 from ..linops import LinearOperator
-from ..utils.timer import count_event, host_read
+from ..utils.timer import count_event, host_read, timed
 from . import _build
 
-__all__ = ["BellMatrix", "bell_from_scipy", "bell_spmm", "bell_spmm_reference", "bell_spmv",
-           "bell_spmv_reference", "BellOperator", "MAX_SPMM_COLUMNS"]
+__all__ = ["BellMatrix", "bell_assemble_torch", "bell_from_scipy", "bell_spmm",
+           "bell_spmm_reference", "bell_spmv", "bell_spmv_reference", "BellOperator",
+           "MAX_SPMM_COLUMNS"]
 
 #: The most vectors :func:`bell_spmm` takes in one launch (the kernel keeps
 #: each vector's partial sums in registers).
@@ -76,41 +87,88 @@ def bell_from_scipy(A, bm: int = 8, bn: int = 128, dtype=np.float32,
     """Convert a scipy sparse (or dense) matrix to Block-ELL on ``device``
     (default: :func:`..constants.default_device`, the card).
 
-    Real float32/float64 go through the native assembler when it is
-    available (:mod:`..native`), anything else through numpy; both give the
-    layout of the JAX package (its ``spmv.py:62-105``)."""
+    On a CUDA device the layout is built there from the CSR's arrays
+    (:func:`bell_assemble_torch`), so no padded copy of it exists on the
+    host.  Otherwise real float32/float64 go through the native assembler
+    when it is available (:mod:`..native`), anything else through numpy.
+    Each gives the layout of the JAX package (its ``spmv.py:62-105``)."""
     import scipy.sparse as sp
-
-    from .. import native
 
     dtype = as_numpy_dtype(dtype)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
-    m, n = A.shape
-    nbr = -(-m // bm)
-    nbc = -(-n // bn)
+    device = resolve_device(device)
+    with timed("bell.assemble", "ops"):
+        if device.type == "cuda":
+            data, cols = bell_assemble_torch(A, bm, bn, dtype, device)
+        else:
+            data, cols = (torch.from_numpy(a).to(device)
+                          for a in _bell_assemble_host(A, bm, bn, dtype))
+    mat = BellMatrix(data, cols, A.shape, A.nnz)
+    mat.fill_ratio = A.nnz / data.numel() if data.numel() else 1.0
+    return mat
+
+
+def _bell_assemble_host(A, bm: int, bn: int, dtype):
+    """``(data, cols)`` numpy arrays of the Block-ELL layout of the CSR
+    matrix ``A`` (duplicates summed), through the native assembler or
+    numpy."""
+    from .. import native
 
     if dtype in (np.float32, np.float64) and native.available():
         data, cols, _ = native.bell_assemble(A, bm, bn, dtype)
-    else:
-        coo = A.tocoo()
-        br = coo.row.astype(np.int64) // bm
-        bc = coo.col.astype(np.int64) // bn
-        uniq, inv = np.unique(br * nbc + bc, return_inverse=True)
-        ubr = uniq // nbc
-        # uniq is sorted by (block-row, block-col): the slot of each unique
-        # block is its rank within its block-row
-        slot_of_uniq = np.arange(len(uniq)) - np.searchsorted(ubr, np.arange(nbr))[ubr]
-        K = max(int(slot_of_uniq.max()) + 1, 1) if len(uniq) else 1
-        data = np.zeros((nbr, K, bm, bn), dtype)
-        cols = np.zeros((nbr, K), np.int32)
-        cols[ubr, slot_of_uniq] = (uniq % nbc).astype(np.int32)
-        data[br, slot_of_uniq[inv], coo.row % bm, coo.col % bn] = coo.data.astype(dtype)
-    device = resolve_device(device)
-    mat = BellMatrix(torch.from_numpy(data).to(device), torch.from_numpy(cols).to(device),
-                     (m, n), A.nnz)
-    mat.fill_ratio = A.nnz / data.size if data.size else 1.0
-    return mat
+        return data, cols
+    m, n = A.shape
+    nbr = -(-m // bm)
+    nbc = -(-n // bn)
+    coo = A.tocoo()
+    br = coo.row.astype(np.int64) // bm
+    bc = coo.col.astype(np.int64) // bn
+    uniq, inv = np.unique(br * nbc + bc, return_inverse=True)
+    ubr = uniq // nbc
+    # uniq is sorted by (block-row, block-col): the slot of each unique
+    # block is its rank within its block-row
+    slot_of_uniq = np.arange(len(uniq)) - np.searchsorted(ubr, np.arange(nbr))[ubr]
+    K = max(int(slot_of_uniq.max()) + 1, 1) if len(uniq) else 1
+    data = np.zeros((nbr, K, bm, bn), dtype)
+    cols = np.zeros((nbr, K), np.int32)
+    cols[ubr, slot_of_uniq] = (uniq % nbc).astype(np.int32)
+    data[br, slot_of_uniq[inv], coo.row % bm, coo.col % bn] = coo.data.astype(dtype)
+    return data, cols
+
+
+def bell_assemble_torch(A, bm: int, bn: int, dtype, device):
+    """``(data, cols)`` of the Block-ELL layout of the CSR matrix ``A``
+    (duplicates summed) built on ``device`` with torch operations: the CSR's
+    three arrays are all that crosses from the host.
+
+    Each nonzero's block-row and block-column give its block; the distinct
+    blocks, sorted by (block-row, block-column), give each block its slot,
+    its rank among its block-row's; ``K`` is the largest count (one read to
+    the host), padding slots point at block-column 0 with zero values, and
+    one scatter writes each value, cast from ``A``'s dtype as numpy casts,
+    into a zeroed ``(nbr, K, bm, bn)`` tensor.  Every entry is written once,
+    so the layout is the host assemblers' to the bit."""
+    m, n = A.shape
+    nbr, nbc = -(-m // bm), -(-n // bn)
+    vals = torch.from_numpy(np.ascontiguousarray(A.data.astype(dtype, copy=False))).to(device)
+    col = torch.from_numpy(np.ascontiguousarray(A.indices)).to(device).long()
+    counts = torch.from_numpy(np.diff(A.indptr)).to(device)
+    row = torch.repeat_interleave(torch.arange(m, device=device), counts,
+                                  output_size=len(vals))
+    br = row // bm
+    uniq, inv = torch.unique(br * nbc + col // bn, sorted=True, return_inverse=True)
+    ubr = uniq // nbc
+    first = torch.searchsorted(ubr, torch.arange(nbr, device=device))
+    slot = torch.arange(len(uniq), device=device) - first[ubr]
+    K = max(int(host_read(slot.max())) + 1, 1) if len(uniq) else 1
+    cols = torch.zeros((nbr, K), dtype=torch.int32, device=device)
+    cols[ubr, slot] = (uniq % nbc).to(torch.int32)
+    flat = ((br * K + slot[inv]) * bm + row % bm) * bn + col % bn
+    del row, col, counts, br, uniq, inv, ubr, first, slot
+    data = torch.zeros((nbr, K, bm, bn), dtype=vals.dtype, device=device)
+    data.view(-1)[flat] = vals
+    return data, cols
 
 
 def bell_spmv_reference(data, cols, x_padded):
@@ -220,7 +278,9 @@ class BellOperator(LinearOperator):
     CUDA atomics make the float32 sum order vary from run to run).
 
     The constructor checks once that every block-column index lies in the
-    block grid (one read of ``cols``'s range to the host)."""
+    block grid (one read of ``cols``'s range to the host).  Each launch of
+    ``matvec`` and ``matvec_basis`` is a device span ``bell.spmv`` and adds
+    ``nnz`` a vector to the counter ``bell.nnz_applied``."""
 
     def __init__(self, bell: BellMatrix, is_hermitian: bool = False,
                  interpret: bool = False, rows_per_step: int = 32):
@@ -250,8 +310,10 @@ class BellOperator(LinearOperator):
     def matvec(self, x):
         n_p = self._n_padded()
         x_p = torch.nn.functional.pad(x, (0, n_p - x.shape[0])) if n_p != x.shape[0] else x
-        y = bell_spmv(self.data, self.cols, x_p, interpret=self.interpret,
-                      rows_per_step=self.rows_per_step)
+        with timed("bell.spmv", "ops", device=True):
+            y = bell_spmv(self.data, self.cols, x_p, interpret=self.interpret,
+                          rows_per_step=self.rows_per_step)
+        count_event("bell.nnz_applied", self.nnz)
         return y[: self.shape[0]]
 
     def matvec_basis(self, X):
@@ -261,8 +323,11 @@ class BellOperator(LinearOperator):
         slice of at most that many rows, each counted."""
         n_p = self._n_padded()
         X_p = torch.nn.functional.pad(X, (0, n_p - X.shape[1])) if n_p != X.shape[1] else X
-        Y = [bell_spmm(self.data, self.cols, X_p[i:i + MAX_SPMM_COLUMNS])
-             for i in range(0, X_p.shape[0], MAX_SPMM_COLUMNS)]
+        Y = []
+        for i in range(0, X_p.shape[0], MAX_SPMM_COLUMNS):
+            with timed("bell.spmv", "ops", device=True):
+                Y.append(bell_spmm(self.data, self.cols, X_p[i:i + MAX_SPMM_COLUMNS]))
+            count_event("bell.nnz_applied", self.nnz * Y[-1].shape[0])
         return (Y[0] if len(Y) == 1 else torch.cat(Y))[:, : self.shape[0]]
 
     def rmatvec_basis(self, Y):

@@ -35,8 +35,10 @@ and ``cg.update`` (the rest of an iteration); ``eigs`` (the root) with
 ``eigs.check`` (a device Ritz check) and ``eigs.restart`` (a restart, also
 on the host path, whose checks are ``eigs.projected_eig``); ``arnoldi.step``
 with ``arnoldi.matvec`` and ``arnoldi.orth``; ``allreduce`` (a vector reduction
-over the process group) and ``halo`` (an operator's collective); and
-``host_read``.  The benchmark reads them in its traced runs,
+over the process group) and ``halo`` (an operator's collective);
+``bell.spmv`` (a Block-ELL kernel launch of ``BellOperator``, inside the
+solver's matvec span) and ``bell.assemble`` (``bell_from_scipy``'s layout,
+host only); and ``host_read``.  The benchmark reads them in its traced runs,
 ``python3 bench_port/run.py --workload <cell> --seed <n> --seconds <s>
 --trace 1`` (``bench_port/metrics/``).
 
@@ -490,7 +492,9 @@ def count_event(name: str, n: int = 1) -> None:
     ``"ordschur_reads"`` (the host reads of the device Schur reordering,
     one a block swap and one to finish) and the restarts by kind,
     ``"restarts.<solver>.<kind>"``; the fused routes count their steps,
-    ``"cg.fused_iterations"`` and ``"gmres.fused_steps"``, once a solve."""
+    ``"cg.fused_iterations"`` and ``"gmres.fused_steps"``, once a solve;
+    ``BellOperator`` counts ``"bell.nnz_applied"``, its matrix's ``nnz`` for
+    every vector it multiplies."""
     _counters[name] += int(n)
 
 

@@ -247,6 +247,50 @@ def test_each_solver_emits_its_spans(case, names):
                                                                    "arnoldi.orth"))
 
 
+def _bell_gmres():
+    """A GMRES(10) cycle on ``ConvectionDiffusion2D(12)`` as an assembled
+    Block-ELL matrix (8 x 16 blocks), the operator labelled ``bell``."""
+    import scipy.sparse as sp
+    A = sp.csr_matrix(lt.ConvectionDiffusion2D(12).dense().numpy())
+    op = lt.BellOperator(lt.bell_from_scipy(A, bm=8, bn=16, dtype=torch.float64, device="cpu"))
+    op.label = "bell"
+    lt.gmres(op, _vec(144, 7), rtol=0.0, atol=0.0, options=lt.GMRESOptions(kdim=10, maxiter=1))
+    return op
+
+
+def test_bell_spmv_spans_sit_inside_the_solver_matvec():
+    """Each application of a ``BellOperator`` is one ``bell.spmv`` span
+    inside a ``gmres.matvec``; with timing off there is none; the layout's
+    assembly is one ``bell.assemble`` root."""
+    timer.reset_counters()
+    _bell_gmres()
+    assert not timer.spans()
+    _, recs = _traced(_bell_gmres)
+    _check_tree(recs)
+    by_id = {s.id: s for s in recs}
+    spmv = [s for s in recs if s.name == "bell.spmv"]
+    assert len(spmv) == timer.get_counter("bell.matvec") == 12  # kdim + 2
+    assert all(by_id[s.parent].name == "gmres.matvec" for s in spmv)
+    assert [s.parent for s in recs if s.name == "bell.assemble"] == [None]
+
+
+def test_bell_counters_do_not_depend_on_timing():
+    """``bell.nnz_applied`` (the matrix's nnz a vector) and the launches
+    read the same with timing off and on."""
+    counts = []
+    for on in (False, True):
+        timer.reset_counters()
+        lt.set_timing(on)
+        try:
+            op = _bell_gmres()
+        finally:
+            lt.set_timing(False)
+        counts.append({k: timer.get_counter(k) for k in ("bell.nnz_applied", "bell.matvec",
+                                                          "launches.bell_spmv")})
+    assert counts[0] == counts[1]
+    assert counts[0]["bell.nnz_applied"] == op.nnz * counts[0]["bell.matvec"] > 0
+
+
 def _eigs_budget(projected):
     """``eigs`` at ``tolerance = 0``: no pair converges, so it runs its 4
     cycles and restarts 3 times."""
