@@ -30,8 +30,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    launch counts set to zero just before and read just after, checked
    against the same cycle through the plain version; then a solve to 1e-5;
 9. Block-ELL against the stencil: Poisson 1024^2 assembled with scipy and
-   converted by bell_from_scipy; one matvec and eighs(nev=4, kdim=32) on
-   both operators, against each other and the closed-form spectrum;
+   converted by bell_from_scipy in 8 x 128 blocks; one matvec and
+   eighs(nev=4, kdim=32) on both operators, against each other and the
+   closed-form spectrum; then the layout fitted on the card: the 3162^2
+   convection-diffusion matrix converted with no block shape given, which
+   must come out 1 x 1 (ELLPACK) with K = 5, its product through the row
+   kernel held to the matrix-free float64 operator within 1e-13 and timed
+   beside its byte bound, the plain version and one cuSPARSE CSR product;
 10. eighs_3072: eighs(nev=4, kdim=32, one sweep) on CudaPoisson2D(3072) f32,
     its stencil launches counted, lambda_1 against the closed form;
 11. convergence gates: f64 eighs with thick restarts on TridiagToeplitz,
@@ -364,7 +369,7 @@ TURN_RITZ_KDIMS = (30, 40, 64, 128, 300)
 # phase 2: the kernel functions of each entry of the kernels line, by the
 # names ptxas reports them under
 KERNEL_FUNCTIONS = {"stencil": ("stencil_kernel", "stencil_batched_kernel"),
-                    "bell_spmv": ("bell_spmv_kernel", "bell_spmm_kernel"),
+                    "bell_spmv": ("bell_spmv_kernel", "bell_spmm_kernel", "bell_rows_kernel"),
                     "copy_tiles": ("copy_tiles_kernel",), "copy_ring": ("copy_ring_kernel",),
                     "reduce_8x128": ("reduce_partials_kernel", "reduce_final_kernel"),
                     "hessenberg_schur": ("schur_kernel",),
@@ -679,7 +684,7 @@ def bell_vs_stencil(dev):
     n = N_BELL_POISSON
     t0 = time.perf_counter()
     A = poisson_csr(n)
-    bell = lt.bell_from_scipy(A, dtype=np.float32, device=dev)
+    bell = lt.bell_from_scipy(A, bm=8, bn=128, dtype=np.float32, device=dev)
     t_asm = time.perf_counter() - t0
     assembler = "the card's (torch)" if dev.type == "cuda" else (
         "native C++" if native.available() else f"numpy ({native.unavailable_reason()})")
@@ -717,6 +722,68 @@ def bell_vs_stencil(dev):
     del bell, op_b
     torch.cuda.empty_cache()
     return dict(assembler=assembler, assembly_s=t_asm, K=K, matvec_rel=rel, ritz_rel_diff=dw)
+
+
+def convdiff_csr(n, eps=1e-2, cx=1.0, cy=0.5):
+    """ConvectionDiffusion2D(n) as a scipy CSR matrix, unknown j n + i for
+    the point (i, j): its five diagonals, the entries past the boundary cut."""
+    h = 1.0 / (n + 1)
+    k = np.arange(n * n, dtype=np.int64)
+    i, j = k % n, k // n
+    offsets = np.array([-n, -1, 0, 1, n])
+    values = np.array([-eps / h**2 - cy / (2 * h), -eps / h**2 - cx / (2 * h),
+                       eps * 4 / h**2, -eps / h**2 + cx / (2 * h), -eps / h**2 + cy / (2 * h)])
+    keep = np.stack([j > 0, i > 0, np.ones(n * n, bool), i < n - 1, j < n - 1], axis=1)
+    indptr = np.zeros(n * n + 1, np.int64)
+    np.cumsum(keep.sum(1), out=indptr[1:])
+    return sp.csr_matrix((np.broadcast_to(values, (n * n, 5))[keep],
+                          (k[:, None] + offsets)[keep], indptr), shape=(n * n, n * n))
+
+
+def bell_fitted(dev, tag):
+    """Phase 9, the layout fitted on the card: 3162^2 convection-diffusion
+    in float64 with no block shape given."""
+    n = N_SHARDED
+    A = convdiff_csr(n)
+    t0 = time.perf_counter()
+    bell = lt.bell_from_scipy(A, dtype=np.float64, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    nbytes = bell.data.numel() * 8 + bell.cols.numel() * 4
+    print(f"fitted Block-ELL {n}^2 convection-diffusion f64: bm={bell.bm} bn={bell.bn} "
+          f"K={bell.K}, fill {bell.fill_ratio:.4%}, {nbytes / 1e6:.1f} MB of data and cols, "
+          f"built in {t_asm:.3f} s")
+    check((bell.bm, bell.bn, bell.K) == (1, 1, 5),
+          f"the card built {bell.bm}x{bell.bn} blocks, K={bell.K}, not 1x1 and K=5")
+    op_b = lt.BellOperator(bell)
+    op_m = lt.ConvectionDiffusion2D(n, dtype=torch.float64, device=dev)
+    xs = [seeded((n * n,), torch.float64, dev, seed=s) for s in (41, 42)]
+    before = (launch_count("bell_spmv"), launch_count("bell_rows"))
+    got = op_b.matvec(xs[0])
+    torch.cuda.synchronize()
+    check((launch_count("bell_spmv"), launch_count("bell_rows")) == (before[0] + 1, before[1] + 1),
+          "the matvec did not go through the row kernel")
+    rel = rel_err(got, op_m.matvec(xs[0].reshape(n, n)).reshape(-1))
+    print(f"fitted Block-ELL {n}^2 f64 vs the matrix-free operator: rel {rel:.3e}")
+    check(rel <= BELL_REL_TOL[torch.float64], f"fitted Block-ELL product differs by {rel:.3e}")
+    # the yardstick: the same product as one cuSPARSE CSR call
+    csr = torch.sparse_csr_tensor(torch.from_numpy(A.indptr), torch.from_numpy(A.indices),
+                                  torch.from_numpy(A.data), size=A.shape).to(dev)
+    lib_rel = rel_err(torch.mv(csr, xs[0]), got)
+    check(lib_rel <= BELL_REL_TOL[torch.float64], f"cuSPARSE differs by {lib_rel:.3e}")
+    ms = alternating_ms({
+        "kernel": lambda: lt.bell_spmv(bell.data, bell.cols, xs[0]),
+        "plain": lambda: bell_spmv_reference(bell.data, bell.cols, xs[1]),
+        "library": lambda: torch.mv(csr, xs[0])}, per_run=10)
+    moved = nbytes + 2 * n * n * 8
+    bound = bound_ms(moved)
+    print(f"{tag} bell_spmv row kernel {n}^2 f64 (1x1, K=5): kernel {ms['kernel'] * 1e3:.1f} us, "
+          f"plain {ms['plain'] * 1e3:.1f} us, cuSPARSE CSR {ms['library'] * 1e3:.1f} us (rel "
+          f"{lib_rel:.2e}); bound {bound * 1e3:.1f} us ({moved / 1e6:.1f} MB: data, cols, x, y), "
+          f"{100 * bound / ms['kernel']:.1f}% of it (10 calls a sample)")
+    del bell, op_b, got, xs, csr
+    torch.cuda.empty_cache()
+    return dict(bm=1, bn=1, K=5, assembly_s=t_asm, matvec_rel=rel, ms=ms, bound_ms=bound)
 
 
 def eighs_3072(dev, tag):
@@ -4259,6 +4326,7 @@ def main():
     results["bell_parity"], bell_err = bell_parity(dev)
     results["bell_main_path"] = bell_main_path(dev, tag)
     results["bell_vs_stencil"] = bell_vs_stencil(dev)
+    results["bell_fitted"] = bell_fitted(dev, tag)
     results["eighs_3072"] = eighs_3072(dev, tag)
     results["convergence"].update(convergence_gates(dev))
 

@@ -1,19 +1,33 @@
 """Block-ELL sparse matrix-vector product through the hand-written CUDA kernel.
 
 Counterpart of :mod:`lightkrylov_tpu.ops.pallas.spmv`, the general
-sparse-operator tier.  The matrix is cut into ``(bm, bn)`` dense blocks
-(8 x 128 by default); each block-row stores the same number ``K`` of blocks,
-padded with zero blocks that point at block-column 0:
+sparse-operator tier.  The matrix is cut into ``(bm, bn)`` dense blocks;
+each block-row stores the same number ``K`` of blocks, padded with zero
+blocks that point at block-column 0:
 
 * ``data``: ``(nbr, K, bm, bn)`` block values;
 * ``cols``: ``(nbr, K)`` int32 block-column indices.
 
+The block shape is the caller's, or else :func:`bell_from_scipy` takes it
+from where the matrix will live: on the CPU the JAX package's 8 x 128; on a
+card the shape of :data:`FITTED_SHAPES` whose layout stores fewer bytes of
+``data`` and ``cols`` (:func:`bell_block_shape`; ties to 8 x 128).  A matrix
+of a few nonzeros a row gets 1 x 1 blocks, ELLPACK (a 5-point stencil: K = 5
+values and indices a row, against 8 x 128 blocks 99% zeros); a matrix of
+dense 8 x 128 blocks keeps them.  The 8 x 128 shape is the TPU kernel's
+Mosaic tiling, which nothing on a card needs.
+
 ``bell_spmv`` on a CUDA tensor launches the kernel of ``csrc/spmv.cu`` or
 raises: a failed build, a refused launch or an unsupported tensor is an
-error, never a quiet switch to another path.  On a CPU tensor it computes
-the plain version, :func:`bell_spmv_reference`.  It counts its kernel
-launches in the counter ``launches.bell_spmv``
-(:func:`..utils.timer.count_event`).  :func:`bell_spmm` is the batched form,
+error, never a quiet switch to another path.  The kernel has two designs,
+chosen by ``bn``: a warp a block-row for ``bn > 1``, and at ``bn == 1`` the
+row design, a thread an output row over warp-staged coalesced loads, whose
+bound is the bytes of ``data`` and ``cols`` (``csrc/spmv.cu`` says how each
+is laid out).  On a CPU tensor it computes the plain version,
+:func:`bell_spmv_reference`.  It counts its kernel launches in the counter
+``launches.bell_spmv`` (:func:`..utils.timer.count_event`), and those of the
+row design, from either wrapper, also in ``launches.bell_rows``.
+:func:`bell_spmm` is the batched form,
 ``Y = A X`` for up to :data:`MAX_SPMM_COLUMNS` vectors in one launch that
 reads the matrix once, counted in ``launches.bell_spmm``;
 ``BellOperator.matvec_basis`` goes through it, so a block Krylov step is one
@@ -42,13 +56,18 @@ from ..linops import LinearOperator
 from ..utils.timer import count_event, host_read, timed
 from . import _build
 
-__all__ = ["BellMatrix", "bell_assemble_torch", "bell_from_scipy", "bell_spmm",
-           "bell_spmm_reference", "bell_spmv", "bell_spmv_reference", "BellOperator",
-           "MAX_SPMM_COLUMNS"]
+__all__ = ["BellMatrix", "bell_assemble_torch", "bell_block_shape", "bell_from_scipy",
+           "bell_spmm", "bell_spmm_reference", "bell_spmv", "bell_spmv_reference",
+           "BellOperator", "FITTED_SHAPES", "MAX_SPMM_COLUMNS"]
 
 #: The most vectors :func:`bell_spmm` takes in one launch (the kernel keeps
 #: each vector's partial sums in registers).
 MAX_SPMM_COLUMNS = 8
+
+#: The block shapes :func:`bell_from_scipy` chooses between for a card, each
+#: with a kernel design of its own: 1 x 1 (the row design) and 8 x 128, the
+#: JAX package's default (the warp-per-block-row design), which takes ties.
+FITTED_SHAPES = ((1, 1), (8, 128))
 
 #: The C entries of ``csrc/spmv.cu`` (:class:`._build.Entries`)
 ENTRIES = _build.Entries({
@@ -82,22 +101,30 @@ class BellMatrix:
         return self.data.shape[1]
 
 
-def bell_from_scipy(A, bm: int = 8, bn: int = 128, dtype=np.float32,
+def bell_from_scipy(A, bm: int | None = None, bn: int | None = None, dtype=np.float32,
                     device=None) -> BellMatrix:
     """Convert a scipy sparse (or dense) matrix to Block-ELL on ``device``
-    (default: :func:`..constants.default_device`, the card).
+    (default: :func:`..constants.default_device`, the card), in ``(bm, bn)``
+    blocks.
 
-    On a CUDA device the layout is built there from the CSR's arrays
-    (:func:`bell_assemble_torch`), so no padded copy of it exists on the
-    host.  Otherwise real float32/float64 go through the native assembler
-    when it is available (:mod:`..native`), anything else through numpy.
-    Each gives the layout of the JAX package (its ``spmv.py:62-105``)."""
+    Given neither ``bm`` nor ``bn``, a CUDA device takes the shape of
+    :func:`bell_block_shape`, the one of :data:`FITTED_SHAPES` that stores
+    fewer bytes; any other device, or a shape given in part, takes the JAX
+    package's 8 x 128 for what is not given.  On a CUDA device the layout is
+    built there from the CSR's arrays (:func:`bell_assemble_torch`), so no
+    padded copy of it exists on the host.  Otherwise real float32/float64 go
+    through the native assembler when it is available (:mod:`..native`),
+    anything else through numpy.  Each gives the layout of the JAX package
+    (its ``spmv.py:62-105``) for the same shape."""
     import scipy.sparse as sp
 
     dtype = as_numpy_dtype(dtype)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     device = resolve_device(device)
+    if bm is None and bn is None and device.type == "cuda":
+        bm, bn = bell_block_shape(A, dtype)
+    bm, bn = 8 if bm is None else bm, 128 if bn is None else bn
     with timed("bell.assemble", "ops"):
         if device.type == "cuda":
             data, cols = bell_assemble_torch(A, bm, bn, dtype, device)
@@ -107,6 +134,42 @@ def bell_from_scipy(A, bm: int = 8, bn: int = 128, dtype=np.float32,
     mat = BellMatrix(data, cols, A.shape, A.nnz)
     mat.fill_ratio = A.nnz / data.numel() if data.numel() else 1.0
     return mat
+
+
+def bell_block_shape(A, dtype=np.float32) -> tuple:
+    """The block shape of :data:`FITTED_SHAPES` whose Block-ELL layout of
+    ``A`` (a scipy CSR matrix, duplicates summed) stores fewer bytes of
+    ``data`` and ``cols`` in ``dtype``; 8 x 128 on a tie.
+
+    At 1 x 1, ``K`` is the longest row, read from ``indptr``.  At 8 x 128 a
+    block holds at most 1024 values, so the fullest block-row's nonzeros over
+    1024 bound ``K`` from below; only when that bound's bytes do not already
+    exceed the 1 x 1 layout's are the distinct blocks counted (on the host)."""
+    m = A.shape[0]
+    item = np.dtype(as_numpy_dtype(dtype)).itemsize
+    row_nnz = np.diff(A.indptr)
+    k_rows = max(int(row_nnz.max()), 1) if m else 1
+    rows_bytes = m * k_rows * (item + 4)
+    bm, bn = FITTED_SHAPES[1]
+    nbr = -(-m // bm)
+    block_row_nnz = np.diff(A.indptr[np.minimum(np.arange(nbr + 1) * bm, m)])
+    k_least = max(-(-int(block_row_nnz.max()) // (bm * bn)), 1) if nbr else 1
+    blocks_bytes = nbr * k_least * (bm * bn * item + 4)
+    if blocks_bytes <= rows_bytes:
+        blocks_bytes = nbr * _blocks_a_row(A, bm, bn) * (bm * bn * item + 4)
+    return FITTED_SHAPES[0] if rows_bytes < blocks_bytes else FITTED_SHAPES[1]
+
+
+def _blocks_a_row(A, bm: int, bn: int) -> int:
+    """``K`` of the ``(bm, bn)`` Block-ELL layout of the CSR matrix ``A``:
+    the most distinct blocks in a block-row, at least 1."""
+    m, n = A.shape
+    if A.nnz == 0:
+        return 1
+    nbc = -(-n // bn)
+    br = np.repeat(np.arange(m, dtype=np.int64) // bm, np.diff(A.indptr))
+    uniq = np.unique(br * nbc + A.indices.astype(np.int64) // bn)
+    return int(np.bincount(uniq // nbc).max())
 
 
 def _bell_assemble_host(A, bm: int, bn: int, dtype):
@@ -148,7 +211,10 @@ def bell_assemble_torch(A, bm: int, bn: int, dtype, device):
     the host), padding slots point at block-column 0 with zero values, and
     one scatter writes each value, cast from ``A``'s dtype as numpy casts,
     into a zeroed ``(nbr, K, bm, bn)`` tensor.  Every entry is written once,
-    so the layout is the host assemblers' to the bit."""
+    so the layout is the host assemblers' to the bit.  At 1 x 1 blocks the
+    block keys are not needed (:func:`_rows_assemble_torch`)."""
+    if bm == bn == 1:
+        return _rows_assemble_torch(A, dtype, device)
     m, n = A.shape
     nbr, nbc = -(-m // bm), -(-n // bn)
     vals = torch.from_numpy(np.ascontiguousarray(A.data.astype(dtype, copy=False))).to(device)
@@ -168,6 +234,31 @@ def bell_assemble_torch(A, bm: int, bn: int, dtype, device):
     del row, col, counts, br, uniq, inv, ubr, first, slot
     data = torch.zeros((nbr, K, bm, bn), dtype=vals.dtype, device=device)
     data.view(-1)[flat] = vals
+    return data, cols
+
+
+def _rows_assemble_torch(A, dtype, device):
+    """``(data, cols)`` of the 1 x 1 layout (ELLPACK) of the CSR matrix
+    ``A`` (duplicates summed, so its columns are sorted in each row) on
+    ``device``: ``K`` is the longest row, a nonzero's slot is its place in
+    its row, and one scatter each writes the values into a zeroed ``(m, K,
+    1, 1)`` tensor and the columns into an ``(m, K)`` one, whose padding
+    slots stay at column 0.  The layout is the host assemblers' at 1 x 1 to
+    the bit."""
+    m = A.shape[0]
+    row_nnz = np.diff(A.indptr)
+    K = max(int(row_nnz.max()), 1) if m else 1
+    vals = torch.from_numpy(np.ascontiguousarray(A.data.astype(dtype, copy=False))).to(device)
+    col = torch.from_numpy(np.ascontiguousarray(A.indices)).to(device).to(torch.int32)
+    first = torch.from_numpy(A.indptr[:-1].astype(np.int64)).to(device)
+    row = torch.repeat_interleave(torch.arange(m, device=device),
+                                  torch.from_numpy(row_nnz).to(device), output_size=len(vals))
+    flat = row * K + torch.arange(len(vals), device=device) - first[row]
+    del row, first
+    data = torch.zeros((m, K, 1, 1), dtype=vals.dtype, device=device)
+    data.view(-1)[flat] = vals
+    cols = torch.zeros((m, K), dtype=torch.int32, device=device)
+    cols.view(-1)[flat] = col
     return data, cols
 
 
@@ -252,7 +343,14 @@ def bell_spmv(data, cols, x_padded, interpret: bool = False, rows_per_step: int 
         return bell_spmv_reference(data, cols, x_padded)
     y = _launch(data, cols, x_padded)
     count_event("launches.bell_spmv")
+    _count_rows(data)
     return y
+
+
+def _count_rows(data):
+    """Count a launch of the row design, which ``bn == 1`` takes."""
+    if data.shape[3] == 1:
+        count_event("launches.bell_rows")
 
 
 def bell_spmm(data, cols, X_padded):
@@ -266,6 +364,7 @@ def bell_spmm(data, cols, X_padded):
         return bell_spmm_reference(data, cols, X_padded)
     y = _launch(data, cols, X_padded, batched=True)
     count_event("launches.bell_spmm")
+    _count_rows(data)
     return y
 
 

@@ -71,6 +71,13 @@ CASES = {
     "all-zero": (lambda: sp.csr_matrix((50, 60)), 8, 16, np.float64),
     "convdiff-f64": (_convdiff, 8, 128, np.float64),
     "convdiff-f32": (_convdiff, 8, 128, np.float32),
+    # 1 x 1 (ELLPACK): the slot of a nonzero is its place in its row
+    "rows-convdiff-f64": (_convdiff, 1, 1, np.float64),
+    "rows-random-f32": (lambda: sp.random(100, 700, density=0.05, random_state=2), 1, 1,
+                        np.float32),
+    "rows-empty-rows": (_empty_rows, 1, 1, np.float64),
+    "rows-duplicates-summed": (_duplicates, 1, 1, np.float64),
+    "rows-all-zero": (lambda: sp.csr_matrix((50, 60)), 1, 1, np.float64),
 }
 
 
@@ -121,6 +128,35 @@ def test_complex_values_take_the_numpy_cast(monkeypatch):
     data, cols = spmv.bell_assemble_torch(A, 4, 32, np.complex64, torch.device("cpu"))
     _assert_bit_equal(data.numpy(), cols.numpy(),
                       *_numpy_layout(A, 4, 32, np.complex64, monkeypatch))
+
+
+def test_complex_values_take_the_numpy_cast_at_1x1(monkeypatch):
+    A = sp.random(70, 70, density=0.1, random_state=7, format="csr")
+    A = (A + 1j * sp.random(70, 70, density=0.1, random_state=8, format="csr")).tocsr()
+    A.sum_duplicates()
+    data, cols = spmv.bell_assemble_torch(A, 1, 1, np.complex64, torch.device("cpu"))
+    _assert_bit_equal(data.numpy(), cols.numpy(),
+                      *_numpy_layout(A, 1, 1, np.complex64, monkeypatch))
+
+
+@pytest.mark.parametrize("given,want", [({}, (1, 1)), ({"bm": 8, "bn": 128}, (8, 128)),
+                                        ({"bm": 4}, (4, 128)), ({"bn": 16}, (8, 16)),
+                                        ({"bm": 1, "bn": 1}, (1, 1))])
+def test_a_card_target_fits_the_shape_only_when_none_is_given(monkeypatch, given, want):
+    """A card target with no shape builds the fitted one (1 x 1 for
+    convection-diffusion); a shape given whole or in part is kept, the JAX
+    package's 8 x 128 filling what is not given."""
+    A = _convdiff()
+    shapes, assemble = [], spmv.bell_assemble_torch
+
+    def spy(A, bm, bn, dtype, device):
+        shapes.append((bm, bn))
+        return assemble(A, bm, bn, dtype, torch.device("cpu"))
+    monkeypatch.setattr(spmv, "bell_assemble_torch", spy)
+    bell = lt.bell_from_scipy(A, dtype=np.float64, device="cuda", **given)
+    assert shapes == [want] and (bell.bm, bell.bn) == want
+    cpu = lt.bell_from_scipy(A, dtype=np.float64, device="cpu", **given)
+    assert (cpu.bm, cpu.bn) == (given.get("bm", 8), given.get("bn", 128))
 
 
 def test_the_target_device_picks_the_assembler(monkeypatch):

@@ -263,6 +263,136 @@ def test_gmres_through_bell_matches_jax(jpallas, orth):
     assert np.linalg.norm(xt.numpy() - np.asarray(xj)) <= RTOL * np.linalg.norm(np.asarray(xj))
 
 
+# -- the block shape fitted to the matrix ----------------------------------------
+
+
+def _convdiff_csr(nx=40, ny=24):
+    from bench_port import harness
+
+    return harness.load_module("loops", "bell_gmres_cycles").convdiff_csr(nx, ny, 1e-2, 1.0, 0.5)
+
+
+def _dense_blocks():
+    """Block-row i holds one dense 8 x 128 block at block-column i."""
+    rng = np.random.default_rng(17)
+    A = sp.lil_matrix((64, 1024))
+    for i in range(8):
+        A[8 * i:8 * i + 8, 128 * i:128 * i + 128] = rng.standard_normal((8, 128)) + 3.0
+    return A.tocsr()
+
+
+def _spread_rows():
+    """Rows of 128 nonzeros one a block-column: the 8 x 128 lower bound
+    (one block a block-row) does not decide, the count of blocks does."""
+    A = sp.lil_matrix((16, 128 * 128))
+    for i in range(16):
+        A[i, np.arange(128) * 128 + i] = 1.0 + i
+    return A.tocsr()
+
+
+def _empty_and_short_rows():
+    """Empty rows, rows shorter than K, a row of K, and sizes that are a
+    multiple of nothing."""
+    A = sp.random(103, 77, density=0.05, random_state=18, format="lil")
+    A[::4] = 0
+    A[7, :13] = np.arange(1.0, 14.0)
+    return A.tocsr()
+
+
+#: name: (matrix, dtype, the fitted shape)
+FITTED = {
+    "convdiff-f64": (_convdiff_csr, np.float64, (1, 1)),
+    "convdiff-f32": (_convdiff_csr, np.float32, (1, 1)),
+    "poisson-f64": (lambda: sp.csr_matrix(lt.Poisson2D(16).dense().numpy()), np.float64, (1, 1)),
+    "random-f64": (lambda: _random_csr(300, 300, 0.02, seed=19), np.float64, (1, 1)),
+    "random-c128": (lambda: _random_csr(120, 90, 0.05, seed=20), np.complex128, (1, 1)),
+    "spread-rows-f32": (_spread_rows, np.float32, (1, 1)),
+    "dense-8x128-blocks-f64": (_dense_blocks, np.float64, (8, 128)),
+    "dense-8x128-blocks-f32": (_dense_blocks, np.float32, (8, 128)),
+    "all-zero": (lambda: sp.csr_matrix((50, 60)), np.float64, (1, 1)),
+    "tie-f64": (lambda: _tie(), np.float64, (8, 128)),
+}
+
+
+def _tie():
+    """8 rows, the longest 683 long, over 8 blocks of 8 x 128: both layouts
+    store 65,568 bytes in float64."""
+    A = sp.lil_matrix((8, 1024))
+    A[0, :683] = 1.0
+    A[1, 768] = A[2, 896] = 2.0
+    return A.tocsr()
+
+
+def _canonical(A):
+    A = sp.csr_matrix(A)
+    A.sum_duplicates()
+    return A
+
+
+def _layout_bytes(A, bm, bn, dtype, monkeypatch):
+    with monkeypatch.context() as m:
+        m.setattr(native, "available", lambda: False)
+        bell = lt.bell_from_scipy(A, bm=bm, bn=bn, dtype=dtype, device="cpu")
+    return bell.data.numel() * bell.data.element_size() + bell.cols.numel() * 4
+
+
+@pytest.mark.parametrize("case", list(FITTED))
+def test_block_shape_stores_fewer_bytes(case, monkeypatch):
+    """The chosen shape is the one whose layout, as the assembler builds
+    it, stores fewer bytes (8 x 128 on a tie)."""
+    make, dtype, want = FITTED[case]
+    A = _canonical(make())
+    assert spmv.bell_block_shape(A, dtype) == want
+    sizes = {shape: _layout_bytes(A, *shape, dtype, monkeypatch) for shape in spmv.FITTED_SHAPES}
+    other = next(s for s in spmv.FITTED_SHAPES if s != want)
+    assert sizes[want] < sizes[other] or (sizes[want] == sizes[other] and want == (8, 128))
+
+
+def test_block_shape_counts_blocks_only_when_the_bound_does_not_decide(monkeypatch):
+    counted = []
+    count = spmv._blocks_a_row
+    monkeypatch.setattr(spmv, "_blocks_a_row", lambda *a: counted.append(a) or count(*a))
+    assert spmv.bell_block_shape(_canonical(_convdiff_csr()), np.float64) == (1, 1)
+    assert counted == []
+    assert spmv.bell_block_shape(_canonical(_spread_rows()), np.float32) == (1, 1)
+    assert len(counted) == 1
+
+
+@pytest.mark.parametrize("case", ["convdiff-f64", "random-f64", "dense-8x128-blocks-f64"])
+def test_cpu_default_is_the_jax_layout(jpallas, case):
+    """On the CPU no shape means the JAX package's 8 x 128, whatever fits
+    the matrix."""
+    _, _, pallas = jpallas
+    make, dtype, _ = FITTED[case]
+    A = make()
+    got = lt.bell_from_scipy(A, dtype=dtype, device="cpu")
+    assert (got.bm, got.bn) == (8, 128)
+    _assert_same_layout(got, pallas.bell_from_scipy(A, dtype=dtype))
+
+
+@pytest.mark.parametrize("case", ["convdiff-f64", "random-f64", "empty-and-short-rows"])
+def test_rows_layout_product_matches_scipy(case):
+    """The 1 x 1 layout the card's assembler builds (here on CPU tensors):
+    ``K`` the longest row, the product through the operator equal to the
+    plain version and within 1e-14 of scipy's, the transposed product
+    too."""
+    A = _canonical(_empty_and_short_rows() if case == "empty-and-short-rows"
+                   else FITTED[case][0]())
+    m, n = A.shape
+    data, cols = spmv.bell_assemble_torch(A, 1, 1, np.float64, torch.device("cpu"))
+    assert data.shape == (m, int(np.diff(A.indptr).max()), 1, 1)
+    op = lt.BellOperator(lt.BellMatrix(data, cols, A.shape, A.nnz))
+    assert op._n_padded() == n
+    rng = np.random.default_rng(21)
+    x, y = rng.standard_normal(n), rng.standard_normal(m)
+    got = op.matvec(torch.from_numpy(x))
+    assert torch.equal(got, spmv.bell_spmv_reference(data, cols, torch.from_numpy(x)))
+    want = A @ x
+    assert np.linalg.norm(got.numpy() - want) <= 1e-14 * np.linalg.norm(want)
+    gotr = op.rmatvec(torch.from_numpy(y)).numpy()
+    assert np.linalg.norm(gotr - A.T @ y) <= 1e-14 * np.linalg.norm(A.T @ y)
+
+
 # -- on the GPU ---------------------------------------------------------------
 
 CUDA_SHAPES = {  # (m, n, bm, bn): the main path's 8x128, 8x16, and general sizes
@@ -321,3 +451,89 @@ def test_cuda_kernel_rejects_unsupported_tensors(cuda):
         lt.bell_spmv(data, cols, torch.ones(33, device=cuda))
     with pytest.raises(ValueError):
         lt.bell_spmv(data, cols.cpu(), x)
+
+
+def _row_layout(nbr, K, bm, n, seed, dtype):
+    """Random single-column blocks with ragged rows: trailing padding slots
+    (zero values at column 0) in every other block-row, a repeated column,
+    a block-row of padding alone."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n, (nbr, K)).astype(np.int32)
+    data = rng.standard_normal((nbr, K, bm, 1))
+    cols[:, 1 % K] = cols[:, 0]
+    fill = rng.integers(1, K + 1, nbr)
+    fill[::2] = K
+    pad = np.arange(K)[None, :] >= fill[:, None]
+    pad[nbr // 2] = True
+    cols[pad], data[pad] = 0, 0.0
+    return torch.from_numpy(data).to(dtype), torch.from_numpy(cols)
+
+
+#: (nbr, K, bm, n): ELLPACK and taller single-column blocks, lengths aligned to
+#: nothing; at K = 100 the tile is halved to fit the staging budget, and 16 x 1
+#: blocks at K = 100 pass it at one block-row (data and cols read from global)
+ROW_SHAPES = {"1x1-K5": (1003, 5, 1, 777), "2x1-K7": (517, 7, 2, 1501),
+              "8x1-K3": (131, 3, 8, 999), "1x1-K100": (301, 100, 1, 4000),
+              "40x1-K4": (29, 4, 40, 333), "16x1-K100": (40, 100, 16, 3001)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("p", [1, 2, 5, 8])
+@pytest.mark.parametrize("case", list(ROW_SHAPES))
+def test_cuda_row_kernel_matches_plain(cuda, case, p, dtype, rel):
+    nbr, K, bm, n = ROW_SHAPES[case]
+    data, cols = _row_layout(nbr, K, bm, n, seed=p, dtype=dtype)
+    data, cols = data.to(cuda), cols.to(cuda)
+    X = torch.from_numpy(np.random.default_rng(22).standard_normal((p, n))).to(cuda, dtype)
+    before = {w: _launches(w) for w in ("bell_spmv", "bell_spmm", "bell_rows")}
+    got = lt.bell_spmv(data, cols, X[0]) if p == 1 else lt.bell_spmm(data, cols, X)
+    torch.cuda.synchronize()
+    wrapper = "bell_spmv" if p == 1 else "bell_spmm"
+    assert {w: _launches(w) - b for w, b in before.items()} == {
+        "bell_spmv": int(p == 1), "bell_spmm": int(p > 1), "bell_rows": 1}, wrapper
+    want = (spmv.bell_spmv_reference(data, cols, X[0]) if p == 1
+            else spmv.bell_spmm_reference(data, cols, X))
+    assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)
+    again = lt.bell_spmv(data, cols, X[0]) if p == 1 else lt.bell_spmm(data, cols, X)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
+def test_cuda_row_kernel_takes_misaligned_views(cuda, dtype, rel):
+    """data, cols and x starting off 16-byte alignment (views one block-row
+    and one entry in), so the staging's scalar head and tail run."""
+    data, cols = _row_layout(258, 5, 1, 901, seed=23, dtype=dtype)
+    data, cols = data.to(cuda)[1:], cols.to(cuda)[1:]
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal(902)).to(cuda, dtype)[1:]
+    assert data.data_ptr() % 16 and cols.data_ptr() % 16 and x.data_ptr() % 16
+    got = lt.bell_spmv(data, cols, x)
+    want = spmv.bell_spmv_reference(data, cols, x)
+    assert torch.linalg.norm(got - want) <= rel * torch.linalg.norm(want)
+
+
+@pytest.mark.cuda
+def test_cuda_block_layouts_do_not_count_row_launches(cuda):
+    data = torch.randn(4, 2, 8, 128, device=cuda)
+    cols = torch.zeros(4, 2, dtype=torch.int32, device=cuda)
+    before = _launches("bell_rows")
+    lt.bell_spmv(data, cols, torch.ones(128, device=cuda))
+    lt.bell_spmm(data, cols, torch.ones(3, 128, device=cuda))
+    torch.cuda.synchronize()
+    assert _launches("bell_rows") == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(np.float32, 1e-6), (np.float64, 1e-13)])
+def test_cuda_default_layout_is_fitted(cuda, dtype, rel):
+    """With no shape given the card builds convection-diffusion as ELLPACK
+    (K = 5), and the operator applies it with no padding, against scipy."""
+    A = _convdiff_csr(61, 37)
+    bell = lt.bell_from_scipy(A, dtype=dtype, device=cuda)
+    assert (bell.bm, bell.bn, bell.K) == (1, 1, 5)
+    assert bell.fill_ratio == A.nnz / (A.shape[0] * 5)
+    x = np.random.default_rng(25).standard_normal(A.shape[1])
+    got = lt.BellOperator(bell).matvec(torch.from_numpy(x).to(cuda, bell.data.dtype))
+    want = A @ x
+    assert np.linalg.norm(got.cpu().double().numpy() - want) <= rel * np.linalg.norm(want)

@@ -59,6 +59,10 @@ _ORBAX = ("Orbax checkpoints; torch.distributed.checkpoint takes their place "
           "(ROADMAP Porting conventions: TPU workarounds left out, Orbax)")
 _PALLAS = ("the Pallas kernel tier; the port's kernels live in ops.stencil and ops.spmv "
            "(ROADMAP Porting conventions: JAX interfaces replaced by torch's, the kernel tier)")
+_BLOCK_SHAPE = ("bell_from_scipy's block shape: left as None, a card takes the one of "
+                "ops.spmv.FITTED_SHAPES that stores fewer bytes, any other device the TPU's "
+                "8 x 128 (ROADMAP Porting conventions: TPU workarounds left out, the 8 x 128 "
+                "default block on a card)")
 _VMEM = ("the TPU's VMEM tiling and dispatch; the CUDA kernels pick their own "
          "geometry (ROADMAP Porting conventions: TPU workarounds left out, the v5e "
          "VMEM dispatch)")
@@ -112,6 +116,8 @@ RENAMED = {
     "ops.pallas.spmv": ("ops.spmv", _PALLAS),
     "ops.pallas:PallasPoisson2D": ("CudaPoisson2D", _PALLAS),
     "ops.pallas.stencil:PallasPoisson2D": ("CudaPoisson2D", _PALLAS),
+    "ops.pallas.spmv:bell_from_scipy:bm": (("bm", None), _BLOCK_SHAPE),
+    "ops.pallas.spmv:bell_from_scipy:bn": (("bn", None), _BLOCK_SHAPE),
     "parallel.stencil:ShardedPoisson2D.__init__:kernel": (
         ("kernel", "cuda"),
         "JAX's 'xla'/'pallas' are the port's 'plain'/'cuda', the kernel the default "
